@@ -1,0 +1,166 @@
+"""Build and load the port's CUDA kernels (route (b): nvcc + ctypes).
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, into a shared library with a plain C interface under
+``libff_tpu_torch/_build/<hash>/``.  The hash covers every source and
+header in ``csrc/`` and the compiler flags, so an edited source builds
+anew and an unchanged tree loads what is there.  Nothing is built when the
+package is imported: the first kernel launch builds, or a caller builds
+ahead of time with :func:`build`.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises on any value other than 0.
+
+``LAUNCHES`` counts kernel launches by kernel id (K1e, K2, K3).  A wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+# ctypes argument types shared by the entry points
+VP = ctypes.c_void_p
+U32P = ctypes.POINTER(ctypes.c_uint32)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD / _digest()
+
+
+def _compile(nvcc: str, src: Path, out: Path) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}{r.stderr}")
+    # ptxas -v: registers, spills and stack of every kernel
+    out.with_suffix(".log").write_text(r.stdout + r.stderr)
+    os.replace(tmp, out)
+    return src.stem, time.perf_counter() - t0
+
+
+def build() -> dict[str, float]:
+    """Compile every csrc/*.cu that is not built yet, one nvcc each, in
+    parallel.  Returns {source stem: seconds} for what was compiled."""
+    out_dir = build_dir()
+    todo = [s for s in _sources() if not (out_dir / f"{s.stem}.so").exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(todo)) as ex:
+        futs = [ex.submit(_compile, nvcc, s, out_dir / f"{s.stem}.so")
+                for s in todo]
+        return dict(f.result() for f in futs)
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from csrc/<stem>.cu (built on first use)."""
+    lib = _libs.get(stem)
+    if lib is None:
+        path = build_dir() / f"{stem}.so"
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        _libs[stem] = lib
+    return lib
+
+
+def function(stem: str, name: str, argtypes: list):
+    """C entry point `name` of csrc/<stem>.cu with its argument types set
+    (pointers and the stream as c_void_p, so none is cut to 32 bits); every
+    entry point returns a CUDA error code."""
+    key = (stem, name)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(library(stem), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def launch(fn, what: str, device: torch.device, *args) -> None:
+    """Call the C entry point fn with `device` current (the caller's
+    current device is restored after) and raise unless it returns 0."""
+    with torch.cuda.device(device):
+        rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def u32_array(vals) -> ctypes.Array:
+    return (ctypes.c_uint32 * len(vals))(*vals)
+
+
+def env_report() -> dict:
+    """Toolchain and card: torch's CUDA version, nvcc's version line, and
+    the card's name and power limit as nvidia-smi reports them."""
+    rep = {"torch": torch.__version__, "torch_cuda": torch.version.cuda,
+           "nvcc": None, "gpu": None}
+    try:
+        r = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                           text=True)
+        lines = [ln for ln in r.stdout.splitlines() if "release" in ln]
+        rep["nvcc"] = lines[-1].strip() if lines else r.stdout.strip()
+    except (RuntimeError, OSError) as e:
+        rep["nvcc"] = f"unavailable: {e}"
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        rep["gpu"] = r.stdout.strip() if r.returncode == 0 else None
+    except OSError:
+        rep["gpu"] = None
+    return rep

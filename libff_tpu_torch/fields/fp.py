@@ -1,0 +1,382 @@
+"""Batched prime-field arithmetic on CUDA tensors (port of
+libff_tpu/fields/fp.py).
+
+An element array has shape ``(n32, *batch)``: ``n32`` 32-bit limbs,
+little-endian, limb axis first, stored as ``torch.int32`` holding the
+uint32 bit pattern.  Values are in Montgomery form with the JAX package's
+R = 2^(64*n64) = 2^(32*n32) and canonically reduced (< p), so the port's
+limbs are the JAX package's 16-bit limbs repacked in pairs
+(``convert.py``).
+
+On a CUDA tensor, ``add``/``sub``/``mul`` launch kernel K1e
+(``csrc/fp_ops.cu``, built on ``csrc/fp.cuh``).  On a CPU tensor they run
+the plain version, :class:`PlainField`, which follows the JAX package's
+16-bit CIOS (fp.py:246-276) in int64 tensors: this torch build has no CPU
+right shift for uint32, and a 32x32-bit product wraps int64.  The plain
+version runs on any device, which is how the card's kernels are checked
+against it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from libff_tpu.host import mont as hm
+
+from .. import _build
+
+MASK16 = 0xFFFF
+
+
+# -- the n16 <-> n32 repack --------------------------------------------------
+
+def to16(x: torch.Tensor) -> torch.Tensor:
+    """(n32, *batch) int32 -> (2*n32, *batch) int64 16-bit limbs."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([u & MASK16, u >> 16], dim=1).reshape(
+        (2 * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def to32(y: torch.Tensor) -> torch.Tensor:
+    """(n16, *batch) int64 16-bit limbs -> (n16/2, *batch) int32."""
+    y = y.reshape((y.shape[0] // 2, 2) + tuple(y.shape[1:]))
+    v = y[:, 0] | (y[:, 1] << 16)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def ints_to_limbs(vals, n32: int) -> np.ndarray:
+    """Host ints (each < 2^(32*n32)) -> (n32, N) uint32 numpy limbs."""
+    raw = b"".join(int(v).to_bytes(4 * n32, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").reshape(len(vals), n32).T.copy()
+
+
+def limbs_to_ints(a: np.ndarray) -> list[int]:
+    """(n32, N) uint32 numpy limbs -> host ints."""
+    raw = np.ascontiguousarray(a.T.astype("<u4")).tobytes()
+    w = 4 * a.shape[0]
+    return [int.from_bytes(raw[i:i + w], "little")
+            for i in range(0, len(raw), w)]
+
+
+def _col(limbs, ndim: int, like: torch.Tensor) -> torch.Tensor:
+    """Host limb list -> int64 tensor (n, 1, ..., 1) on like's device."""
+    return torch.tensor(limbs, dtype=torch.int64, device=like.device).reshape(
+        (len(limbs),) + (1,) * (ndim - 1))
+
+
+def _carry(t: torch.Tensor):
+    """Propagate the carries of relaxed limbs t (n, *batch) int64, entries
+    of either sign: returns canonical 16-bit limbs and the signed carry out
+    of the top limb.  One pass per link of the longest carry run."""
+    out = torch.zeros_like(t[0])
+    while True:
+        c = t >> 16                        # floor: a borrow comes out as -1
+        if not bool(c.any()):
+            return t, out
+        t = t & MASK16
+        t[1:] += c[:-1]
+        out = out + c[-1]
+
+
+def _mul_small_const(F, a, c: int, big):
+    """a * c for a host constant (fp.py:118-141): an addition chain when c
+    or -c is at most 64, else one Montgomery product with big(c)."""
+    c %= F.p
+    if c == 0:
+        return torch.zeros_like(a)
+    neg = F.p - c <= 64
+    k = F.p - c if neg else c
+    if k > 64:
+        return F.mul(a, big(c))
+    acc = None
+    for bit in bin(k)[2:]:
+        acc = F.double(acc) if acc is not None else None
+        if bit == "1":
+            acc = a if acc is None else F.add(acc, a)
+    return F.neg(acc) if neg else acc
+
+
+class PlainField:
+    """The plain version of kernel K1: Montgomery arithmetic on (n16,
+    *batch) int64 tensors of 16-bit limbs, on any device.  Same canonical
+    residues as fields/fp.py's ``_cios`` (a canonical residue is unique):
+    the CIOS outer loop with the limb carries deferred, which int64
+    columns hold (each column sums at most 2n products below 2^32)."""
+
+    def __init__(self, p: int, bits: int | None = None):
+        self.mp = hm.derive(p, bits)
+        self.p = p
+        self.n = self.mp.n16
+        self.inv16 = self.mp.inv16
+        self._p = hm.int_to_limbs(p, self.n)
+
+    def add(self, a, b):
+        # a + b and a + b - p carried in one pass; keep the difference
+        # unless it went negative
+        u = a + b
+        r, out = _carry(torch.stack([u, u - _col(self._p, u.ndim, u)], 1))
+        return torch.where((out[1] >= 0)[None], r[:, 1], r[:, 0])
+
+    def sub(self, a, b):
+        # a - b and a - b + p carried in one pass; keep the first unless it
+        # went negative
+        v = a - b
+        r, out = _carry(torch.stack([v, v + _col(self._p, v.ndim, v)], 1))
+        return torch.where((out[0] >= 0)[None], r[:, 0], r[:, 1])
+
+    def neg(self, a):
+        return self.sub(torch.zeros_like(a), a)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def mul(self, a, b):
+        a, b = torch.broadcast_tensors(a, b)
+        n = self.n
+        p = _col(self._p, b.ndim, b)
+        # column k of a*b + m*p at t[k]; round i zeroes column i mod 2^16
+        # and carries it into column i + 1, so t[n:] ends as the product
+        # times 2^(-16n), below 2p, in relaxed limbs
+        t = torch.zeros((2 * n + 1,) + tuple(b.shape[1:]), dtype=torch.int64,
+                        device=b.device)
+        for i in range(n):
+            t[i:i + n] += a[i] * b
+            m = ((t[i] & MASK16) * self.inv16) & MASK16
+            t[i:i + n] += m * p
+            t[i + 1] += t[i] >> 16
+        t, _ = _carry(t[n:])                   # value < 2p: t[n] is 0 or 1
+        d, brw = _carry(t[:n] - p)
+        return torch.where((t[n] + brw >= 0)[None], d, t[:n])
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def mul_small_const(self, a, c: int):
+        def big(c):
+            cm = hm.int_to_limbs(hm.to_mont(self.mp, c), self.n)
+            return _col(cm, a.ndim, a).expand_as(a)
+
+        return _mul_small_const(self, a, c, big)
+
+
+# -- kernel K1e ---------------------------------------------------------------
+
+_K1E_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
+             _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+
+
+def fp_op(F: "PrimeField", op: str, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """Elementwise a (op) b, op in add/sub/mul, over equal-shape (n32,
+    *batch) int32 arrays.  A CPU tensor takes the plain version; a CUDA
+    tensor launches kernel K1e."""
+    if op not in ("add", "sub", "mul"):
+        raise ValueError(f"unknown field op {op!r}")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"operands differ: {tuple(a.shape)} on {a.device} "
+                         f"vs {tuple(b.shape)} on {b.device}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("field arrays are torch.int32")
+    if a.ndim < 1 or a.shape[0] != F.n32:
+        raise ValueError(f"limb axis of {tuple(a.shape)} is not n32 = {F.n32}")
+    if a.device.type == "cpu":
+        return fp_op_plain(F, op, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    if F.n32 != 8:
+        raise NotImplementedError(
+            f"K1e is built for 8 limbs (254-bit fields), not n32 = {F.n32}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    fn = _build.function("fp_ops", f"fp_{op}", _K1E_ARGS)
+    _build.launch(fn, f"K1e fp_{op}", a.device, _build.ptr(out),
+                  _build.ptr(a), _build.ptr(b), a.numel() // F.n32, F.n32,
+                  F.p_c, F.inv32, a.get_device(), _build.stream_ptr(a))
+    _build.LAUNCHES["K1e"] += 1
+    return out
+
+
+def fp_op_plain(F: "PrimeField", op: str, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The plain version of K1e, on any device."""
+    return to32(getattr(F.plain, op)(to16(a), to16(b)))
+
+
+def _align(a, b):
+    """Broadcast two element arrays whose batch dims trail: pad the
+    lower-rank one with trailing singleton dims first (fp.py:43-50)."""
+    nd = max(a.ndim, b.ndim)
+    a = a.reshape(tuple(a.shape) + (1,) * (nd - a.ndim))
+    b = b.reshape(tuple(b.shape) + (1,) * (nd - b.ndim))
+    return torch.broadcast_tensors(a, b)
+
+
+class PrimeField:
+    """Vectorized arithmetic over F_p on (n32, *batch) int32 tensors."""
+
+    def __init__(self, p: int, bits: int | None = None, name: str = "Fp"):
+        self.name = name
+        self.mp = hm.derive(p, bits)
+        self.p = p
+        self.n16 = self.mp.n16
+        self.n32 = self.n16 // 2
+        self.inv32 = self.mp.inv64 & 0xFFFFFFFF      # -p^-1 mod 2^32
+        self.p_limbs = self._limbs(p)
+        self.one_limbs = self._limbs(self.mp.R % p)
+        self.plain = PlainField(p, bits)
+        # host copies handed to the kernels' C entry points
+        self.p_c = _build.u32_array(self.p_limbs)
+        self.one_c = _build.u32_array(self.one_limbs)
+
+    def _limbs(self, v: int) -> list[int]:
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.n32)]
+
+    @staticmethod
+    def _tensor(limbs: np.ndarray, device) -> torch.Tensor:
+        return torch.from_numpy(
+            np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32)
+        ).to(device)
+
+    # -- host conversion ----------------------------------------------------
+    def const(self, v: int, device=None) -> torch.Tensor:
+        """Montgomery-form constant, shape (n32,)."""
+        return self._tensor(np.array(self._limbs(hm.to_mont(self.mp, v)),
+                                     dtype=np.uint32), device)
+
+    def from_ints(self, vals, device=None) -> torch.Tensor:
+        """Host ints -> Montgomery limb array (n32, N) (or (n32,))."""
+        if isinstance(vals, int):
+            return self.const(vals, device)
+        mont = [hm.to_mont(self.mp, int(v)) for v in vals]
+        return self._tensor(ints_to_limbs(mont, self.n32), device)
+
+    def to_ints(self, x: torch.Tensor) -> list[int]:
+        """Montgomery limb array -> host plain ints (batch flattened)."""
+        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
+        return [hm.from_mont(self.mp, v) for v in limbs_to_ints(a)]
+
+    def plain_from_ints(self, vals, device=None) -> torch.Tensor:
+        """Host ints -> plain (non-Montgomery) limb array (n32, N)."""
+        if isinstance(vals, int):
+            return self._tensor(np.array(self._limbs(vals % self.p),
+                                         dtype=np.uint32), device)
+        return self._tensor(ints_to_limbs([int(v) % self.p for v in vals],
+                                          self.n32), device)
+
+    def plain_to_ints(self, x: torch.Tensor) -> list[int]:
+        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
+        return limbs_to_ints(a)
+
+    # -- constructors --------------------------------------------------------
+    def zero(self, batch=(), device=None) -> torch.Tensor:
+        return torch.zeros((self.n32, *batch), dtype=torch.int32,
+                           device=device)
+
+    def one(self, batch=(), device=None) -> torch.Tensor:
+        o = self._tensor(np.array(self.one_limbs, dtype=np.uint32), device)
+        return o.reshape((self.n32,) + (1,) * len(batch)).expand(
+            (self.n32, *batch))
+
+    # -- ring ops -----------------------------------------------------------
+    def add(self, a, b):
+        return fp_op(self, "add", *_align(a, b))
+
+    def sub(self, a, b):
+        return fp_op(self, "sub", *_align(a, b))
+
+    def mul(self, a, b):
+        return fp_op(self, "mul", *_align(a, b))
+
+    def neg(self, a):
+        return self.sub(torch.zeros_like(a), a)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def mul_small_const(self, a, c: int):
+        return _mul_small_const(
+            self, a, c,
+            lambda c: self.const(c, a.device).reshape(
+                (self.n32,) + (1,) * (a.ndim - 1)).expand_as(a))
+
+    # -- Montgomery domain conversion -----------------------------------------
+    def to_mont(self, a_plain):
+        """plain limbs -> Montgomery form (times R^2, fp.py:422-426)."""
+        r2 = self._tensor(np.array(self._limbs(self.mp.R2), dtype=np.uint32),
+                          a_plain.device)
+        return self.mul(a_plain, r2.reshape(
+            (self.n32,) + (1,) * (a_plain.ndim - 1)).expand_as(a_plain))
+
+    def from_mont(self, a):
+        """Montgomery form -> plain limbs (times 1, fp.py:428-432)."""
+        o = self._tensor(np.array(self._limbs(1), dtype=np.uint32), a.device)
+        return self.mul(a, o.reshape((self.n32,) + (1,) * (a.ndim - 1))
+                        .expand_as(a))
+
+    # -- predicates -----------------------------------------------------------
+    def is_zero(self, a):
+        return (a == 0).all(dim=0)
+
+    def eq(self, a, b):
+        # canonical representation => limb-wise equality
+        return (a == b).all(dim=0)
+
+    def select(self, mask, a, b):
+        """where(mask, a, b) with a batch-shaped mask."""
+        return torch.where(mask[None], a, b)
+
+    # -- exponentiation ---------------------------------------------------------
+    def pow_static(self, a, e: int):
+        """a^e for a host exponent, square-and-multiply msb first
+        (fp.py:447-463; squarings of the leading one are skipped)."""
+        if e == 0:
+            return self.one(tuple(a.shape[1:]), a.device).contiguous()
+        acc = None
+        for bit in bin(e)[2:]:
+            if acc is not None:
+                acc = self.sqr(acc)
+            if bit == "1":
+                acc = a if acc is None else self.mul(acc, a)
+        return acc
+
+    def inv(self, a):
+        """Fermat inverse a^(p-2); maps 0 to 0 (fp.py:465-468)."""
+        return self.pow_static(a, self.p - 2)
+
+    def _prefix_products(self, x, axis: int):
+        """Inclusive prefix products along `axis` in log2(n) rounds."""
+        n = x.shape[axis]
+        k = 1
+        while k < n:
+            x = torch.cat([x.narrow(axis, 0, k),
+                           self.mul(x.narrow(axis, k, n - k),
+                                    x.narrow(axis, 0, n - k))], dim=axis)
+            k *= 2
+        return x
+
+    def batch_inverse(self, a, axis: int = -1):
+        """Montgomery-trick batch inversion along a batch axis
+        (fp.py:470-492): prefix and suffix products, one Fermat inversion.
+        Zeros pass through as zeros."""
+        axis = axis % a.ndim
+        if axis == 0:
+            raise ValueError("axis 0 is the limb axis")
+        nz = ~self.is_zero(a)
+        one = self.one(tuple(a.shape[1:]), a.device)
+        x = torch.where(nz[None], a, one)
+        pre = self._prefix_products(x, axis)
+        suf = self._prefix_products(x.flip(axis), axis).flip(axis)
+        n = a.shape[axis]
+        total = pre.narrow(axis, n - 1, 1)
+        inv_total = self.inv(total.contiguous())
+        one1 = one.narrow(axis, 0, 1)
+        excl_pre = torch.cat([one1, pre.narrow(axis, 0, n - 1)], dim=axis)
+        excl_suf = torch.cat([suf.narrow(axis, 1, n - 1), one1], dim=axis)
+        out = self.mul(self.mul(excl_pre, excl_suf), inv_total.expand_as(a))
+        return torch.where(nz[None], out, torch.zeros_like(out))

@@ -1,0 +1,99 @@
+"""Kernel K2: the MSM bucket insert (port of
+libff_tpu/msm/pallas_insert3.py, G1 branch).
+
+:func:`insert` keeps ``insert_pallas3``'s contract (pallas_insert3.py:301):
+signed digits ``d (W, T, L)``; points ``(px, py, pneg, pinf)`` with
+coordinates ``(n32, T, L)`` and ``pinf (T, L)`` bool; it returns the raw
+projective buckets with coordinates ``(n32, W, B, L)``, bit-identical to
+the TPU kernel's after the limb repack.  A CUDA tensor launches
+``csrc/insert.cu``; a CPU tensor runs :func:`insert_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from libff_tpu.curves import formulas as fml
+
+from .. import _build
+from ..curves.group import ProjectivePoint
+from ..fields.fp import to16, to32
+
+_ARGS = [_build.VP] * 8 + [ctypes.c_int] * 6 + [
+    _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+
+
+def _check(G, d, pts, B):
+    px, py, pneg, pinf = pts
+    if d.ndim != 3 or d.dtype != torch.int32:
+        raise ValueError("digits are (W, T, L) int32")
+    W, T, L = d.shape
+    n = G.F.n32
+    for c in (px, py, pneg):
+        if c.shape != (n, T, L) or c.dtype != torch.int32:
+            raise ValueError(f"point coordinates are ({n}, {T}, {L}) int32")
+    if pinf.shape != (T, L) or pinf.dtype != torch.bool:
+        raise ValueError(f"pinf is ({T}, {L}) bool")
+    if any(a.device != d.device for a in pts):
+        raise ValueError("digits and points lie on different devices")
+    if B < 1:
+        raise ValueError("B >= 1 buckets")
+    if not G.a_is_zero:
+        raise NotImplementedError("the complete insert needs a == 0")
+
+
+def insert(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
+    """Bucket accumulation: bucket |d|-1 of (window, lane) += +-P in t
+    order; zero digits and points at infinity leave it unchanged."""
+    _check(G, d, pts, B)
+    if d.device.type == "cpu":
+        return insert_plain(G, d, pts, B)
+    if d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {d.device}")
+    if G.F.n32 != 8 or G._b3_host != 9:
+        raise NotImplementedError(
+            "K2 is built for 254-bit fields with b3 = 9 (alt_bn128 G1)")
+    W, T, L = d.shape
+    px, py, pneg, pinf = (a.contiguous() for a in pts)
+    d = d.contiguous()
+    pinf = pinf.to(torch.int32).contiguous()
+    out = [torch.empty((G.F.n32, W, B, L), dtype=torch.int32,
+                       device=d.device) for _ in range(3)]
+    fn = _build.function("insert", "insert", _ARGS)
+    _build.launch(fn, "K2 insert", d.device,
+                  *(_build.ptr(a) for a in (d, px, py, pneg, pinf, *out)),
+                  W, T, L, B, G.F.n32, G._b3_host, G.F.p_c, G.F.one_c,
+                  G.F.inv32, d.get_device(), _build.stream_ptr(d))
+    _build.LAUNCHES["K2"] += 1
+    return ProjectivePoint(*out)
+
+
+def insert_plain(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
+    """The plain version of K2 on any device: a loop over t with
+    gather/scatter on the bucket axis and formulas.rcb_madd_a0 over the
+    plain field (pallas_insert3.py:127-170)."""
+    _check(G, d, pts, B)
+    F = G.F.plain
+    px, py, pneg, pinf = pts
+    W, T, L = d.shape
+    n = F.n
+    dev = d.device
+    one = to16(G.F.one((W, B, L), dev))
+    bx, by, bz = torch.zeros_like(one), one.clone(), torch.zeros_like(one)
+    px, py, pneg = to16(px), to16(py), to16(pneg)
+    for t in range(T):
+        dt = d[:, t, :].to(torch.int64)                  # (W, L)
+        absd = dt.abs()
+        idx = (absd - 1).clamp(0, B - 1)
+        valid = (absd > 0) & ~pinf[t][None, :]
+        gi = idx[None, :, None, :].expand(n, W, 1, L)
+        cx, cy, cz = (b.gather(2, gi).squeeze(2) for b in (bx, by, bz))
+        qx = px[:, t][:, None, :].expand(n, W, L)
+        qy = torch.where((dt < 0)[None], pneg[:, t][:, None, :],
+                         py[:, t][:, None, :])
+        new = fml.rcb_madd_a0(F, cx, cy, cz, qx, qy, G._b3_host)
+        for b, cur, nv in zip((bx, by, bz), (cx, cy, cz), new):
+            b.scatter_(2, gi, torch.where(valid[None], nv, cur).unsqueeze(2))
+    return ProjectivePoint(to32(bx), to32(by), to32(bz))
