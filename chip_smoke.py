@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Run the port's main path on one NVIDIA card and hold every kernel
+"""Run the port's main paths on one NVIDIA card and hold every kernel
 against its plain PyTorch version.
 
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2, K3), checks
-each bit for bit against its plain version on the card at the shapes the
-main path gives it (K2 on distinct points, some at infinity), then runs the
-alt_bn128 G1 signed Pippenger MSM at 2^20 points through
-``msm_pippenger`` and holds the affine result against the exact oracle of
-bench.py:113-137.  Each phase prints one JSON line; then a line listing
-the kernels with their launch counts from the MSM run, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed
+It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2, K3, K4e),
+checks each bit for bit against its plain version on the card at the
+shapes its path gives it (K2 on distinct points, some at infinity), and
+runs two paths through ``msm_pippenger``:
+
+- the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
+  exact oracle of bench.py:113-137 (K1e, K2 and K3's G1 branches);
+- the alt_bn128 G2 MSM over Fq2 at 2^18 points, held against the oracle
+  of profile/bench_g2.py:76-80 (K1e, K4e, K2 and K3's G2 branches).
+
+The launch counts are set to 0 just before each path's first run and read
+just after it.  Each phase prints one JSON line; then a line listing the
+kernels with their times, bounds and launch counts, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the exit code is not 0.  Without a card it exits 2 and
 prints no result.
 """
@@ -28,8 +34,25 @@ import numpy as np
 import torch
 
 LOG2N = 20
+LOG2N_G2 = 18
 SEED = 2024
 MSM_STEADY_RUNS = 10
+# event_ms's spin before the timed calls: 10^8 cycles, about 50 ms at a
+# 1980 MHz SM clock, longer than the host takes to queue 200 calls
+SPIN_CYCLES = 10 ** 8
+# the card's memory rate and integer-multiply issue rate, for the bounds:
+# 3.35 TB/s of HBM3 (H100 SXM data sheet); 64 32-bit integer multiply-adds
+# (IMAD, one per mad.lo or mad.hi) per clock per SM on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
+# times the SM count and the card's maximum SM clock read at run time
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_CLOCK_PER_SM = 64
+# IMADs of one 8-limb Montgomery product (fp.cuh: 8 rows of 8 mad.lo,
+# 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8 mad.hi)
+IMAD_PER_FP_MUL = 264
+# base-field products per element: K3 padd (12 products; an Fq2 product is
+# three, and G2's two products by b3 add six) and K2's mixed add (11; 39)
+FP_MULS = {"padd": {1: 12, 2: 42}, "madd": {1: 11, 2: 39}}
 
 
 def emit(obj: dict) -> None:
@@ -41,11 +64,15 @@ def fail(msg: str):
 
 
 def event_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of fn over reps calls (warmed)."""
+    """Mean device milliseconds per call of fn over reps calls (warmed).
+    A spin kernel holds the stream while the host queues the calls, so a
+    call whose kernel is shorter than its Python launch path is timed by
+    the card, not by the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     s.record()
     for _ in range(reps):
         fn()
@@ -72,11 +99,42 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def imad_per_s() -> float:
+    """The card's 32-bit integer multiply-add peak, derived from its SM
+    count and maximum SM clock (not a data-sheet figure)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, check=True)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * IMAD_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, imads: float, peak_imad: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the multiplies over the integer-multiply peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / peak_imad * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "imads": imads}
+
+
 def rand_elements(F, n: int, rng, dev) -> torch.Tensor:
-    """n canonical field elements (n32, n): random limbs under p's top limb."""
-    limbs = rng.integers(0, 1 << 32, size=(F.n32, n), dtype=np.uint64)
-    limbs[-1] = rng.integers(0, F.p_limbs[-1], size=n, dtype=np.uint64)
-    return torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
+    """n canonical field elements (*el, n): random limbs under p's top limb
+    in every coefficient."""
+    B = F.prime_field
+    k = F.el_shape[0] if F.el_ndim == 2 else 1
+    limbs = rng.integers(0, 1 << 32, size=(k, B.n32, n), dtype=np.uint64)
+    limbs[:, -1] = rng.integers(0, B.p_limbs[-1], size=(k, n), dtype=np.uint64)
+    t = torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
+    return t.reshape(F.el_shape + (n,))
+
+
+def edge_values(B) -> list[int]:
+    p, R = B.p, B.mp.R
+    return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, p - R % p,
+                   (1 << 32) - 1, (1 << 224) % p, p - (1 << 128)})
 
 
 def phase_k1e(F, rng, dev) -> dict:
@@ -90,10 +148,7 @@ def phase_k1e(F, rng, dev) -> dict:
     for n in res["checked_n"]:
         a, b = rand_elements(F, n, rng, dev), rand_elements(F, n, rng, dev)
         if n > 1:
-            p, R = F.p, F.mp.R
-            edges = sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p,
-                            p - R % p, (1 << 32) - 1, (1 << 224) % p,
-                            p - (1 << 128)})
+            edges = edge_values(F)
             pairs = [(x, y) for x in edges for y in edges]
             a[:, :len(pairs)] = F.plain_from_ints([x for x, _ in pairs], dev)
             b[:, :len(pairs)] = F.plain_from_ints([y for _, y in pairs], dev)
@@ -113,23 +168,62 @@ def phase_k1e(F, rng, dev) -> dict:
     return res
 
 
+def phase_k4e(F2, rng, dev) -> dict:
+    """Fq2 mul and sqr (K4e), and add, sub and neg (sub from 0; K1e's Fq2
+    branch, on the (2*n32, N) view) at the G2 path's shapes: one element
+    (the inverse and the products of to_affine) and 2^18 (the negation of
+    every y in _prepare, the batch inversion of the K2 check's points),
+    with every pair of edge coefficients; timed at 2^18."""
+    from libff_tpu_torch.fields.tower import fq2_op, fq2_op_plain
+
+    B = F2.B
+    res = {"name": "K4e", "n": 1 << LOG2N_G2,
+           "checked_n": [1, 1 << LOG2N_G2], "ops": {}, "k1e_ops": {}}
+    err = {"ops": 0, "k1e_ops": 0}
+    for n in res["checked_n"]:
+        a, b = rand_elements(F2, n, rng, dev), rand_elements(F2, n, rng, dev)
+        if n > 1:
+            edges = edge_values(B)
+            pairs = [(x, y) for x in edges for y in edges]
+            m = len(pairs)
+            for i, j in ((0, 1), (1, 0)):   # a = (x, y), b = (y, x)
+                a[i, :, :m] = B.plain_from_ints([q[i] for q in pairs], dev)
+                b[j, :, :m] = B.plain_from_ints([q[i] for q in pairs], dev)
+        cases = {"mul": ("ops", "mul", a, b), "sqr": ("ops", "sqr", a, b),
+                 "add": ("k1e_ops", "add", a, b),
+                 "sub": ("k1e_ops", "sub", a, b),
+                 "neg": ("k1e_ops", "sub", torch.zeros_like(b), b)}
+        for name, (kind, op, x, y) in cases.items():
+            want, plain_ms = host_timed(lambda: fq2_op_plain(F2, op, x, y))
+            e = max_abs_err([fq2_op(F2, op, x, y)], [want])
+            err[kind] = max(err[kind], e)
+            if n == res["n"]:
+                res[kind][name] = {
+                    "max_abs_err": e, "plain_ms": plain_ms,
+                    "ms": event_ms(lambda: fq2_op(F2, op, x, y), 200)}
+    res["max_abs_err"], res["k1e_max_abs_err"] = err["ops"], err["k1e_ops"]
+    if err["ops"] or err["k1e_ops"]:
+        fail(f"K4e or K1e on Fq2 disagrees with its plain version: {res}")
+    return res
+
+
 def k3_inputs(F, n: int, rng, dev):
     """Six coordinate arrays and a mask, random elements with edge lanes:
     P = 0, Q = 0, Q = P, Q = -P and Q = P in another Jacobian scaling."""
     c = [rand_elements(F, n, rng, dev) for _ in range(6)]
     x1, y1, z1, x2, y2, z2 = c
     w = rand_elements(F, 64, rng, dev)
-    z1[:, 0:64] = 0                                   # P = 0
-    z2[:, 64:128] = 0                                 # Q = 0
+    z1[..., 0:64] = 0                                 # P = 0
+    z2[..., 64:128] = 0                               # Q = 0
     for k in range(3):                                # Q = P
-        c[3 + k][:, 128:192] = c[k][:, 128:192]
-    x2[:, 192:256], z2[:, 192:256] = x1[:, 192:256], z1[:, 192:256]
-    y2[:, 192:256] = F.neg(y1[:, 192:256])            # Q = -P
+        c[3 + k][..., 128:192] = c[k][..., 128:192]
+    x2[..., 192:256], z2[..., 192:256] = x1[..., 192:256], z1[..., 192:256]
+    y2[..., 192:256] = F.neg(y1[..., 192:256])        # Q = -P
     s = slice(256, 320)                               # Q = P scaled by w
     w2 = F.sqr(w)
-    x2[:, s] = F.mul(x1[:, s], w2)
-    y2[:, s] = F.mul(y1[:, s], F.mul(w2, w))
-    z2[:, s] = F.mul(z1[:, s], w)
+    x2[..., s] = F.mul(x1[..., s], w2)
+    y2[..., s] = F.mul(y1[..., s], F.mul(w2, w))
+    z2[..., s] = F.mul(z1[..., s], w)
     q_inf = torch.zeros(n, dtype=torch.bool, device=dev)
     q_inf[64:128] = True
     q_inf[1024:1100] = True
@@ -138,19 +232,20 @@ def k3_inputs(F, n: int, rng, dev):
     ax, ay = x2.clone(), y2.clone()
     x1m, y1m, z1m = x1.clone(), y1.clone(), z1.clone()
     for sl, sign in ((s, 1), (slice(320, 384), -1)):
-        ax[:, sl] = x1[:, sl]
-        ay[:, sl] = y1[:, sl] if sign > 0 else F.neg(y1[:, sl])
-        x1m[:, sl] = F.mul(x1[:, sl], w2)
-        y1m[:, sl] = F.mul(y1[:, sl], F.mul(w2, w))
-        z1m[:, sl] = w
+        ax[..., sl] = x1[..., sl]
+        ay[..., sl] = y1[..., sl] if sign > 0 else F.neg(y1[..., sl])
+        x1m[..., sl] = F.mul(x1[..., sl], w2)
+        y1m[..., sl] = F.mul(y1[..., sl], F.mul(w2, w))
+        z1m[..., sl] = w
     return c, (x1m, y1m, z1m, ax, ay), q_inf
 
 
-def phase_k3(G, rng, dev) -> dict:
-    """All six ops at 2^21 points, the main path's largest padd (the first
-    lane-halving level at c = 8, 1024 lanes), timed there; padd also at 1
-    point and padd and pdbl at 32 (the Horner scan's and the last sum
-    tree's sizes)."""
+def phase_k3(G, group: str, rng, dev) -> dict:
+    """All six ops at 2^21 points, each path's largest padd (the first
+    lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512 for G1
+    at 2^20 and for G2 at 2^18), timed there; padd also at 1 point and
+    padd and pdbl at 32 (the Horner scan's and the last sum tree's
+    sizes)."""
     from libff_tpu_torch.curves.group_ops import group_op, group_op_plain
 
     n = 1 << 21
@@ -158,88 +253,178 @@ def phase_k3(G, rng, dev) -> dict:
     args = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
             "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
             "madd": (list(cm), (q_inf,))}
-    res = {"name": "K3", "n": n, "ops": {}}
+    res = {"name": f"K3 {group}", "n": n, "ops": {}}
     err = 0
     for op, (coords, masks) in args.items():
         want, plain_ms = host_timed(
             lambda: group_op_plain(G, op, coords, masks))
         e = max_abs_err(group_op(G, op, coords, masks), want)
+        del want
         err = max(err, e)
         res["ops"][op] = {
             "max_abs_err": e, "plain_ms": plain_ms,
             "ms": event_ms(lambda: group_op(G, op, coords, masks), 20)}
     for op, m in (("padd", 1), ("padd", 32), ("pdbl", 32)):
-        coords = [a[:, 4096:4096 + m].contiguous() for a in args[op][0]]
+        coords = [a[..., 4096:4096 + m].contiguous() for a in args[op][0]]
         e = max_abs_err(group_op(G, op, coords),
                         group_op_plain(G, op, coords))
         err = max(err, e)
         res["ops"][f"{op}_{m}"] = {"max_abs_err": e}
     res["max_abs_err"] = err
     if err:
-        fail(f"K3 disagrees with its plain version: {res}")
+        fail(f"K3 disagrees with its plain version on {group}: {res}")
     return res
 
 
-def prepared(dc, scalars, points, cfg):
+def prepared(G, scalars, points, cfg):
     """The main path's insert inputs: (d, pts, B)."""
     from libff_tpu_torch.msm import digits as dig
     from libff_tpu_torch.msm.pippenger import _prepare
 
-    G = dc.g1
     W = dig.num_signed_digits(G.order, 254, cfg.c)
     s, pts, T, L = _prepare(G, scalars, points, cfg)
-    return dig.signed_digits(s, cfg.c, W).reshape(W, T, L), pts, 1 << (cfg.c - 1)
+    d = dig.signed_digits(s, cfg.c, W).reshape(W, T, L)
+    return d, pts, 1 << (cfg.c - 1)
 
 
-def k2_inputs(dc, n: int, cfg, rng, dev):
-    """The insert's inputs for n points under cfg, through the main path's
-    _prepare and digits, with points that do not repeat: point t*L + l is
-    (a + l*s + b + t*u) * gen for random a, s, b, u, the L + T host points
-    summed on the card by K3.  About 1 in 64 points is flagged at infinity
-    with its coordinates kept.  Returns (d, pts, B)."""
+def k2_inputs(dc, group: str, n: int, cfg, rng, dev):
+    """The insert's inputs for n points of `group` under cfg, through the
+    main path's _prepare and digits, with points that do not repeat: point
+    t*L + l is (a + l*s + b + t*u) * gen for random a, s, b, u, the L + T
+    host points summed on the card by K3.  About 1 in 64 points is flagged
+    at infinity with its coordinates kept.  Returns (d, pts, B)."""
     from libff_tpu_torch import convert, workload
     from libff_tpu_torch.curves.group import AffinePoint, ProjectivePoint
 
-    cd, G = dc.cd, dc.g1
+    cd, G = dc.cd, getattr(dc, group)
+    el, nd = G.F.el_shape, G.F.el_ndim
     L = min(cfg.lanes, n)
     T = n // L
     a, s, b, u = (int.from_bytes(rng.bytes(32), "little") % cd.r
                   for _ in range(4))
 
     def proj(start, step, m, shape):
-        x, y = workload.affine_limbs(cd, workload.progression(cd, start, step, m))
-        A = convert.affine_to_torch((x, y, np.zeros(m, dtype=bool)), dev)
-        return ProjectivePoint(*(c.reshape(shape)
+        pts = workload.progression(cd, start, step, m, group)
+        x, y = workload.affine_limbs(cd, pts)
+        A = convert.affine_to_torch((x, y, np.zeros(m, dtype=bool)), dev, nd)
+        return ProjectivePoint(*(c.reshape(el + shape)
                                  for c in G.proj_from_affine(A)))
 
-    n32 = G.F.n32
-    P = G.padd(proj(b, u, T, (n32, T, 1)), proj(a, s, L, (n32, 1, L)))
+    P = G.padd(proj(b, u, T, (T, 1)), proj(a, s, L, (1, L)))
     A = G.to_affine(G.proj_to_jacobian(P))
-    x, y = A.x.reshape(n32, n), A.y.reshape(n32, n)
-    if bool(A.inf.any()) or torch.unique(x.T, dim=0).shape[0] != n:
+    x, y = A.x.reshape(el + (n,)), A.y.reshape(el + (n,))
+    if bool(A.inf.any()) or torch.unique(x.reshape(-1, n).T,
+                                         dim=0).shape[0] != n:
         fail("the K2 check's points are not distinct")
     inf = torch.from_numpy(rng.random(n) < 1 / 64).to(dev)
     scalars = convert.field_to_torch(workload.random_scalars(cd, n, rng), dev)
-    return prepared(dc, scalars, AffinePoint(x, y, inf), cfg)
+    return prepared(G, scalars, AffinePoint(x, y, inf), cfg)
 
 
-def phase_k2(dc, n: int, cfg, rng, dev) -> dict:
-    """K2 against its plain version at the main path's shape, on points
-    that do not repeat and some at infinity."""
+def phase_k2(dc, group: str, n: int, cfg, rng, dev) -> dict:
+    """K2 against its plain version at the path's shape, on points that do
+    not repeat and some at infinity."""
     from libff_tpu_torch.msm.insert import insert, insert_plain
 
-    G = dc.g1
-    d, pts, B = k2_inputs(dc, n, cfg, rng, dev)
+    G = getattr(dc, group)
+    d, pts, B = k2_inputs(dc, group, n, cfg, rng, dev)
     want, plain_ms = host_timed(lambda: insert_plain(G, d, pts, B))
     err = max_abs_err(insert(G, d, pts, B), want)
     del want
-    res = {"name": "K2", "shape": list(d.shape) + [B], "max_abs_err": err,
-           "points_at_infinity": int(pts[3].sum()),
-           "zero_digits": int((d == 0).sum()), "plain_ms": plain_ms,
+    madds = int(((d != 0) & ~pts[3][None]).sum())
+    res = {"name": f"K2 {group}", "shape": list(d.shape) + [B],
+           "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
+           "zero_digits": int((d == 0).sum()), "madds": madds,
+           "plain_ms": plain_ms,
            "ms": event_ms(lambda: insert(G, d, pts, B), 3)}
     if err:
-        fail(f"K2 disagrees with its plain version: {res}")
+        fail(f"K2 disagrees with its plain version on {group}: {res}")
     return res
+
+
+def phase_msm(dc, group: str, log2n: int, dev) -> dict:
+    """The path itself: the MSM of `group` at 2^log2n points through
+    msm_pippenger and to_affine, held against the structured oracle in a
+    first run and MSM_STEADY_RUNS steady runs.  The launch counts are set
+    to 0 just before the first run and read just after it."""
+    from libff_tpu_torch import _build, workload
+    from libff_tpu_torch.msm.pippenger import default_config
+
+    G = getattr(dc, group)
+    n = 1 << log2n
+    cfg = default_config(n, dev)
+    scalars, points, want = workload.msm_case(dc, group, log2n, dev, SEED)
+    runs = []
+    for run in range(1 + MSM_STEADY_RUNS):
+        if run == 0:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+        got, total, times = workload.run_msm(G, scalars, points, cfg)
+        if run == 0:
+            launches = dict(_build.LAUNCHES)
+        if got != want:
+            fail(f"{group} MSM run {run} gives {got}, the oracle {want}")
+        runs.append({"seconds": total, "phases": times})
+    # run 0 pays the first call's set-up (lazy module loading, allocator
+    # growth); the steady runs give the median and quartiles
+    steady = sorted(r["seconds"] for r in runs[1:])
+    q1, med, q3 = np.percentile(steady, [25, 50, 75]).tolist()
+    return {"curve": "alt_bn128", "group": group.upper(), "log2n": log2n,
+            "config": cfg._asdict(), "equal_to_oracle": True,
+            "first_run": runs[0], "steady_runs": len(steady),
+            "seconds_median": med, "seconds_q1": q1, "seconds_q3": q3,
+            "seconds_min": steady[0], "seconds_max": steady[-1],
+            "phases_median": {k: float(np.median([r["phases"][k]
+                                                  for r in runs[1:]]))
+                              for k in runs[0]["phases"]},
+            "points_per_sec": n / med, "launches": launches}
+
+
+def kernel_line(k1e, k4e, k3, k2, msm, peak) -> list[dict]:
+    """One entry per kernel and branch: its time, its plain version's,
+    its bound at the timed shape, and its launches in its path's MSM run
+    (no single PyTorch call computes a Montgomery or group operation, so
+    library_ms is null)."""
+    src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
+    words = {1: 8, 2: 16}           # 32-bit words of an Fp, an Fq2 element
+    out = []
+
+    def add(name, path, source, replaces, ms, plain_ms, shape, err, bnd):
+        out.append({"name": name, "route": "cuda", "source": src + source,
+                    "replaces": ref + replaces, "launches":
+                    msm[path]["launches"].get(name, 0), "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, **bnd,
+                    "library_ms": None, "shape": shape})
+
+    n = k1e["n"]
+    add("K1e", "g1", "fp_ops.cu", "msm/pallas_insert.py:87",
+        k1e["ops"]["mul"]["ms"], k1e["ops"]["mul"]["plain_ms"], [8, n],
+        max(k1e["max_abs_err"], k4e["k1e_max_abs_err"]),
+        bound(3 * 32 * n, IMAD_PER_FP_MUL * n, peak))
+    # its Fq2 branch (add, sub, neg of the G2 path) is checked in phase_k4e
+    out[-1]["launches_g2"] = msm["g2"]["launches"].get("K1e", 0)
+    n = k4e["n"]
+    add("K4e", "g2", "fp_ops.cu", "msm/pallas_insert.py:133",
+        k4e["ops"]["mul"]["ms"], k4e["ops"]["mul"]["plain_ms"], [2, 8, n],
+        k4e["max_abs_err"],
+        bound(3 * 64 * n, 3 * IMAD_PER_FP_MUL * n, peak))
+    for g, k in (("g1", 1), ("g2", 2)):
+        r = k3[g]
+        n = r["n"]
+        add(f"K3 {g}", g, "group_ops.cu", "curves/pallas_ops.py:66",
+            r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"],
+            [2, 8, n] if k == 2 else [8, n], r["max_abs_err"],
+            bound(9 * 4 * words[k] * n,
+                  FP_MULS["padd"][k] * IMAD_PER_FP_MUL * n, peak))
+        r = k2[g]
+        W, T, L, B = r["shape"]
+        nbytes = 4 * (W * T * L + T * L + 3 * words[k] * T * L
+                      + 3 * words[k] * W * B * L)
+        add(f"K2 {g}", g, "insert.cu", "msm/pallas_insert3.py:74",
+            r["ms"], r["plain_ms"], r["shape"], r["max_abs_err"],
+            bound(nbytes, FP_MULS["madd"][k] * IMAD_PER_FP_MUL * r["madds"],
+                  peak))
+    return out
 
 
 def main() -> int:
@@ -247,9 +432,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from libff_tpu_torch import _build, convert, workload
+    from libff_tpu_torch import _build
     from libff_tpu_torch.curves.device import device_curve
-    from libff_tpu_torch.msm.pippenger import default_config, msm_pippenger
+    from libff_tpu_torch.msm.pippenger import default_config
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -266,80 +451,37 @@ def main() -> int:
           "nvcc_seconds": per_source, "ptxas": ptxas})
 
     dc = device_curve("alt_bn128")
-    G, F, cd = dc.g1, dc.fq, dc.cd
     rng = np.random.default_rng(SEED)
+    k3, k2, msm = {}, {}, {}
 
-    k1e = phase_k1e(F, rng, dev)
+    # the G1 path: 2^20 points
+    k1e = phase_k1e(dc.fq, rng, dev)
     emit({"phase": "K1e", **k1e})
-    k3 = phase_k3(G, rng, dev)
-    emit({"phase": "K3", **k3})
-
+    k3["g1"] = phase_k3(dc.g1, "g1", rng, dev)
+    emit({"phase": "K3 g1", **k3["g1"]})
     n = 1 << LOG2N
-    cfg = default_config(n, dev)
-    k2 = phase_k2(dc, n, cfg, rng, dev)
-    emit({"phase": "K2", **k2})
+    k2["g1"] = phase_k2(dc, "g1", n, default_config(n, dev), rng, dev)
+    emit({"phase": "K2 g1", **k2["g1"]})
+    msm["g1"] = phase_msm(dc, "g1", LOG2N, dev)
+    emit({"phase": "msm g1", **msm["g1"]})
 
-    limbs, x, y = workload.msm_inputs(cd, n, SEED)
-    scalars = convert.field_to_torch(limbs, dev)
-    points = convert.affine_to_torch((x, y, np.zeros(n, dtype=bool)), dev)
-    want = workload.oracle(cd, workload.class_sums(limbs))
-    runs = []
-    for run in range(1 + MSM_STEADY_RUNS):
-        if run == 0:
-            _build.LAUNCHES.clear()
-        times: dict = {}
-        t0 = time.perf_counter()
-        R = msm_pippenger(G, scalars, points, 254, config=cfg,
-                          phase_times=times)
-        A = G.to_affine(R)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        times["to_affine"] = total - sum(times.values())
-        if run == 0:
-            launches = dict(_build.LAUNCHES)
-        got = None if bool(A.inf) else (F.to_ints(A.x)[0], F.to_ints(A.y)[0])
-        if got != want:
-            fail(f"MSM run {run} gives {got}, the oracle {want}")
-        runs.append({"seconds": total, "phases": times})
-    # run 0 pays the first call's set-up (lazy module loading, allocator
-    # growth); the steady runs give the median and quartiles
-    steady = sorted(r["seconds"] for r in runs[1:])
-    q1, med, q3 = np.percentile(steady, [25, 50, 75]).tolist()
-    gpu = _build.env_report()["gpu"]
-    emit({"phase": "msm", "curve": "alt_bn128", "group": "G1", "log2n": LOG2N,
-          "config": cfg._asdict(), "equal_to_oracle": True,
-          "first_run": runs[0], "steady_runs": len(steady),
-          "seconds_median": med, "seconds_q1": q1, "seconds_q3": q3,
-          "seconds_min": steady[0], "seconds_max": steady[-1],
-          "phases_median": {k: float(np.median([r["phases"][k]
-                                                for r in runs[1:]]))
-                            for k in runs[0]["phases"]},
-          "points_per_sec": n / med, "card": gpu})
+    # the G2 path: 2^18 points over Fq2
+    k4e = phase_k4e(dc.fq2, rng, dev)
+    emit({"phase": "K4e", **k4e})
+    k3["g2"] = phase_k3(dc.g2, "g2", rng, dev)
+    emit({"phase": "K3 g2", **k3["g2"]})
+    n = 1 << LOG2N_G2
+    k2["g2"] = phase_k2(dc, "g2", n, default_config(n, dev), rng, dev)
+    emit({"phase": "K2 g2", **k2["g2"]})
+    msm["g2"] = phase_msm(dc, "g2", LOG2N_G2, dev)
+    emit({"phase": "msm g2", **msm["g2"]})
 
-    src = "libff_tpu_torch/csrc/"
-    kernels = [
-        {"name": "K1e", "route": "cuda", "source": src + "fp_ops.cu",
-         "replaces": "libff_tpu/msm/pallas_insert.py:87",
-         "ms": k1e["ops"]["mul"]["ms"], "plain_ms": k1e["ops"]["mul"]["plain_ms"],
-         "shape": [F.n32, k1e["n"]], "max_abs_err": k1e["max_abs_err"]},
-        {"name": "K2", "route": "cuda", "source": src + "insert.cu",
-         "replaces": "libff_tpu/msm/pallas_insert3.py:74",
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "shape": k2["shape"],
-         "max_abs_err": k2["max_abs_err"]},
-        {"name": "K3", "route": "cuda", "source": src + "group_ops.cu",
-         "replaces": "libff_tpu/curves/pallas_ops.py:66",
-         "ms": k3["ops"]["padd"]["ms"], "plain_ms": k3["ops"]["padd"]["plain_ms"],
-         "shape": [F.n32, k3["n"]], "max_abs_err": k3["max_abs_err"]},
-    ]
+    kernels = kernel_line(k1e, k4e, k3, k2, msm, imad_per_s())
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
         if k["launches"] < 1:
-            fail(f"{k['name']} was not launched on the main path")
+            fail(f"{k['name']} was not launched on its path")
     emit({"kernels": kernels})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_build.card_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,7 +11,8 @@ ahead of time with :func:`build`.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on any value other than 0.
 
-``LAUNCHES`` counts kernel launches by kernel id (K1e, K2, K3).  A wrapper
+``LAUNCHES`` counts kernel launches by kernel and branch (K1e, K4e, and
+"K2 g1", "K2 g2", "K3 g1", "K3 g2" for the G1 and G2 branches).  A wrapper
 adds one where it launches its kernel and nowhere else.
 """
 
@@ -144,6 +145,16 @@ def u32_array(vals) -> ctypes.Array:
     return (ctypes.c_uint32 * len(vals))(*vals)
 
 
+def card_name_power() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them;
+    raises if nvidia-smi fails."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
 def env_report() -> dict:
     """Toolchain and card: torch's CUDA version, nvcc's version line, and
     the card's name and power limit as nvidia-smi reports them."""
@@ -157,10 +168,7 @@ def env_report() -> dict:
     except (RuntimeError, OSError) as e:
         rep["nvcc"] = f"unavailable: {e}"
     try:
-        r = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True)
-        rep["gpu"] = r.stdout.strip() if r.returncode == 0 else None
-    except OSError:
+        rep["gpu"] = card_name_power()
+    except (OSError, subprocess.CalledProcessError, IndexError):
         rep["gpu"] = None
     return rep

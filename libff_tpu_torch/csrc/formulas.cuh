@@ -1,157 +1,255 @@
-// formulas.cuh -- the group formulas of libff_tpu/curves/formulas.py for
-// the device field of fp.cuh, in the same order of field operations, so
-// the projective and Jacobian coordinates they give are the JAX
-// package's bit for bit.  B3 = 3*b is a compile-time constant (9 for
-// alt_bn128 G1), multiplied in by mul_small's addition chain.
+// formulas.cuh -- the group formulas of libff_tpu/curves/formulas.py over
+// a device field, in the same order of field operations, so the
+// projective and Jacobian coordinates they give are the JAX package's bit
+// for bit.
+//
+// The formulas are templated on a field context F that supplies the
+// element type F::E and add/sub/dbl/mul/sqr/mul_b3/zero/one/is_zero/
+// select, plus load/store of one element of a limb-major array:
+//
+//   FpField<B3>  Fp over fp.cuh; b3 = 3b is a compile-time constant
+//                multiplied in by mul_small's addition chain (9 for
+//                alt_bn128 G1).
+//   Fp2Field     Fq2 over fp2.cuh (K4); b3 = 3b' of the twist is a general
+//                Fq2 element, a runtime argument in Montgomery form, and
+//                mul_b3 is one Karatsuba product.  The JAX VM multiplies
+//                by b3 coefficient-wise and the JAX kernel by Karatsuba;
+//                the values are equal and canonical, so the bits are too.
 #pragma once
 
 #include "fp.cuh"
+#include "fp2.cuh"
 
 namespace lff {
 
-template <int N>
+template <int B3>
+struct FpField {
+  using E = Fe<8>;
+  FieldParams<8> P;
+
+  __device__ __forceinline__ E add(const E& a, const E& b) const {
+    return lff::add(a, b, P);
+  }
+  __device__ __forceinline__ E sub(const E& a, const E& b) const {
+    return lff::sub(a, b, P);
+  }
+  __device__ __forceinline__ E dbl(const E& a) const { return lff::dbl(a, P); }
+  __device__ __forceinline__ E mul(const E& a, const E& b) const {
+    return lff::mul(a, b, P);
+  }
+  __device__ __forceinline__ E sqr(const E& a) const { return lff::sqr(a, P); }
+  __device__ __forceinline__ E mul_b3(const E& a) const {
+    return mul_small<B3, 8>(a, P);
+  }
+  __device__ __forceinline__ E zero() const { return lff::zero<8>(); }
+  __device__ __forceinline__ E one() const { return lff::one<8>(P); }
+  static __device__ __forceinline__ bool is_zero(const E& a) {
+    return lff::is_zero(a);
+  }
+  static __device__ __forceinline__ E select(bool c, const E& a, const E& b) {
+    return lff::select(c, a, b);
+  }
+  static __device__ __forceinline__ E load(const uint32_t* base,
+                                           size_t stride, size_t e) {
+    return lff::load<8>(base, stride, e);
+  }
+  static __device__ __forceinline__ void store(uint32_t* base, size_t stride,
+                                               size_t e, const E& a) {
+    lff::store<8>(base, stride, e, a);
+  }
+};
+
+struct Fp2Field {
+  using E = Fe2;
+  FieldParams<8> P;
+  Fe2 b3;  // 3b' in Montgomery form
+
+  __device__ __forceinline__ E add(const E& a, const E& b) const {
+    return lff::add(a, b, P);
+  }
+  __device__ __forceinline__ E sub(const E& a, const E& b) const {
+    return lff::sub(a, b, P);
+  }
+  __device__ __forceinline__ E dbl(const E& a) const { return lff::dbl(a, P); }
+  __device__ __forceinline__ E mul(const E& a, const E& b) const {
+    return lff::mul(a, b, P);
+  }
+  __device__ __forceinline__ E sqr(const E& a) const { return lff::sqr(a, P); }
+  __device__ __forceinline__ E mul_b3(const E& a) const {
+    return lff::mul(a, b3, P);
+  }
+  __device__ __forceinline__ E zero() const {
+    return Fe2{lff::zero<8>(), lff::zero<8>()};
+  }
+  __device__ __forceinline__ E one() const {
+    return Fe2{lff::one<8>(P), lff::zero<8>()};
+  }
+  static __device__ __forceinline__ bool is_zero(const E& a) {
+    return lff::is_zero(a);
+  }
+  static __device__ __forceinline__ E select(bool c, const E& a, const E& b) {
+    return lff::select(c, a, b);
+  }
+  static __device__ __forceinline__ E load(const uint32_t* base,
+                                           size_t stride, size_t e) {
+    return load2(base, stride, e);
+  }
+  static __device__ __forceinline__ void store(uint32_t* base, size_t stride,
+                                               size_t e, const E& a) {
+    store2(base, stride, e, a);
+  }
+};
+
+template <class F>
 struct Pt {
-  Fe<N> x, y, z;
+  typename F::E x, y, z;
 };
 
 // RCB15 Algorithm 7, complete projective addition (formulas.py:77-100).
-template <int B3, int N>
-__device__ __forceinline__ Pt<N> rcb_add(const Pt<N>& p, const Pt<N>& q,
-                                         const FieldParams<N>& P) {
-  Fe<N> t0 = mul(p.x, q.x, P);
-  Fe<N> t1 = mul(p.y, q.y, P);
-  Fe<N> t2 = mul(p.z, q.z, P);
-  Fe<N> t3 = mul(add(p.x, p.y, P), add(q.x, q.y, P), P);
-  t3 = sub(t3, add(t0, t1, P), P);
-  Fe<N> t4 = mul(add(p.y, p.z, P), add(q.y, q.z, P), P);
-  t4 = sub(t4, add(t1, t2, P), P);
-  Fe<N> t5 = mul(add(p.x, p.z, P), add(q.x, q.z, P), P);
-  t5 = sub(t5, add(t0, t2, P), P);
-  t0 = add(dbl(t0, P), t0, P);
-  t2 = mul_small<B3>(t2, P);
-  Pt<N> r;
-  r.z = add(t1, t2, P);
-  t1 = sub(t1, t2, P);
-  r.y = mul_small<B3>(t5, P);
-  r.x = sub(mul(t3, t1, P), mul(t4, r.y, P), P);
-  r.y = add(mul(t1, r.z, P), mul(r.y, t0, P), P);
-  r.z = add(mul(r.z, t4, P), mul(t0, t3, P), P);
+template <class F>
+__device__ __forceinline__ Pt<F> rcb_add(const F& f, const Pt<F>& p,
+                                         const Pt<F>& q) {
+  using E = typename F::E;
+  E t0 = f.mul(p.x, q.x);
+  E t1 = f.mul(p.y, q.y);
+  E t2 = f.mul(p.z, q.z);
+  E t3 = f.mul(f.add(p.x, p.y), f.add(q.x, q.y));
+  t3 = f.sub(t3, f.add(t0, t1));
+  E t4 = f.mul(f.add(p.y, p.z), f.add(q.y, q.z));
+  t4 = f.sub(t4, f.add(t1, t2));
+  E t5 = f.mul(f.add(p.x, p.z), f.add(q.x, q.z));
+  t5 = f.sub(t5, f.add(t0, t2));
+  t0 = f.add(f.dbl(t0), t0);
+  t2 = f.mul_b3(t2);
+  Pt<F> r;
+  r.z = f.add(t1, t2);
+  t1 = f.sub(t1, t2);
+  r.y = f.mul_b3(t5);
+  r.x = f.sub(f.mul(t3, t1), f.mul(t4, r.y));
+  r.y = f.add(f.mul(t1, r.z), f.mul(r.y, t0));
+  r.z = f.add(f.mul(r.z, t4), f.mul(t0, t3));
   return r;
 }
 
 // RCB15 Algorithm 8, complete mixed addition with a finite affine
 // (x2, y2) (formulas.py:103-121).
-template <int B3, int N>
-__device__ __forceinline__ Pt<N> rcb_madd(const Pt<N>& p, const Fe<N>& x2,
-                                          const Fe<N>& y2,
-                                          const FieldParams<N>& P) {
-  Fe<N> t0 = mul(p.x, x2, P);
-  Fe<N> t1 = mul(p.y, y2, P);
-  Fe<N> t3 = mul(add(x2, y2, P), add(p.x, p.y, P), P);
-  t3 = sub(t3, add(t0, t1, P), P);
-  Fe<N> t4 = add(mul(x2, p.z, P), p.x, P);
-  Fe<N> t5 = add(mul(y2, p.z, P), p.y, P);
-  t0 = add(dbl(t0, P), t0, P);
-  Fe<N> t2 = mul_small<B3>(p.z, P);
-  Pt<N> r;
-  r.z = add(t1, t2, P);
-  t1 = sub(t1, t2, P);
-  r.y = mul_small<B3>(t4, P);
-  r.x = sub(mul(t3, t1, P), mul(t5, r.y, P), P);
-  r.y = add(mul(t1, r.z, P), mul(r.y, t0, P), P);
-  r.z = add(mul(r.z, t5, P), mul(t0, t3, P), P);
+template <class F>
+__device__ __forceinline__ Pt<F> rcb_madd(const F& f, const Pt<F>& p,
+                                          const typename F::E& x2,
+                                          const typename F::E& y2) {
+  using E = typename F::E;
+  E t0 = f.mul(p.x, x2);
+  E t1 = f.mul(p.y, y2);
+  E t3 = f.mul(f.add(x2, y2), f.add(p.x, p.y));
+  t3 = f.sub(t3, f.add(t0, t1));
+  E t4 = f.add(f.mul(x2, p.z), p.x);
+  E t5 = f.add(f.mul(y2, p.z), p.y);
+  t0 = f.add(f.dbl(t0), t0);
+  E t2 = f.mul_b3(p.z);
+  Pt<F> r;
+  r.z = f.add(t1, t2);
+  t1 = f.sub(t1, t2);
+  r.y = f.mul_b3(t4);
+  r.x = f.sub(f.mul(t3, t1), f.mul(t5, r.y));
+  r.y = f.add(f.mul(t1, r.z), f.mul(r.y, t0));
+  r.z = f.add(f.mul(r.z, t5), f.mul(t0, t3));
   return r;
 }
 
 // RCB15 Algorithm 9, complete doubling (formulas.py:124-138).
-template <int B3, int N>
-__device__ __forceinline__ Pt<N> rcb_dbl(const Pt<N>& p,
-                                         const FieldParams<N>& P) {
-  Fe<N> t0 = sqr(p.y, P);
-  Pt<N> r;
-  r.z = dbl(dbl(dbl(t0, P), P), P);
-  Fe<N> t1 = mul(p.y, p.z, P);
-  Fe<N> t2 = mul_small<B3>(sqr(p.z, P), P);
-  r.x = mul(t2, r.z, P);
-  r.y = add(t0, t2, P);
-  r.z = mul(t1, r.z, P);
-  t1 = dbl(t2, P);
-  t2 = add(t1, t2, P);
-  t0 = sub(t0, t2, P);
-  r.y = add(mul(t0, r.y, P), r.x, P);
-  r.x = dbl(mul(t0, mul(p.x, p.y, P), P), P);
+template <class F>
+__device__ __forceinline__ Pt<F> rcb_dbl(const F& f, const Pt<F>& p) {
+  using E = typename F::E;
+  E t0 = f.sqr(p.y);
+  Pt<F> r;
+  r.z = f.dbl(f.dbl(f.dbl(t0)));
+  E t1 = f.mul(p.y, p.z);
+  E t2 = f.mul_b3(f.sqr(p.z));
+  r.x = f.mul(t2, r.z);
+  r.y = f.add(t0, t2);
+  r.z = f.mul(t1, r.z);
+  t1 = f.dbl(t2);
+  t2 = f.add(t1, t2);
+  t0 = f.sub(t0, t2);
+  r.y = f.add(f.mul(t0, r.y), r.x);
+  r.x = f.dbl(f.mul(t0, f.mul(p.x, p.y)));
   return r;
 }
 
 // dbl-2009-l for a = 0 (formulas.py:19-36); Z = 0 in gives Z = 0 out.
-template <int N>
-__device__ __forceinline__ Pt<N> jac_dbl(const Pt<N>& p,
-                                         const FieldParams<N>& P) {
-  const Fe<N> A = sqr(p.x, P);
-  const Fe<N> B = sqr(p.y, P);
-  const Fe<N> C = sqr(B, P);
-  const Fe<N> t = sub(sqr(add(p.x, B, P), P), add(A, C, P), P);
-  const Fe<N> D = dbl(t, P);
-  const Fe<N> E = add(dbl(A, P), A, P);
-  const Fe<N> FF = sqr(E, P);
-  Pt<N> r;
-  r.x = sub(FF, dbl(D, P), P);
-  const Fe<N> c8 = dbl(dbl(dbl(C, P), P), P);
-  r.y = sub(mul(E, sub(D, r.x, P), P), c8, P);
-  r.z = dbl(mul(p.y, p.z, P), P);
+template <class F>
+__device__ __forceinline__ Pt<F> jac_dbl(const F& f, const Pt<F>& p) {
+  using E = typename F::E;
+  const E A = f.sqr(p.x);
+  const E B = f.sqr(p.y);
+  const E C = f.sqr(B);
+  const E t = f.sub(f.sqr(f.add(p.x, B)), f.add(A, C));
+  const E D = f.dbl(t);
+  const E Ee = f.add(f.dbl(A), A);
+  const E FF = f.sqr(Ee);
+  Pt<F> r;
+  r.x = f.sub(FF, f.dbl(D));
+  const E c8 = f.dbl(f.dbl(f.dbl(C)));
+  r.y = f.sub(f.mul(Ee, f.sub(D, r.x)), c8);
+  r.z = f.dbl(f.mul(p.y, p.z));
   return r;
 }
 
 // add-2007-bl candidate (formulas.py:39-57); h == 0 flags equal x, r == 0
 // equal y, resolved by the caller's masks.
-template <int N>
-__device__ __forceinline__ Pt<N> jac_add_raw(const Pt<N>& p, const Pt<N>& q,
-                                             Fe<N>& h, Fe<N>& rr,
-                                             const FieldParams<N>& P) {
-  const Fe<N> z1z1 = sqr(p.z, P);
-  const Fe<N> z2z2 = sqr(q.z, P);
-  const Fe<N> u1 = mul(p.x, z2z2, P);
-  const Fe<N> u2 = mul(q.x, z1z1, P);
-  const Fe<N> s1 = mul(p.y, mul(q.z, z2z2, P), P);
-  const Fe<N> s2 = mul(q.y, mul(p.z, z1z1, P), P);
-  h = sub(u2, u1, P);
-  rr = dbl(sub(s2, s1, P), P);
-  const Fe<N> i = sqr(dbl(h, P), P);
-  const Fe<N> j = mul(h, i, P);
-  const Fe<N> v = mul(u1, i, P);
-  Pt<N> r;
-  r.x = sub(sub(sqr(rr, P), j, P), dbl(v, P), P);
-  r.y = sub(mul(rr, sub(v, r.x, P), P), dbl(mul(s1, j, P), P), P);
-  r.z = mul(sub(sqr(add(p.z, q.z, P), P), add(z1z1, z2z2, P), P), h, P);
+template <class F>
+__device__ __forceinline__ Pt<F> jac_add_raw(const F& f, const Pt<F>& p,
+                                             const Pt<F>& q,
+                                             typename F::E& h,
+                                             typename F::E& rr) {
+  using E = typename F::E;
+  const E z1z1 = f.sqr(p.z);
+  const E z2z2 = f.sqr(q.z);
+  const E u1 = f.mul(p.x, z2z2);
+  const E u2 = f.mul(q.x, z1z1);
+  const E s1 = f.mul(p.y, f.mul(q.z, z2z2));
+  const E s2 = f.mul(q.y, f.mul(p.z, z1z1));
+  h = f.sub(u2, u1);
+  rr = f.dbl(f.sub(s2, s1));
+  const E i = f.sqr(f.dbl(h));
+  const E j = f.mul(h, i);
+  const E v = f.mul(u1, i);
+  Pt<F> r;
+  r.x = f.sub(f.sub(f.sqr(rr), j), f.dbl(v));
+  r.y = f.sub(f.mul(rr, f.sub(v, r.x)), f.dbl(f.mul(s1, j)));
+  r.z = f.mul(f.sub(f.sqr(f.add(p.z, q.z)), f.add(z1z1, z2z2)), h);
   return r;
 }
 
 // madd-2007-bl candidate with an affine (x2, y2) (formulas.py:60-74).
-template <int N>
-__device__ __forceinline__ Pt<N> jac_madd_raw(const Pt<N>& p, const Fe<N>& x2,
-                                              const Fe<N>& y2, Fe<N>& h,
-                                              Fe<N>& rr,
-                                              const FieldParams<N>& P) {
-  const Fe<N> z1z1 = sqr(p.z, P);
-  const Fe<N> u2 = mul(x2, z1z1, P);
-  const Fe<N> s2 = mul(y2, mul(p.z, z1z1, P), P);
-  h = sub(u2, p.x, P);
-  const Fe<N> hh = sqr(h, P);
-  const Fe<N> i = dbl(dbl(hh, P), P);
-  const Fe<N> j = mul(h, i, P);
-  rr = dbl(sub(s2, p.y, P), P);
-  const Fe<N> v = mul(p.x, i, P);
-  Pt<N> r;
-  r.x = sub(sub(sqr(rr, P), j, P), dbl(v, P), P);
-  r.y = sub(mul(rr, sub(v, r.x, P), P), dbl(mul(p.y, j, P), P), P);
-  r.z = sub(sqr(add(p.z, h, P), P), add(z1z1, hh, P), P);
+template <class F>
+__device__ __forceinline__ Pt<F> jac_madd_raw(const F& f, const Pt<F>& p,
+                                              const typename F::E& x2,
+                                              const typename F::E& y2,
+                                              typename F::E& h,
+                                              typename F::E& rr) {
+  using E = typename F::E;
+  const E z1z1 = f.sqr(p.z);
+  const E u2 = f.mul(x2, z1z1);
+  const E s2 = f.mul(y2, f.mul(p.z, z1z1));
+  h = f.sub(u2, p.x);
+  const E hh = f.sqr(h);
+  const E i = f.dbl(f.dbl(hh));
+  const E j = f.mul(h, i);
+  rr = f.dbl(f.sub(s2, p.y));
+  const E v = f.mul(p.x, i);
+  Pt<F> r;
+  r.x = f.sub(f.sub(f.sqr(rr), j), f.dbl(v));
+  r.y = f.sub(f.mul(rr, f.sub(v, r.x)), f.dbl(f.mul(p.y, j)));
+  r.z = f.sub(f.sqr(f.add(p.z, h)), f.add(z1z1, hh));
   return r;
 }
 
-template <int N>
-__device__ __forceinline__ Pt<N> select(bool c, const Pt<N>& a,
-                                        const Pt<N>& b) {
-  return Pt<N>{select(c, a.x, b.x), select(c, a.y, b.y), select(c, a.z, b.z)};
+template <class F>
+__device__ __forceinline__ Pt<F> select(bool c, const Pt<F>& a,
+                                        const Pt<F>& b) {
+  return Pt<F>{F::select(c, a.x, b.x), F::select(c, a.y, b.y),
+               F::select(c, a.z, b.z)};
 }
 
 }  // namespace lff

@@ -1,14 +1,14 @@
 """Field and group objects of one curve, built from its host CurveDef
-(port of libff_tpu/curves/device.py, G1 only in this slice)."""
+(port of libff_tpu/curves/device.py: Fr, Fq, Fq2, G1 and G2)."""
 
 from __future__ import annotations
 
 import functools
 
-from libff_tpu.curves.curvedef import CurveDef, get_curve
-from libff_tpu.host.ec import EdwardsCurve
-
 from ..fields.fp import PrimeField
+from ..fields.tower import ExtField
+from ..host.ec import EdwardsCurve
+from .curvedef import CurveDef, get_curve
 from .group import Group
 
 
@@ -26,10 +26,14 @@ class DeviceCurve:
         if cd.g1.curve.F is not cd.fq:
             raise NotImplementedError("G1 over an extension field")
         self.g1 = Group(self.fq, cd.g1)
-
-    @property
-    def g2(self):
-        raise NotImplementedError("G2 is a later slice")
+        # the degree-2 tower; Fq3 and the higher towers wait for ROADMAP
+        # Queue 1 item 11
+        if cd.fq2 is None or cd.fq2.B is not cd.fq:
+            raise NotImplementedError(f"{cd.name} has no Fq2 over Fq")
+        self.fq2 = ExtField(self.fq, cd.fq2, name=cd.fq2.name)
+        if cd.g2.curve.F is not cd.fq2:
+            raise NotImplementedError(f"{cd.name} G2 is not over Fq2")
+        self.g2 = Group(self.fq2, cd.g2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,16 @@
 """Batched short-Weierstrass group arithmetic (port of
-libff_tpu/curves/group.py, the part the G1 MSM runs).
+libff_tpu/curves/group.py, the part the G1 and G2 MSMs run).
 
-Points are NamedTuples of coordinate arrays ``(n32, *batch)``.  Jacobian
-and projective zero is any point with Z == 0, canonically (0, 1, 0);
-affine points carry an explicit infinity mask.  Every batched formula
+Points are NamedTuples of coordinate arrays ``(*el, *batch)``, ``el`` the
+field's element dims: ``(n32,)`` over Fp (G1), ``(2, n32)`` over Fq2
+(G2).  Jacobian and projective zero is any point with Z == 0, canonically
+(0, 1, 0); affine points carry an explicit infinity mask.  Every batched formula
 (``padd``, ``pmadd``, ``pdbl`` and the Jacobian ``add``, ``mixed_add``,
 ``dbl``) runs through kernel K3 (``group_ops.group_op``) at any batch size:
 the JAX package's formula VM, its rounds engine and its size gate are TPU
 scheduling and have no counterpart here.  Coordinate maps
-(``proj_to_jacobian``, ``to_affine``) are field ops, which run on K1e.
+(``proj_to_jacobian``, ``to_affine``) are field ops, which run on K1e
+(and K4e for the Fq2 products of G2).
 """
 
 from __future__ import annotations
@@ -42,13 +44,14 @@ class AffinePoint(NamedTuple):
 
 class Group:
     def __init__(self, F, gdef, name: str | None = None):
-        """F: the port's PrimeField; gdef: host GroupDef."""
+        """F: the port's PrimeField or Fq2 ExtField; gdef: host GroupDef."""
         self.F = F
         self.gdef = gdef
         self.name = name or gdef.name
         self.order = gdef.order
         self.a_is_zero = gdef.curve.F.is_zero(gdef.curve.a)
-        # 3b, the constant of the complete formulas (9 for alt_bn128 G1)
+        # 3b, the constant of the complete formulas: 9 for alt_bn128 G1,
+        # the Fq2 element 3b' for its G2
         self._b3_host = gdef.curve.F.mul_scalar_int(gdef.curve.b, 3)
 
     @property
@@ -61,7 +64,8 @@ class Group:
         are padded with singletons on the right (group.py:169-176).
         Worked out here: torch.broadcast_shapes imports sympy on its first
         call, seconds of host time in the first MSM."""
-        shapes = [tuple(a.shape[1:]) for a in arrays]
+        el = self.F.el_ndim
+        shapes = [tuple(a.shape[el:]) for a in arrays]
         m = max(len(s) for s in shapes)
         batch = []
         for dims in zip(*[s + (1,) * (m - len(s)) for s in shapes]):
@@ -72,33 +76,34 @@ class Group:
         return tuple(batch)
 
     def _bc_point(self, P, batch):
+        el = self.F.el_ndim
+
         def bc(a, lead):
             a = a.reshape(tuple(a.shape) + (1,) * (len(batch) + lead - a.ndim))
             return a.expand(tuple(a.shape[:lead]) + tuple(batch))
 
         if isinstance(P, AffinePoint):
-            return AffinePoint(bc(P.x, 1), bc(P.y, 1), bc(P.inf, 0))
-        return type(P)(bc(P.x, 1), bc(P.y, 1), bc(P.z, 1))
+            return AffinePoint(bc(P.x, el), bc(P.y, el), bc(P.inf, 0))
+        return type(P)(bc(P.x, el), bc(P.y, el), bc(P.z, el))
 
     def _op(self, op, points, affine=None):
         """Flatten the batch, run kernel K3, reshape back."""
         arrays = [P.z for P in points] + ([affine.x] if affine else [])
         batch = self._batch_of(*arrays)
-        N = math.prod(batch)
-        n = self.F.n32
+        flat = self.F.el_shape + (math.prod(batch),)
         coords, masks = [], []
         for P in points:
             P = self._bc_point(P, batch)
-            coords += [c.reshape(n, N) for c in P]
+            coords += [c.reshape(flat) for c in P]
         if affine is not None:
             A = self._bc_point(affine, batch)
-            coords += [A.x.reshape(n, N), A.y.reshape(n, N)]
-            masks = [A.inf.reshape(N)]
+            coords += [A.x.reshape(flat), A.y.reshape(flat)]
+            masks = [A.inf.reshape(flat[-1])]
         outs = group_op(self, op, coords, masks)
-        return [o.reshape((n,) + batch) for o in outs]
+        return [o.reshape(self.F.el_shape + batch) for o in outs]
 
     # -- constructors --------------------------------------------------------
-    def proj_zero(self, batch=(), device=None) -> ProjectivePoint:
+    def proj_zero(self, batch=(), device="cuda") -> ProjectivePoint:
         F = self.F
         return ProjectivePoint(F.zero(batch, device), F.one(batch, device),
                                F.zero(batch, device))
@@ -143,7 +148,7 @@ class Group:
         (0, 1, inf=True)."""
         F = self.F
         inf = self.is_zero(P)
-        if P.z.ndim == 1:
+        if P.z.ndim == F.el_ndim:
             zinv = F.inv(P.z)
         else:
             zinv = F.batch_inverse(P.z, axis=-1)
@@ -184,14 +189,15 @@ class Group:
         """Sum along a batch axis by static halving with complete adds,
         padding with the identity (0, 1, 0) to a power of two
         (group.py:536-563)."""
+        el = self.F.el_ndim
         axis = axis % P.z.ndim
-        if axis == 0:
-            raise ValueError("axis 0 is the limb axis")
+        if axis < el:
+            raise ValueError(f"axis {axis} is an element axis")
         n = P.z.shape[axis]
         m = 1 << max(1, (n - 1).bit_length()) if n > 1 else 1
         if m != n:
-            pad = list(P.z.shape[1:])
-            pad[axis - 1] = m - n
+            pad = list(P.z.shape[el:])
+            pad[axis - el] = m - n
             zero = self.proj_zero(tuple(pad), P.z.device)
             P = ProjectivePoint(*(torch.cat([a, z], dim=axis)
                                   for a, z in zip(P, zero)))

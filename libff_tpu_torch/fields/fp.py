@@ -15,6 +15,12 @@ the plain version, :class:`PlainField`, which follows the JAX package's
 right shift for uint32, and a 32x32-bit product wraps int64.  The plain
 version runs on any device, which is how the card's kernels are checked
 against it.
+
+:class:`FieldBase` holds what the prime field and the Fq2 tower
+(``tower.py``) share: predicates, select, pow_static and the batch
+inverse, written over the element dims ``el_ndim``.  The host-conversion
+entry points (``const``, ``from_ints``, ``plain_from_ints``) put their
+tensors on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -24,26 +30,30 @@ import ctypes
 import numpy as np
 import torch
 
-from libff_tpu.host import mont as hm
-
 from .. import _build
+from ..host import mont as hm
 
 MASK16 = 0xFFFF
 
 
 # -- the n16 <-> n32 repack --------------------------------------------------
 
-def to16(x: torch.Tensor) -> torch.Tensor:
-    """(n32, *batch) int32 -> (2*n32, *batch) int64 16-bit limbs."""
+def to16(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """int32 array with its 32-bit limb axis at `axis` -> int64 array of
+    twice as many 16-bit limbs there (axis 1 of an Fq2 array (2, n32,
+    *batch))."""
     u = x.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([u & MASK16, u >> 16], dim=1).reshape(
-        (2 * x.shape[0],) + tuple(x.shape[1:]))
+    shape = tuple(x.shape)
+    return torch.stack([u & MASK16, u >> 16], dim=axis + 1).reshape(
+        shape[:axis] + (2 * shape[axis],) + shape[axis + 1:])
 
 
-def to32(y: torch.Tensor) -> torch.Tensor:
-    """(n16, *batch) int64 16-bit limbs -> (n16/2, *batch) int32."""
-    y = y.reshape((y.shape[0] // 2, 2) + tuple(y.shape[1:]))
-    v = y[:, 0] | (y[:, 1] << 16)
+def to32(y: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """int64 16-bit limbs at `axis` -> int32 array of half as many 32-bit
+    limbs there."""
+    shape = tuple(y.shape)
+    y = y.reshape(shape[:axis] + (shape[axis] // 2, 2) + shape[axis + 1:])
+    v = y.select(axis + 1, 0) | (y.select(axis + 1, 1) << 16)
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
@@ -165,7 +175,50 @@ class PlainField:
 # -- kernel K1e ---------------------------------------------------------------
 
 _K1E_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
-             _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+             ctypes.c_int, _build.U32P, ctypes.c_uint32, ctypes.c_int,
+             _build.VP]
+
+
+def check_operands(F, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Equal-shape int32 element arrays of field F on one device."""
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"operands differ: {tuple(a.shape)} on {a.device} "
+                         f"vs {tuple(b.shape)} on {b.device}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("field arrays are torch.int32")
+    if tuple(a.shape[:F.el_ndim]) != F.el_shape:
+        raise ValueError(f"element dims of {tuple(a.shape)} are not "
+                         f"{F.el_shape}")
+
+
+def kernel_device(a: torch.Tensor, n32: int, what: str) -> bool:
+    """False for a CPU tensor (the caller runs the plain version), True for
+    a CUDA tensor the 8-limb kernels take; raises otherwise."""
+    if a.device.type == "cpu":
+        return False
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    if n32 != 8:
+        raise NotImplementedError(
+            f"{what} is built for 8 limbs (254-bit fields), not n32 = {n32}")
+    return True
+
+
+def launch_k1e(B: "PrimeField", op: str, a: torch.Tensor, b: torch.Tensor,
+               groups: int = 1) -> torch.Tensor:
+    """Kernel K1e over equal-shape CUDA arrays that hold `groups` (n32, N)
+    limb-major base-field arrays one after another: one for an Fp array
+    (n32, *batch), two for an Fq2 array (2, n32, *batch), whose add and
+    sub act coefficient-wise."""
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // (groups * B.n32)
+    fn = _build.function("fp_ops", f"fp_{op}", _K1E_ARGS)
+    _build.launch(fn, f"K1e fp_{op}", a.device, _build.ptr(out),
+                  _build.ptr(a), _build.ptr(b), n, groups, B.n32, B.p_c,
+                  B.inv32, a.get_device(), _build.stream_ptr(a))
+    _build.LAUNCHES["K1e"] += 1
+    return out
 
 
 def fp_op(F: "PrimeField", op: str, a: torch.Tensor,
@@ -175,28 +228,10 @@ def fp_op(F: "PrimeField", op: str, a: torch.Tensor,
     tensor launches kernel K1e."""
     if op not in ("add", "sub", "mul"):
         raise ValueError(f"unknown field op {op!r}")
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"operands differ: {tuple(a.shape)} on {a.device} "
-                         f"vs {tuple(b.shape)} on {b.device}")
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError("field arrays are torch.int32")
-    if a.ndim < 1 or a.shape[0] != F.n32:
-        raise ValueError(f"limb axis of {tuple(a.shape)} is not n32 = {F.n32}")
-    if a.device.type == "cpu":
+    check_operands(F, a, b)
+    if not kernel_device(a, F.n32, "K1e"):
         return fp_op_plain(F, op, a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
-    if F.n32 != 8:
-        raise NotImplementedError(
-            f"K1e is built for 8 limbs (254-bit fields), not n32 = {F.n32}")
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty_like(a)
-    fn = _build.function("fp_ops", f"fp_{op}", _K1E_ARGS)
-    _build.launch(fn, f"K1e fp_{op}", a.device, _build.ptr(out),
-                  _build.ptr(a), _build.ptr(b), a.numel() // F.n32, F.n32,
-                  F.p_c, F.inv32, a.get_device(), _build.stream_ptr(a))
-    _build.LAUNCHES["K1e"] += 1
-    return out
+    return launch_k1e(F, op, a, b)
 
 
 def fp_op_plain(F: "PrimeField", op: str, a: torch.Tensor,
@@ -205,7 +240,7 @@ def fp_op_plain(F: "PrimeField", op: str, a: torch.Tensor,
     return to32(getattr(F.plain, op)(to16(a), to16(b)))
 
 
-def _align(a, b):
+def align(a, b):
     """Broadcast two element arrays whose batch dims trail: pad the
     lower-rank one with trailing singleton dims first (fp.py:43-50)."""
     nd = max(a.ndim, b.ndim)
@@ -214,129 +249,59 @@ def _align(a, b):
     return torch.broadcast_tensors(a, b)
 
 
-class PrimeField:
-    """Vectorized arithmetic over F_p on (n32, *batch) int32 tensors."""
+def to_device_tensor(limbs: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy limbs -> an int32 tensor on `device`."""
+    return torch.from_numpy(
+        np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32)
+    ).to(device)
 
-    def __init__(self, p: int, bits: int | None = None, name: str = "Fp"):
-        self.name = name
-        self.mp = hm.derive(p, bits)
-        self.p = p
-        self.n16 = self.mp.n16
-        self.n32 = self.n16 // 2
-        self.inv32 = self.mp.inv64 & 0xFFFFFFFF      # -p^-1 mod 2^32
-        self.p_limbs = self._limbs(p)
-        self.one_limbs = self._limbs(self.mp.R % p)
-        self.plain = PlainField(p, bits)
-        # host copies handed to the kernels' C entry points
-        self.p_c = _build.u32_array(self.p_limbs)
-        self.one_c = _build.u32_array(self.one_limbs)
 
-    def _limbs(self, v: int) -> list[int]:
-        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.n32)]
+class FieldBase:
+    """What the prime field and the Fq2 tower share, written over the
+    element dims ``el_shape`` (``el_ndim`` of them, the 32-bit limb axis
+    last): constructors, predicates, select, pow_static and the
+    Montgomery-trick batch inverse.  A subclass supplies ``add``, ``sub``,
+    ``mul``, ``sqr``, ``inv`` and ``_one_limbs`` (the Montgomery one as
+    uint32 limbs of shape ``el_shape``)."""
 
-    @staticmethod
-    def _tensor(limbs: np.ndarray, device) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32)
-        ).to(device)
-
-    # -- host conversion ----------------------------------------------------
-    def const(self, v: int, device=None) -> torch.Tensor:
-        """Montgomery-form constant, shape (n32,)."""
-        return self._tensor(np.array(self._limbs(hm.to_mont(self.mp, v)),
-                                     dtype=np.uint32), device)
-
-    def from_ints(self, vals, device=None) -> torch.Tensor:
-        """Host ints -> Montgomery limb array (n32, N) (or (n32,))."""
-        if isinstance(vals, int):
-            return self.const(vals, device)
-        mont = [hm.to_mont(self.mp, int(v)) for v in vals]
-        return self._tensor(ints_to_limbs(mont, self.n32), device)
-
-    def to_ints(self, x: torch.Tensor) -> list[int]:
-        """Montgomery limb array -> host plain ints (batch flattened)."""
-        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
-        return [hm.from_mont(self.mp, v) for v in limbs_to_ints(a)]
-
-    def plain_from_ints(self, vals, device=None) -> torch.Tensor:
-        """Host ints -> plain (non-Montgomery) limb array (n32, N)."""
-        if isinstance(vals, int):
-            return self._tensor(np.array(self._limbs(vals % self.p),
-                                         dtype=np.uint32), device)
-        return self._tensor(ints_to_limbs([int(v) % self.p for v in vals],
-                                          self.n32), device)
-
-    def plain_to_ints(self, x: torch.Tensor) -> list[int]:
-        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
-        return limbs_to_ints(a)
+    el_ndim: int
+    el_shape: tuple
 
     # -- constructors --------------------------------------------------------
-    def zero(self, batch=(), device=None) -> torch.Tensor:
-        return torch.zeros((self.n32, *batch), dtype=torch.int32,
+    def zero(self, batch=(), device="cuda") -> torch.Tensor:
+        return torch.zeros(self.el_shape + tuple(batch), dtype=torch.int32,
                            device=device)
 
-    def one(self, batch=(), device=None) -> torch.Tensor:
-        o = self._tensor(np.array(self.one_limbs, dtype=np.uint32), device)
-        return o.reshape((self.n32,) + (1,) * len(batch)).expand(
-            (self.n32, *batch))
+    def one(self, batch=(), device="cuda") -> torch.Tensor:
+        o = to_device_tensor(self._one_limbs, device)
+        return o.reshape(self.el_shape + (1,) * len(batch)).expand(
+            self.el_shape + tuple(batch))
 
-    # -- ring ops -----------------------------------------------------------
-    def add(self, a, b):
-        return fp_op(self, "add", *_align(a, b))
+    # -- predicates ----------------------------------------------------------
+    def is_zero(self, a):
+        return (a == 0).flatten(0, self.el_ndim - 1).all(dim=0)
 
-    def sub(self, a, b):
-        return fp_op(self, "sub", *_align(a, b))
+    def eq(self, a, b):
+        # canonical representation => limb-wise equality
+        return (a == b).flatten(0, self.el_ndim - 1).all(dim=0)
 
-    def mul(self, a, b):
-        return fp_op(self, "mul", *_align(a, b))
+    def select(self, mask, a, b):
+        """where(mask, a, b) with a batch-shaped mask."""
+        return torch.where(mask[(None,) * self.el_ndim], a, b)
 
+    # -- derived ops ---------------------------------------------------------
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)
 
     def double(self, a):
         return self.add(a, a)
 
-    def sqr(self, a):
-        return self.mul(a, a)
-
-    def mul_small_const(self, a, c: int):
-        return _mul_small_const(
-            self, a, c,
-            lambda c: self.const(c, a.device).reshape(
-                (self.n32,) + (1,) * (a.ndim - 1)).expand_as(a))
-
-    # -- Montgomery domain conversion -----------------------------------------
-    def to_mont(self, a_plain):
-        """plain limbs -> Montgomery form (times R^2, fp.py:422-426)."""
-        r2 = self._tensor(np.array(self._limbs(self.mp.R2), dtype=np.uint32),
-                          a_plain.device)
-        return self.mul(a_plain, r2.reshape(
-            (self.n32,) + (1,) * (a_plain.ndim - 1)).expand_as(a_plain))
-
-    def from_mont(self, a):
-        """Montgomery form -> plain limbs (times 1, fp.py:428-432)."""
-        o = self._tensor(np.array(self._limbs(1), dtype=np.uint32), a.device)
-        return self.mul(a, o.reshape((self.n32,) + (1,) * (a.ndim - 1))
-                        .expand_as(a))
-
-    # -- predicates -----------------------------------------------------------
-    def is_zero(self, a):
-        return (a == 0).all(dim=0)
-
-    def eq(self, a, b):
-        # canonical representation => limb-wise equality
-        return (a == b).all(dim=0)
-
-    def select(self, mask, a, b):
-        """where(mask, a, b) with a batch-shaped mask."""
-        return torch.where(mask[None], a, b)
-
-    # -- exponentiation ---------------------------------------------------------
     def pow_static(self, a, e: int):
         """a^e for a host exponent, square-and-multiply msb first
         (fp.py:447-463; squarings of the leading one are skipped)."""
         if e == 0:
-            return self.one(tuple(a.shape[1:]), a.device).contiguous()
+            return self.one(tuple(a.shape[self.el_ndim:]),
+                            a.device).contiguous()
         acc = None
         for bit in bin(e)[2:]:
             if acc is not None:
@@ -344,10 +309,6 @@ class PrimeField:
             if bit == "1":
                 acc = a if acc is None else self.mul(acc, a)
         return acc
-
-    def inv(self, a):
-        """Fermat inverse a^(p-2); maps 0 to 0 (fp.py:465-468)."""
-        return self.pow_static(a, self.p - 2)
 
     def _prefix_products(self, x, axis: int):
         """Inclusive prefix products along `axis` in log2(n) rounds."""
@@ -362,14 +323,14 @@ class PrimeField:
 
     def batch_inverse(self, a, axis: int = -1):
         """Montgomery-trick batch inversion along a batch axis
-        (fp.py:470-492): prefix and suffix products, one Fermat inversion.
-        Zeros pass through as zeros."""
+        (fp.py:470-492, tower.py:51-70): prefix and suffix products, one
+        inversion.  Zeros pass through as zeros."""
         axis = axis % a.ndim
-        if axis == 0:
-            raise ValueError("axis 0 is the limb axis")
-        nz = ~self.is_zero(a)
-        one = self.one(tuple(a.shape[1:]), a.device)
-        x = torch.where(nz[None], a, one)
+        if axis < self.el_ndim:
+            raise ValueError(f"axis {axis} is an element axis")
+        nz = self.is_zero(a).logical_not()[(None,) * self.el_ndim]
+        one = self.one(tuple(a.shape[self.el_ndim:]), a.device)
+        x = torch.where(nz, a, one)
         pre = self._prefix_products(x, axis)
         suf = self._prefix_products(x.flip(axis), axis).flip(axis)
         n = a.shape[axis]
@@ -379,4 +340,110 @@ class PrimeField:
         excl_pre = torch.cat([one1, pre.narrow(axis, 0, n - 1)], dim=axis)
         excl_suf = torch.cat([suf.narrow(axis, 1, n - 1), one1], dim=axis)
         out = self.mul(self.mul(excl_pre, excl_suf), inv_total.expand_as(a))
-        return torch.where(nz[None], out, torch.zeros_like(out))
+        return torch.where(nz, out, torch.zeros_like(out))
+
+
+class PrimeField(FieldBase):
+    """Vectorized arithmetic over F_p on (n32, *batch) int32 tensors."""
+
+    el_ndim = 1
+
+    def __init__(self, p: int, bits: int | None = None, name: str = "Fp"):
+        self.name = name
+        self.mp = hm.derive(p, bits)
+        self.p = p
+        self.n16 = self.mp.n16
+        self.n32 = self.n16 // 2
+        self.el_shape = (self.n32,)
+        self.inv32 = self.mp.inv64 & 0xFFFFFFFF      # -p^-1 mod 2^32
+        self.p_limbs = self._limbs(p)
+        self.one_limbs = self._limbs(self.mp.R % p)
+        self._one_limbs = np.array(self.one_limbs, dtype=np.uint32)
+        self.plain = PlainField(p, bits)
+        # host copies handed to the kernels' C entry points
+        self.p_c = _build.u32_array(self.p_limbs)
+        self.one_c = _build.u32_array(self.one_limbs)
+
+    @property
+    def prime_field(self) -> "PrimeField":
+        """The prime field at the bottom of the tower: this one."""
+        return self
+
+    def _limbs(self, v: int) -> list[int]:
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.n32)]
+
+    def mont_limbs(self, v: int) -> list[int]:
+        """The Montgomery form of host int v as n32 limbs."""
+        return self._limbs(hm.to_mont(self.mp, v))
+
+    # -- host conversion ----------------------------------------------------
+    def const(self, v: int, device="cuda") -> torch.Tensor:
+        """Montgomery-form constant, shape (n32,)."""
+        return to_device_tensor(np.array(self.mont_limbs(v), dtype=np.uint32),
+                                device)
+
+    def from_ints(self, vals, device="cuda") -> torch.Tensor:
+        """Host ints -> Montgomery limb array (n32, N) (or (n32,))."""
+        if isinstance(vals, int):
+            return self.const(vals, device)
+        mont = [hm.to_mont(self.mp, int(v)) for v in vals]
+        return to_device_tensor(ints_to_limbs(mont, self.n32), device)
+
+    def to_ints(self, x: torch.Tensor) -> list[int]:
+        """Montgomery limb array -> host plain ints (batch flattened)."""
+        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
+        return [hm.from_mont(self.mp, v) for v in limbs_to_ints(a)]
+
+    def plain_from_ints(self, vals, device="cuda") -> torch.Tensor:
+        """Host ints -> plain (non-Montgomery) limb array (n32, N)."""
+        if isinstance(vals, int):
+            return to_device_tensor(
+                np.array(self._limbs(vals % self.p), dtype=np.uint32), device)
+        return to_device_tensor(
+            ints_to_limbs([int(v) % self.p for v in vals], self.n32), device)
+
+    def plain_to_ints(self, x: torch.Tensor) -> list[int]:
+        a = x.detach().cpu().reshape(self.n32, -1).numpy().view(np.uint32)
+        return limbs_to_ints(a)
+
+    def to_host(self, x: torch.Tensor) -> int:
+        """Unbatched element -> host int, as the Fq2 field's to_host gives
+        a host tuple (fields/fp.py:103-107)."""
+        (v,) = self.to_ints(x.reshape(self.n32, 1))
+        return v
+
+    # -- ring ops -----------------------------------------------------------
+    def add(self, a, b):
+        return fp_op(self, "add", *align(a, b))
+
+    def sub(self, a, b):
+        return fp_op(self, "sub", *align(a, b))
+
+    def mul(self, a, b):
+        return fp_op(self, "mul", *align(a, b))
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def mul_small_const(self, a, c: int):
+        return _mul_small_const(
+            self, a, c,
+            lambda c: self.const(c, a.device).reshape(
+                (self.n32,) + (1,) * (a.ndim - 1)).expand_as(a))
+
+    # -- Montgomery domain conversion -----------------------------------------
+    def to_mont(self, a_plain):
+        """plain limbs -> Montgomery form (times R^2, fp.py:422-426)."""
+        r2 = self.plain_from_ints(self.mp.R2, a_plain.device)
+        return self.mul(a_plain, r2.reshape(
+            (self.n32,) + (1,) * (a_plain.ndim - 1)).expand_as(a_plain))
+
+    def from_mont(self, a):
+        """Montgomery form -> plain limbs (times 1, fp.py:428-432)."""
+        o = self.plain_from_ints(1, a.device)
+        return self.mul(a, o.reshape((self.n32,) + (1,) * (a.ndim - 1))
+                        .expand_as(a))
+
+    def inv(self, a):
+        """Fermat inverse a^(p-2); maps 0 to 0 (fp.py:465-468)."""
+        return self.pow_static(a, self.p - 2)

@@ -1,12 +1,14 @@
 """Kernel K2: the MSM bucket insert (port of
-libff_tpu/msm/pallas_insert3.py, G1 branch).
+libff_tpu/msm/pallas_insert3.py, both branches: G1 over Fp and G2 over
+Fq2).
 
 :func:`insert` keeps ``insert_pallas3``'s contract (pallas_insert3.py:301):
 signed digits ``d (W, T, L)``; points ``(px, py, pneg, pinf)`` with
-coordinates ``(n32, T, L)`` and ``pinf (T, L)`` bool; it returns the raw
-projective buckets with coordinates ``(n32, W, B, L)``, bit-identical to
-the TPU kernel's after the limb repack.  A CUDA tensor launches
-``csrc/insert.cu``; a CPU tensor runs :func:`insert_plain`.
+coordinates ``(*el, T, L)`` (``el`` the field's element dims) and ``pinf
+(T, L)`` bool; it returns the raw projective buckets with coordinates
+``(*el, W, B, L)``, bit-identical to the TPU kernel's after the limb
+repack.  A CUDA tensor launches ``csrc/insert.cu``; a CPU tensor runs
+:func:`insert_plain`.
 """
 
 from __future__ import annotations
@@ -15,14 +17,15 @@ import ctypes
 
 import torch
 
-from libff_tpu.curves import formulas as fml
-
 from .. import _build
+from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
+from ..curves.group_ops import kernel_branch
 from ..fields.fp import to16, to32
 
-_ARGS = [_build.VP] * 8 + [ctypes.c_int] * 6 + [
-    _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+_ARGS = [_build.VP] * 8 + [ctypes.c_int] * 7 + [
+    _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int,
+    _build.VP]
 
 
 def _check(G, d, pts, B):
@@ -30,10 +33,10 @@ def _check(G, d, pts, B):
     if d.ndim != 3 or d.dtype != torch.int32:
         raise ValueError("digits are (W, T, L) int32")
     W, T, L = d.shape
-    n = G.F.n32
+    el = G.F.el_shape
     for c in (px, py, pneg):
-        if c.shape != (n, T, L) or c.dtype != torch.int32:
-            raise ValueError(f"point coordinates are ({n}, {T}, {L}) int32")
+        if c.shape != el + (T, L) or c.dtype != torch.int32:
+            raise ValueError(f"point coordinates are {el + (T, L)} int32")
     if pinf.shape != (T, L) or pinf.dtype != torch.bool:
         raise ValueError(f"pinf is ({T}, {L}) bool")
     if any(a.device != d.device for a in pts):
@@ -52,21 +55,20 @@ def insert(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
         return insert_plain(G, d, pts, B)
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
-    if G.F.n32 != 8 or G._b3_host != 9:
-        raise NotImplementedError(
-            "K2 is built for 254-bit fields with b3 = 9 (alt_bn128 G1)")
+    k, b3, b3_mont = kernel_branch(G, "K2")
     W, T, L = d.shape
     px, py, pneg, pinf = (a.contiguous() for a in pts)
     d = d.contiguous()
     pinf = pinf.to(torch.int32).contiguous()
-    out = [torch.empty((G.F.n32, W, B, L), dtype=torch.int32,
+    out = [torch.empty(G.F.el_shape + (W, B, L), dtype=torch.int32,
                        device=d.device) for _ in range(3)]
+    Fp = G.F.prime_field
     fn = _build.function("insert", "insert", _ARGS)
-    _build.launch(fn, "K2 insert", d.device,
+    _build.launch(fn, f"K2 insert (k = {k})", d.device,
                   *(_build.ptr(a) for a in (d, px, py, pneg, pinf, *out)),
-                  W, T, L, B, G.F.n32, G._b3_host, G.F.p_c, G.F.one_c,
-                  G.F.inv32, d.get_device(), _build.stream_ptr(d))
-    _build.LAUNCHES["K2"] += 1
+                  W, T, L, B, Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c,
+                  Fp.inv32, d.get_device(), _build.stream_ptr(d))
+    _build.LAUNCHES[f"K2 g{k}"] += 1
     return ProjectivePoint(*out)
 
 
@@ -76,24 +78,28 @@ def insert_plain(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     plain field (pallas_insert3.py:127-170)."""
     _check(G, d, pts, B)
     F = G.F.plain
+    ax = G.F.el_ndim - 1                                # the limb axis
     px, py, pneg, pinf = pts
     W, T, L = d.shape
-    n = F.n
     dev = d.device
-    one = to16(G.F.one((W, B, L), dev))
+    one = to16(G.F.one((W, B, L), dev), ax)
     bx, by, bz = torch.zeros_like(one), one.clone(), torch.zeros_like(one)
-    px, py, pneg = to16(px), to16(py), to16(pneg)
+    el16 = tuple(one.shape[:ax + 1])
+    lead = (None,) * len(el16)
+    px, py, pneg = (to16(a, ax) for a in (px, py, pneg))
     for t in range(T):
         dt = d[:, t, :].to(torch.int64)                  # (W, L)
         absd = dt.abs()
         idx = (absd - 1).clamp(0, B - 1)
-        valid = (absd > 0) & ~pinf[t][None, :]
-        gi = idx[None, :, None, :].expand(n, W, 1, L)
-        cx, cy, cz = (b.gather(2, gi).squeeze(2) for b in (bx, by, bz))
-        qx = px[:, t][:, None, :].expand(n, W, L)
-        qy = torch.where((dt < 0)[None], pneg[:, t][:, None, :],
-                         py[:, t][:, None, :])
+        valid = ((absd > 0) & ~pinf[t][None, :])[lead]
+        gi = idx[:, None, :].expand(el16 + (W, 1, L))
+        cx, cy, cz = (b.gather(ax + 2, gi).squeeze(ax + 2)
+                      for b in (bx, by, bz))
+        qx = px[..., t, None, :].expand(el16 + (W, L))
+        qy = torch.where((dt < 0)[lead], pneg[..., t, None, :],
+                         py[..., t, None, :])
         new = fml.rcb_madd_a0(F, cx, cy, cz, qx, qy, G._b3_host)
         for b, cur, nv in zip((bx, by, bz), (cx, cy, cz), new):
-            b.scatter_(2, gi, torch.where(valid[None], nv, cur).unsqueeze(2))
-    return ProjectivePoint(to32(bx), to32(by), to32(bz))
+            b.scatter_(ax + 2, gi,
+                       torch.where(valid, nv, cur).unsqueeze(ax + 2))
+    return ProjectivePoint(to32(bx, ax), to32(by, ax), to32(bz, ax))

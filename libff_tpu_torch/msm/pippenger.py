@@ -1,5 +1,6 @@
 """Signed-digit Pippenger MSM for complete (a = 0) groups (port of
-libff_tpu/msm/pippenger.py, the signed complete path).
+libff_tpu/msm/pippenger.py, the signed complete path), over Fp (G1) and
+Fq2 (G2).
 
 BDLO12_signed (multiexp.tcc:507-641) with the JAX package's schedule: the
 batch splits into L lanes of T = N/L points, each lane owning private
@@ -9,7 +10,7 @@ buckets for every window.
   insert : bucket |d|-1 += +-P, per (window, lane), in t order  kernel K2
   reduce : lane halving tree, bucket suffix tree, sum tree       kernel K3
   horner : window-parallel masked doubling, then a sum tree      kernel K3
-  finish : projective -> Jacobian                                kernel K1e
+  finish : projective -> Jacobian                      kernel K1e (K4e on G2)
 
 The JAX package's TPU-only knobs (engine, formulas, merge, tb, kmul,
 scatter) choose among TPU schedules and have no counterpart here.
@@ -41,7 +42,10 @@ def default_config(n: int, device) -> MsmConfig:
     array and of the reduce tree.  At 2^20 points a sweep on an H100 over
     c in 7..12 and lanes in 256..4096 found the insert near 60-75 ms
     everywhere and the whole MSM within a few per cent from 256 to 1024
-    lanes at c = 7..9; c = 8 with 1024 lanes is among the fastest (PERF.md).
+    lanes at c = 7..9; c = 8 with 1024 lanes is among the fastest.  On G2
+    at 2^18 points a sweep over c in 6..10 and lanes in 256..2048
+    (``python3 -m libff_tpu_torch.sweep``) found c = 8 with 1024 lanes the
+    fastest too, so both groups share the setting (PERF.md).
     Smaller sizes were not swept; ``_prepare`` cuts the lanes to the
     largest power of two <= n.
     CPU (the plain versions, tests): small windows keep the plain insert's
@@ -74,10 +78,10 @@ def _prepare(G: Group, scalar_limbs, points: AffinePoint, cfg: MsmConfig):
 
         scalar_limbs, x, y = zpad(scalar_limbs), zpad(x), zpad(y)
         inf = torch.cat([inf, inf.new_ones((pad,))])
-    n = F.n32
-    px = x.reshape(n, T, L)
-    py = y.reshape(n, T, L)
-    pneg = F.neg(y).reshape(n, T, L)
+    shape = F.el_shape + (T, L)
+    px = x.reshape(shape)
+    py = y.reshape(shape)
+    pneg = F.neg(y).reshape(shape)
     pinf = inf.reshape(T, L)
     return scalar_limbs, (px, py, pneg, pinf), T, L
 
@@ -85,9 +89,10 @@ def _prepare(G: Group, scalar_limbs, points: AffinePoint, cfg: MsmConfig):
 def _shift_down(G: Group, P: ProjectivePoint, k: int, axis: int
                 ) -> ProjectivePoint:
     """P'_b = P_(b+k) along `axis`, the tail padded with identities."""
+    el = G.F.el_ndim
     n = P.z.shape[axis]
-    pad = list(P.z.shape[1:])
-    pad[axis - 1] = k
+    pad = list(P.z.shape[el:])
+    pad[axis - el] = k
     zero = G.proj_zero(tuple(pad), P.z.device)
     return ProjectivePoint(*(torch.cat([a.narrow(axis, k, n - k), z], dim=axis)
                              for a, z in zip(P, zero)))

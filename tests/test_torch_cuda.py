@@ -16,12 +16,14 @@ import pytest
 import torch
 
 import chip_smoke
-from libff_tpu_torch import _build, convert, workload
+from libff_tpu_torch import _build, workload
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group_ops import OPS, group_op, group_op_plain
 from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
+from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
+from libff_tpu_torch.host import field as hf
 from libff_tpu_torch.msm.insert import insert, insert_plain
-from libff_tpu_torch.msm.pippenger import MsmConfig, msm_pippenger
+from libff_tpu_torch.msm.pippenger import MsmConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -54,41 +56,94 @@ def test_k1e_matches_plain(dev, dc, op):
     assert torch.equal(got, fp_op_plain(F, op, a, b))
 
 
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_k4e_matches_plain(dev, dc, op):
+    F2 = dc.fq2
+    rng = np.random.default_rng(5)
+    a = chip_smoke.rand_elements(F2, 4099, rng, dev)
+    b = chip_smoke.rand_elements(F2, 4099, rng, dev)
+    edges = [0, 1, F2.B.p - 1, F2.B.p - 2, F2.B.mp.R % F2.B.p]
+    a[1, :, :5] = F2.B.plain_from_ints(edges, dev)
+    b[0, :, 5:10] = F2.B.plain_from_ints(edges, dev)
+    before = _build.LAUNCHES["K4e"]
+    got = fq2_op(F2, op, a, b)
+    assert _build.LAUNCHES["K4e"] == before + 1
+    assert torch.equal(got, fq2_op_plain(F2, op, a, b))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+def test_k1e_fq2_matches_plain(dev, dc, op):
+    """K1e's Fq2 branch: add, sub and neg act on both coefficients of a
+    (2, n32, N) array in one launch, as _prepare's negation of y does."""
+    F2 = dc.fq2
+    rng = np.random.default_rng(6)
+    a = chip_smoke.rand_elements(F2, 4099, rng, dev)
+    b = chip_smoke.rand_elements(F2, 4099, rng, dev)
+    edges = [0, 1, F2.B.p - 1, F2.B.p - 2, F2.B.mp.R % F2.B.p]
+    a[1, :, :5] = F2.B.plain_from_ints(edges, dev)
+    b[0, :, 5:10] = F2.B.plain_from_ints(edges, dev)
+    if op == "neg":
+        op, a = "sub", torch.zeros_like(a)
+    before = _build.LAUNCHES["K1e"]
+    got = getattr(F2, op)(a, b)
+    assert _build.LAUNCHES["K1e"] == before + 1
+    assert torch.equal(got, fq2_op_plain(F2, op, a, b))
+
+
+def test_k4e_refuses_another_non_residue(dev, dc):
+    """K4 is written for nr = p - 1; an Fq2 with another non-residue runs
+    only on the plain version and is refused on the card."""
+    F2 = ExtField(dc.fq, hf.Ext(dc.cd.fq, 2, 2))
+    a = F2.from_host_batch([(1, 2), (3, 4)], dev)
+    with pytest.raises(NotImplementedError):
+        fq2_op(F2, "mul", a, a)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("op", sorted(OPS))
-def test_k3_matches_plain(dev, dc, op):
-    G = dc.g1
+def test_k3_matches_plain(dev, dc, op, group):
+    G = getattr(dc, group)
     rng = np.random.default_rng(2)
     c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000, rng, dev)
     coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
                      "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
                      "madd": (list(cm), (q_inf,))}[op]
-    before = _build.LAUNCHES["K3"]
+    before = _build.LAUNCHES[f"K3 {group}"]
     got = group_op(G, op, coords, masks)
-    assert _build.LAUNCHES["K3"] == before + 1
+    assert _build.LAUNCHES[f"K3 {group}"] == before + 1
     for g, w in zip(got, group_op_plain(G, op, coords, masks)):
         assert torch.equal(g, w)
 
 
-def test_k2_matches_plain(dev, dc):
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k2_matches_plain(dev, dc, group):
     # distinct points, some at infinity: the MSM workload's points repeat
-    # with period 32, which a kernel reading the wrong point would not show
-    d, pts, B = chip_smoke.k2_inputs(dc, 1 << 12, MsmConfig(c=8, lanes=256),
+    # with period 32 (16 on G2), which a kernel reading the wrong point
+    # would not show
+    G = getattr(dc, group)
+    d, pts, B = chip_smoke.k2_inputs(dc, group, 1 << 12,
+                                     MsmConfig(c=8, lanes=256),
                                      np.random.default_rng(3), dev)
     assert bool(pts[3].any())
-    before = _build.LAUNCHES["K2"]
-    got = insert(dc.g1, d, pts, B)
-    assert _build.LAUNCHES["K2"] == before + 1
-    for g, w in zip(got, insert_plain(dc.g1, d, pts, B)):
+    before = _build.LAUNCHES[f"K2 {group}"]
+    got = insert(G, d, pts, B)
+    assert _build.LAUNCHES[f"K2 {group}"] == before + 1
+    for g, w in zip(got, insert_plain(G, d, pts, B)):
         assert torch.equal(g, w)
 
 
 def test_msm_matches_oracle_and_keeps_current_device(dev, dc):
-    n = 1 << 12
-    limbs, x, y = workload.msm_inputs(dc.cd, n, 4)
-    s = convert.field_to_torch(limbs, dev)
-    A = convert.affine_to_torch((x, y, np.zeros(n, dtype=bool)), dev)
+    s, A, want = workload.msm_case(dc, "g1", 12, dev, 4)
     current = torch.cuda.current_device()
-    aff = dc.g1.to_affine(msm_pippenger(dc.g1, s, A, 254))
+    got, _, _ = workload.run_msm(dc.g1, s, A)
     assert torch.cuda.current_device() == current
-    got = (dc.fq.to_ints(aff.x)[0], dc.fq.to_ints(aff.y)[0])
-    assert got == workload.oracle(dc.cd, workload.class_sums(limbs))
+    assert got == want
+
+
+def test_g2_msm_matches_oracle(dev, dc):
+    s, A, want = workload.msm_case(dc, "g2", 12, dev, 6)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(dc.g2, s, A)
+    assert all(_build.LAUNCHES[k] > 0
+               for k in ("K1e", "K2 g2", "K3 g2", "K4e"))
+    assert got == want

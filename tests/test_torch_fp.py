@@ -46,7 +46,8 @@ def field(request, curves):
 
 
 def _same(port: torch.Tensor, jax_arr) -> bool:
-    return torch.equal(port, convert.field_to_torch(np.asarray(jax_arr)))
+    return torch.equal(port, convert.field_to_torch(np.asarray(jax_arr),
+                                                     "cpu"))
 
 
 BINARY = {"add": ("add", "add"), "sub": ("sub", "sub"),
@@ -57,7 +58,8 @@ BINARY = {"add": ("add", "add"), "sub": ("sub", "sub"),
 def test_binary_op_matches_jax(field, op):
     JF, TF, va, vb = field
     port_op, jax_op = BINARY[op]
-    got = getattr(TF, port_op)(TF.from_ints(va), TF.from_ints(vb))
+    got = getattr(TF, port_op)(TF.from_ints(va, "cpu"),
+                               TF.from_ints(vb, "cpu"))
     want = getattr(JF, jax_op)(JF.from_ints(va), JF.from_ints(vb))
     assert _same(got, want)
     p = TF.p
@@ -68,26 +70,26 @@ def test_binary_op_matches_jax(field, op):
 
 def test_neg_matches_jax(field):
     JF, TF, va, _ = field
-    assert _same(TF.neg(TF.from_ints(va)), JF.neg(JF.from_ints(va)))
+    assert _same(TF.neg(TF.from_ints(va, "cpu")), JF.neg(JF.from_ints(va)))
 
 
 def test_to_mont_matches_jax(field):
     JF, TF, va, _ = field
-    got = TF.to_mont(TF.plain_from_ints(va))
+    got = TF.to_mont(TF.plain_from_ints(va, "cpu"))
     assert _same(got, JF.to_mont(JF.plain_from_ints(va)))
     assert _same(got, JF.from_ints(va))
 
 
 def test_from_mont_matches_jax(field):
     JF, TF, va, _ = field
-    got = TF.from_mont(TF.from_ints(va))
+    got = TF.from_mont(TF.from_ints(va, "cpu"))
     assert _same(got, JF.from_mont(JF.from_ints(va)))
     assert TF.plain_to_ints(got) == va
 
 
 def test_inv_matches_jax(field):
     JF, TF, va, _ = field
-    got = TF.inv(TF.from_ints(va))
+    got = TF.inv(TF.from_ints(va, "cpu"))
     assert _same(got, JF.inv(JF.from_ints(va)))
     assert TF.to_ints(got) == [pow(v, TF.p - 2, TF.p) for v in va]
 
@@ -98,14 +100,14 @@ def test_batch_inverse_matches_jax(curves):
     jdc, tdc = curves
     JF, TF = jdc.fq, tdc.fq
     va = _values(TF.p, 13)
-    got = TF.batch_inverse(TF.from_ints(va))
+    got = TF.batch_inverse(TF.from_ints(va, "cpu"))
     assert _same(got, JF.batch_inverse(JF.from_ints(va)))
 
 
 def test_batch_inverse_2d_axis(field):
     """Inversion along either batch axis of a (n32, 2, 4) array."""
     _, TF, va, _ = field
-    a = TF.from_ints(va).reshape(TF.n32, 2, 4)
+    a = TF.from_ints(va, "cpu").reshape(TF.n32, 2, 4)
     want = [pow(v, TF.p - 2, TF.p) for v in va]
     assert TF.to_ints(TF.batch_inverse(a, axis=-1)) == want
     assert TF.to_ints(TF.batch_inverse(a, axis=1)) == want
@@ -118,24 +120,24 @@ def test_mul_small_const_matches_jax(curves, c):
     jdc, tdc = curves
     JF, TF = jdc.fq, tdc.fq
     va = _values(TF.p, 14)
-    got = TF.mul_small_const(TF.from_ints(va), c)
+    got = TF.mul_small_const(TF.from_ints(va, "cpu"), c)
     assert _same(got, JF.mul_small_const(JF.from_ints(va), c))
 
 
 def test_pow_static_and_predicates(field):
     JF, TF, va, vb = field
-    a = TF.from_ints(va)
+    a = TF.from_ints(va, "cpu")
     for e in (0, 1, 5, (1 << 64) + 3):
         assert TF.to_ints(TF.pow_static(a, e)) == [pow(v, e, TF.p) for v in va]
-    b = TF.from_ints(vb)
+    b = TF.from_ints(vb, "cpu")
     assert torch.equal(TF.is_zero(a), torch.tensor([v == 0 for v in va]))
     assert torch.equal(TF.eq(a, a.clone()), torch.ones(8, dtype=torch.bool))
     mask = torch.tensor([True, False] * 4)
     jmask = jnp.asarray(mask.numpy())
     assert _same(TF.select(mask, a, b),
                  JF.select(jmask, JF.from_ints(va), JF.from_ints(vb)))
-    assert TF.to_ints(TF.one((3,))) == [1, 1, 1]
-    assert TF.to_ints(TF.zero((2,))) == [0, 0]
+    assert TF.to_ints(TF.one((3,), "cpu")) == [1, 1, 1]
+    assert TF.to_ints(TF.zero((2,), "cpu")) == [0, 0]
 
 
 # -- the n16 <-> n32 repack and convert.py --------------------------------------
@@ -147,7 +149,7 @@ def test_repack_round_trip():
     assert a32.shape == (8, 3, 7)
     assert np.array_equal(a32, a16[0::2] | (a16[1::2] << 16))
     assert np.array_equal(convert.limbs32_to_16(a32), a16)
-    t = convert.field_to_torch(a16)
+    t = convert.field_to_torch(a16, "cpu")
     assert t.dtype == torch.int32 and tuple(t.shape) == (8, 3, 7)
     assert np.array_equal(convert.field_from_torch(t), a16)
     # the plain field's int64 16-bit view is the same repack
@@ -168,10 +170,10 @@ def test_montgomery_form_matches_jax(field):
     """from_ints gives the JAX package's Montgomery limbs, to_ints reads
     them back, and the plain forms agree too."""
     JF, TF, va, _ = field
-    assert _same(TF.from_ints(va), JF.from_ints(va))
-    assert _same(TF.plain_from_ints(va), JF.plain_from_ints(va))
-    assert TF.to_ints(convert.field_to_torch(np.asarray(JF.from_ints(va)))) \
-        == va
+    assert _same(TF.from_ints(va, "cpu"), JF.from_ints(va))
+    assert _same(TF.plain_from_ints(va, "cpu"), JF.plain_from_ints(va))
+    assert TF.to_ints(convert.field_to_torch(np.asarray(JF.from_ints(va)),
+                                             "cpu")) == va
     assert TF.inv32 == (-pow(TF.p, -1, 1 << 32)) % (1 << 32)
 
 
@@ -182,13 +184,13 @@ def test_point_round_trips(curves):
     coords = [rng.integers(0, 1 << 16, size=(16, 5), dtype=np.uint32)
               for _ in range(3)]
     inf = np.array([False, True, False, False, True])
-    A = convert.affine_to_torch((coords[0], coords[1], inf))
+    A = convert.affine_to_torch((coords[0], coords[1], inf), "cpu")
     assert isinstance(A, AffinePoint) and A.x.shape == (F.n32, 5)
     back = convert.affine_from_torch(A)
     assert all(np.array_equal(x, y) for x, y in
                zip(back, (coords[0], coords[1], inf)))
     for kind in (ProjectivePoint, JacobianPoint):
-        P = convert.point_to_torch(coords, kind)
+        P = convert.point_to_torch(coords, kind, "cpu")
         assert isinstance(P, kind)
         assert all(np.array_equal(x, y) for x, y in
                    zip(convert.point_from_torch(P), coords))
@@ -201,11 +203,11 @@ def test_k1e_wrapper_rejects(curves, case):
     """The wrapper raises on what K1e does not take; a tensor on a device
     with no kernel is refused, never computed on the CPU."""
     F = curves[1].fq
-    a = F.from_ints([1, 2, 3])
+    a = F.from_ints([1, 2, 3], "cpu")
     b = a.clone()
     op = "mul"
     if case == "shape":
-        b = F.from_ints([1, 2])
+        b = F.from_ints([1, 2], "cpu")
     elif case == "dtype":
         b = b.to(torch.int64)
     elif case == "limbs":
@@ -216,3 +218,40 @@ def test_k1e_wrapper_rejects(curves, case):
         op = "div"
     with pytest.raises((ValueError, TypeError)):
         tfp.fp_op(F, op, a, b)
+
+
+def _entry_points(dc):
+    """Every port function that makes a tensor from host data, called
+    without a device."""
+    F, F2 = dc.fq, dc.fq2
+    limbs = np.zeros((16, 2), dtype=np.uint32)
+    return {
+        "const": lambda: F.const(5),
+        "from_ints": lambda: F.from_ints([1, 2]),
+        "plain_from_ints": lambda: F.plain_from_ints([1, 2]),
+        "zero": lambda: F.zero((2,)),
+        "one": lambda: F.one((2,)),
+        "fq2_from_host": lambda: F2.from_host((1, 2)),
+        "fq2_from_host_batch": lambda: F2.from_host_batch([(1, 2)]),
+        "fq2_one": lambda: F2.one((2,)),
+        "proj_zero": lambda: dc.g2.proj_zero((2,)),
+        "field_to_torch": lambda: convert.field_to_torch(limbs),
+        "affine_to_torch": lambda: convert.affine_to_torch(
+            (limbs, limbs, np.zeros(2, dtype=bool))),
+        "point_to_torch": lambda: convert.point_to_torch((limbs,) * 3),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points(device_curve(
+    "alt_bn128"))))
+def test_entry_points_default_to_the_card(curves, name):
+    """Without a device the entry points put their tensors on the card;
+    with no card they raise through torch and make no CPU tensor."""
+    make = _entry_points(curves[1])[name]
+    if torch.cuda.is_available():
+        out = make()
+        assert all(t.device.type == "cuda" for t in
+                   (out if isinstance(out, tuple) else (out,)))
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()

@@ -113,10 +113,10 @@ def test_group_op_plain_matches_pallas_kernel(toy, lanes, op):
     want = group_op_pallas(JG, op, [JG.F.from_ints(c) for c in cols],
                            [jnp.asarray(m) for m in masks],
                            interpret="reference")
-    got = group_op(TG, op, [TG.F.from_ints(c) for c in cols],
+    got = group_op(TG, op, [TG.F.from_ints(c, "cpu") for c in cols],
                    [torch.from_numpy(m) for m in masks])
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.field_to_torch(np.asarray(w)))
+        assert torch.equal(g, convert.field_to_torch(np.asarray(w), "cpu"))
     # the group value, too: the result is the host sum (or double)
     F = TG.F
     X, Y, Z = (F.to_ints(g) for g in got)
@@ -154,12 +154,12 @@ def test_padd_alt_bn128_matches_jax_group():
     cols = [[c[j] for c in coords] for j in range(3)]
     jP = JaxProjective(*(jdc.fq.from_ints(c[:8]) for c in cols))
     jQ = JaxProjective(*(jdc.fq.from_ints(c[8:]) for c in cols))
-    tP = ProjectivePoint(*(tdc.fq.from_ints(c[:8]) for c in cols))
-    tQ = ProjectivePoint(*(tdc.fq.from_ints(c[8:]) for c in cols))
+    tP = ProjectivePoint(*(tdc.fq.from_ints(c[:8], "cpu") for c in cols))
+    tQ = ProjectivePoint(*(tdc.fq.from_ints(c[8:], "cpu") for c in cols))
     want = jdc.g1.padd(jP, jQ)
     got = tdc.g1.padd(tP, tQ)
     for g, w in zip(got, want):
-        assert torch.equal(g, convert.field_to_torch(np.asarray(w)))
+        assert torch.equal(g, convert.field_to_torch(np.asarray(w), "cpu"))
 
 
 # -- the port's Group around K3, against the host curve --------------------------
@@ -176,7 +176,7 @@ def test_to_affine_and_coordinate_maps(toy, lanes):
     P, _, zp, _, _ = lanes
     pts, zs = P[56:72], zp[56:72]                       # 8 zeros, 8 points
     proj = [_proj(a, z, P_TOY) for a, z in zip(pts, zs)]
-    Pp = ProjectivePoint(*(F.from_ints([c[j] for c in proj])
+    Pp = ProjectivePoint(*(F.from_ints([c[j] for c in proj], "cpu")
                            for j in range(3)))
     J = TG.proj_to_jacobian(Pp)
     assert isinstance(J, JacobianPoint)
@@ -201,7 +201,7 @@ def test_proj_sum_tree_pads_with_identity(toy, lanes, n):
     P, _, zp, _, _ = lanes
     pts, zs = P[60:60 + n], zp[60:60 + n]
     proj = [_proj(a, z, P_TOY) for a, z in zip(pts, zs)]
-    Pp = ProjectivePoint(*(F.from_ints([c[j] for c in proj])
+    Pp = ProjectivePoint(*(F.from_ints([c[j] for c in proj], "cpu")
                            .reshape(F.n32, 1, n) for j in range(3)))
     S = TG.proj_sum_tree(Pp, axis=-1)
     assert S.z.shape == (F.n32, 1)
@@ -215,9 +215,10 @@ def test_proj_sum_tree_pads_with_identity(toy, lanes, n):
 def test_select_and_identity(toy):
     _, _, TG = toy
     F = TG.F
-    A = AffinePoint(F.from_ints([GEN_TOY[0]] * 4), F.from_ints([GEN_TOY[1]] * 4),
+    A = AffinePoint(F.from_ints([GEN_TOY[0]] * 4, "cpu"),
+                    F.from_ints([GEN_TOY[1]] * 4, "cpu"),
                     torch.zeros(4, dtype=torch.bool))
-    Z = TG.proj_zero((4,))
+    Z = TG.proj_zero((4,), "cpu")
     assert (F.to_ints(Z.x), F.to_ints(Z.y)) == ([0] * 4, [1] * 4)
     mask = torch.tensor([True, False, True, False])
     S = TG.select(mask, TG.proj_from_affine(A), Z)
@@ -231,14 +232,14 @@ def test_select_and_identity(toy):
 def test_k3_wrapper_rejects(toy, case):
     _, _, TG = toy
     F = TG.F
-    c = [F.from_ints([1, 2, 3]) for _ in range(6)]
+    c = [F.from_ints([1, 2, 3], "cpu") for _ in range(6)]
     op, masks = "padd", []
     if case == "op":
         op = "psub"
     elif case == "count":
         c = c[:5]
     elif case == "shape":
-        c[4] = F.from_ints([1, 2])
+        c[4] = F.from_ints([1, 2], "cpu")
     elif case == "mask":
         op, c, masks = "pmadd", c[:5], [torch.zeros(3, dtype=torch.int32)]
     else:

@@ -1,11 +1,13 @@
 """The port stands apart from JAX.
 
-An AST scan of every module of ``libff_tpu_torch`` and of ``chip_smoke.py``
-finds no ``jax`` import and no import of the JAX package outside its
-jax-free host modules; importing the whole port in a fresh interpreter
-leaves ``jax`` out of ``sys.modules`` and needs no ``nvcc`` and no card,
-and a group op leaves out ``sympy`` too (its import cost seconds in the
-first MSM).  ``chip_smoke.py`` refuses to run without a card.
+An AST scan of every module of ``libff_tpu_torch`` (its own copies of the
+JAX package's jax-free modules included) and of ``chip_smoke.py`` finds no
+``jax`` import and no import of the JAX package ``libff_tpu`` at all.
+Importing the whole port in a fresh interpreter and running one G1 and one
+G2 group op leaves ``jax`` and every ``libff_tpu`` module out of
+``sys.modules``, needs no ``nvcc`` and no card, and leaves out ``sympy``
+too (its import cost seconds in the first MSM).  ``chip_smoke.py`` refuses
+to run without a card.
 """
 
 import ast
@@ -21,9 +23,9 @@ PORT = ROOT / "libff_tpu_torch"
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")
                if "_build" not in p.parts) + ["chip_smoke.py"]
 
-# the modules of the JAX package that import no jax, which the port may use
-ALLOWED = ("libff_tpu.host.mont", "libff_tpu.host.field", "libff_tpu.host.ec",
-           "libff_tpu.curves.curvedef", "libff_tpu.curves.formulas")
+# the modules of the JAX package the port may import: none, it keeps its
+# own copies
+ALLOWED = ()
 
 
 def _imports(path: Path) -> list[str]:
@@ -38,20 +40,12 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
-def _allowed(name: str) -> bool:
-    if name in ("libff_tpu", "libff_tpu.host", "libff_tpu.curves"):
-        return False
-    return any(name == a or name.startswith(a + ".") for a in ALLOWED)
-
-
 @pytest.mark.parametrize("rel", FILES)
 def test_no_jax_import(rel):
     names = _imports(ROOT / rel)
     assert not [n for n in names if n == "jax" or n.startswith("jax.")]
-    ref = [n for n in names if n == "libff_tpu" or n.startswith("libff_tpu.")]
-    # "from libff_tpu.host import mont" names both the package and the module
-    bad = [n for n in ref if not _allowed(n)
-           and not any(m.startswith(n + ".") and _allowed(m) for m in ref)]
+    bad = [n for n in names if (n == "libff_tpu" or n.startswith("libff_tpu."))
+           and not any(n == a or n.startswith(a + ".") for a in ALLOWED)]
     assert not bad, f"{rel} imports {bad}"
 
 
@@ -70,14 +64,20 @@ def test_import_leaves_jax_out():
             "    importlib.import_module(m)\n"
             "from libff_tpu_torch.curves.device import device_curve\n"
             "from libff_tpu_torch.curves.group import ProjectivePoint\n"
-            "G = device_curve('alt_bn128').g1\n"
-            "P = ProjectivePoint(*(G.F.one((2, 1)) for _ in range(3)))\n"
-            "G.padd(P, ProjectivePoint(*(G.F.one((2,)) for _ in range(3))))\n"
+            "dc = device_curve('alt_bn128')\n"
+            "for G in (dc.g1, dc.g2):\n"
+            "    P = ProjectivePoint(*(G.F.one((2, 1), 'cpu')\n"
+            "                          for _ in range(3)))\n"
+            "    G.padd(P, ProjectivePoint(*(G.F.one((2,), 'cpu')\n"
+            "                                for _ in range(3))))\n"
             "assert 'sympy' not in sys.modules, 'a group op imported sympy'\n"
             "from libff_tpu_torch import _build\n"
             "assert not _build._libs, 'importing loaded a kernel library'\n"
             "assert not [m for m in sys.modules if m.split('.')[0] == 'jax'],"
             " sorted(m for m in sys.modules if m.startswith('jax'))\n"
+            "assert not [m for m in sys.modules"
+            " if m.split('.')[0] == 'libff_tpu'],"
+            " sorted(m for m in sys.modules if m.startswith('libff_tpu.'))\n"
             "print('ok')\n")
     r = _run(code, ROOT, PATH="/usr/bin:/bin")
     assert r.returncode == 0, r.stderr

@@ -68,8 +68,9 @@ def ctx():
     s2, jpts, _, T, L = jax_prepare(JG, jnp.asarray(limbs), jA,
                                     JaxMsmConfig(c=C, lanes=LANES))
     jd = jdig.signed_digits(s2, C, W).reshape(W, T, L)
-    tA = convert.affine_to_torch((np.asarray(jA.x), np.asarray(jA.y), inf))
-    t2, tpts, T2, L2 = _prepare(TG, convert.field_to_torch(limbs), tA,
+    tA = convert.affine_to_torch((np.asarray(jA.x), np.asarray(jA.y), inf),
+                                 "cpu")
+    t2, tpts, T2, L2 = _prepare(TG, convert.field_to_torch(limbs, "cpu"), tA,
                                 MsmConfig(c=C, lanes=LANES))
     assert (T2, L2) == (T, L)
     td = tdig.signed_digits(t2, C, W).reshape(W, T, L)
@@ -80,7 +81,7 @@ def test_prepared_inputs_match_jax(ctx):
     _, _, _, (jd, jpts), (td, tpts), _, _ = ctx
     assert torch.equal(td, torch.from_numpy(np.array(jd)))
     for j, t in zip(jpts[:3], tpts[:3]):
-        assert torch.equal(t, convert.field_to_torch(np.asarray(j)))
+        assert torch.equal(t, convert.field_to_torch(np.asarray(j), "cpu"))
     assert torch.equal(tpts[3], torch.from_numpy(np.array(jpts[3])))
     # the digit range's edge is present and maps to the last bucket
     assert int(td.abs().max()) == 1 << (C - 1)
@@ -93,7 +94,7 @@ def test_insert_plain_matches_pallas_kernel(ctx):
     got = insert(TG, td, tpts, B)
     for g, w in zip(got, want):
         assert g.shape == (TG.F.n32,) + tuple(td.shape[:1]) + (B, LANES)
-        assert torch.equal(g, convert.field_to_torch(np.asarray(w)))
+        assert torch.equal(g, convert.field_to_torch(np.asarray(w), "cpu"))
 
 
 def test_insert_buckets_hold_host_sums(ctx):

@@ -65,9 +65,9 @@ def _toy_inputs(E, n: int, seed: int, zero_scalars: bool = False):
 
 def _port_msm(G, limbs, xs, ys, inf, cfg):
     """The port's MSM on CPU tensors -> host affine point (None = 0)."""
-    A = AffinePoint(G.F.from_ints(xs), G.F.from_ints(ys),
+    A = AffinePoint(G.F.from_ints(xs, "cpu"), G.F.from_ints(ys, "cpu"),
                     torch.from_numpy(inf))
-    R = msm_pippenger(G, convert.field_to_torch(limbs), A,
+    R = msm_pippenger(G, convert.field_to_torch(limbs, "cpu"), A,
                       G.order.bit_length(), config=cfg)
     aff = G.to_affine(R)
     if bool(aff.inf):
@@ -116,9 +116,9 @@ def test_alt_bn128_2e8_matches_host_oracles():
     cd, G = dc.cd, dc.g1
     n = 1 << 8
     limbs, x, y = workload.msm_inputs(cd, n, 44)
-    A = convert.affine_to_torch((x, y, np.zeros(n, dtype=bool)))
+    A = convert.affine_to_torch((x, y, np.zeros(n, dtype=bool)), "cpu")
     times = {}
-    R = msm_pippenger(G, convert.field_to_torch(limbs), A, 254,
+    R = msm_pippenger(G, convert.field_to_torch(limbs, "cpu"), A, 254,
                       phase_times=times)
     assert set(times) == {"digits", "insert", "reduce", "horner", "finish"}
     aff = G.to_affine(R)
@@ -142,8 +142,9 @@ def test_workload_inputs():
           for i in range(64)]
     assert ks[:3] == [0, 1, cd.r - 1] and max(ks) < cd.r
     gen3 = cd.g1.curve.mul(3, cd.g1.generator)
-    assert dc.fq.to_ints(convert.field_to_torch(x[:, 34:35])) == [gen3[0]]
-    assert dc.fq.to_ints(convert.field_to_torch(y[:, 2:3])) == [gen3[1]]
+    assert dc.fq.to_ints(convert.field_to_torch(x[:, 34:35], "cpu")) \
+        == [gen3[0]]
+    assert dc.fq.to_ints(convert.field_to_torch(y[:, 2:3], "cpu")) == [gen3[1]]
     sums = workload.class_sums(limbs)
     assert sums[5] == ks[5] + ks[37]
 
@@ -161,15 +162,15 @@ def test_signed_digits_match_jax(c):
     limbs[:, 1] = [(r - 1) >> (16 * i) & 0xFFFF for i in range(16)]
     W = tdig.num_signed_digits(r, 254, c)
     assert W == jdig.num_signed_digits(r, 254, c)
-    got = tdig.signed_digits(convert.field_to_torch(limbs), c, W)
+    got = tdig.signed_digits(convert.field_to_torch(limbs, "cpu"), c, W)
     assert torch.equal(got, torch.from_numpy(np.array(
         jdig.signed_digits(jnp.asarray(limbs), c, W))))
     assert int(got.abs().max()) <= 1 << (c - 1)
     assert torch.equal(
-        tdig.get_digit(convert.field_to_torch(limbs), c, W - 2),
+        tdig.get_digit(convert.field_to_torch(limbs, "cpu"), c, W - 2),
         torch.from_numpy(np.array(jdig.get_digit(jnp.asarray(limbs), c,
                                                  W - 2)).astype(np.int32)))
-    un = tdig.unsigned_digits(convert.field_to_torch(limbs), c, W)
+    un = tdig.unsigned_digits(convert.field_to_torch(limbs, "cpu"), c, W)
     assert torch.equal(un, torch.from_numpy(np.array(
         jdig.unsigned_digits(jnp.asarray(limbs), c, W))))
     # the digits sum back to the scalars
@@ -185,19 +186,19 @@ def test_signed_digits_match_jax(c):
 def test_later_slices_raise(toy):
     E, _, TG = toy
     limbs, pts, inf, _ = _toy_inputs(E, 8, 47)
-    A = AffinePoint(TG.F.from_ints([p[0] for p in pts]),
-                    TG.F.from_ints([p[1] for p in pts]),
+    A = AffinePoint(TG.F.from_ints([p[0] for p in pts], "cpu"),
+                    TG.F.from_ints([p[1] for p in pts], "cpu"),
                     torch.from_numpy(inf))
     with pytest.raises(NotImplementedError):
-        msm_pippenger(TG, convert.field_to_torch(limbs), A, TOY_BITS,
+        msm_pippenger(TG, convert.field_to_torch(limbs, "cpu"), A, TOY_BITS,
                       signed=False)
     with pytest.raises(NotImplementedError):
-        msm_pippenger_windows(TG, convert.field_to_torch(limbs), A, TOY_BITS,
-                              0, 2)
+        msm_pippenger_windows(TG, convert.field_to_torch(limbs, "cpu"), A,
+                              TOY_BITS, 0, 2)
     with pytest.raises(NotImplementedError):
-        device_curve("alt_bn128").g2
+        device_curve("bls12_381")
     with pytest.raises(ValueError):
-        msm_pippenger(TG, convert.field_to_torch(limbs), A, TOY_BITS,
+        msm_pippenger(TG, convert.field_to_torch(limbs, "cpu"), A, TOY_BITS,
                       config=MsmConfig(c=4, lanes=3))
 
 
