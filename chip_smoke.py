@@ -5,15 +5,19 @@ against its plain PyTorch version.
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2, K3, K4e),
-checks each bit for bit against its plain version on the card at the
-shapes its path gives it (K2 on distinct points, some at infinity), and
-runs two paths through ``msm_pippenger``:
+It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its fused
+merge K2m, K3, K4e, K5, K6), checks each bit for bit against its plain
+version on the card at the shapes its path gives it (K2, K2m, K5 and K6
+on distinct points, some at infinity), and runs these paths through
+``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
-  exact oracle of bench.py:113-137 (K1e, K2 and K3's G1 branches);
+  exact oracle of bench.py:113-137, with the default configuration (K1e,
+  K2 and K3's G1 branches), with merge="kernel" (K5 after K2), with
+  merge=True (K2m) and with engine="pallas" (K6);
 - the alt_bn128 G2 MSM over Fq2 at 2^18 points, held against the oracle
-  of profile/bench_g2.py:76-80 (K1e, K4e, K2 and K3's G2 branches).
+  of profile/bench_g2.py:76-80, with the default configuration (K1e, K4e,
+  K2 and K3's G2 branches), with merge="kernel" and with merge=True.
 
 The launch counts are set to 0 just before each path's first run and read
 just after it.  Each phase prints one JSON line; then a line listing the
@@ -50,9 +54,19 @@ IMAD_PER_CLOCK_PER_SM = 64
 # IMADs of one 8-limb Montgomery product (fp.cuh: 8 rows of 8 mad.lo,
 # 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8 mad.hi)
 IMAD_PER_FP_MUL = 264
-# base-field products per element: K3 padd (12 products; an Fq2 product is
-# three, and G2's two products by b3 add six) and K2's mixed add (11; 39)
+# base-field products per element: the merge's complete adds (12 products;
+# an Fq2 product is three, and G2's two products by b3 add six) and K2's
+# mixed add (11; 39)
 FP_MULS = {"padd": {1: 12, 2: 42}, "madd": {1: 11, 2: 39}}
+WORDS = {1: 8, 2: 16}           # 32-bit words of an Fp, an Fq2 element
+# the MSM configurations of each path beside the default: (phase key,
+# MsmConfig fields beyond c and lanes, the kernel each must launch)
+MSM_VARIANTS = {
+    "g1": [("merge=kernel", {"merge": "kernel"}, "K5 g1"),
+           ("merge=True", {"merge": True}, "K2m g1"),
+           ("engine=pallas", {"engine": "pallas"}, "K6 g1")],
+    "g2": [("merge=kernel", {"merge": "kernel"}, "K5 g2"),
+           ("merge=True", {"merge": True}, "K2m g2")]}
 
 
 def emit(obj: dict) -> None:
@@ -321,16 +335,16 @@ def k2_inputs(dc, group: str, n: int, cfg, rng, dev):
     return prepared(G, scalars, AffinePoint(x, y, inf), cfg)
 
 
-def phase_k2(dc, group: str, n: int, cfg, rng, dev) -> dict:
+def phase_k2(dc, group: str, n: int, cfg, rng, dev):
     """K2 against its plain version at the path's shape, on points that do
-    not repeat and some at infinity."""
+    not repeat and some at infinity.  Returns the result and, for
+    phase_merge, the inputs and the plain buckets."""
     from libff_tpu_torch.msm.insert import insert, insert_plain
 
     G = getattr(dc, group)
     d, pts, B = k2_inputs(dc, group, n, cfg, rng, dev)
     want, plain_ms = host_timed(lambda: insert_plain(G, d, pts, B))
     err = max_abs_err(insert(G, d, pts, B), want)
-    del want
     madds = int(((d != 0) & ~pts[3][None]).sum())
     res = {"name": f"K2 {group}", "shape": list(d.shape) + [B],
            "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
@@ -339,21 +353,51 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev) -> dict:
            "ms": event_ms(lambda: insert(G, d, pts, B), 3)}
     if err:
         fail(f"K2 disagrees with its plain version on {group}: {res}")
+    return res, (d, pts, B, want)
+
+
+def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
+    """K5, K2's fused merge (K2m) and, on G1, K6 against their plain
+    versions at the path's shape, on phase_k2's inputs and plain buckets:
+    K5 runs on K2's raw buckets and K2m on the inputs, both held against
+    merge_lanes_plain of the plain buckets; K6 is held against the plain
+    buckets.  K2m's plain version is insert_plain then merge_lanes_plain,
+    and K6's is insert_plain, so their plain times add up phase_k2's."""
+    from libff_tpu_torch.msm.insert import insert, insert_v1
+    from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
+
+    G = getattr(dc, group)
+    d, pts, B, raw_plain = inputs
+    want, merge_ms = host_timed(lambda: merge_lanes_plain(G, raw_plain))
+    raw = insert(G, d, pts, B)
+    runs = {f"K5 {group}": (lambda: merge_lanes(G, raw), want, merge_ms, 20),
+            f"K2m {group}": (lambda: insert(G, d, pts, B, merge=True), want,
+                             k2["plain_ms"] + merge_ms, 3)}
+    if group == "g1":
+        runs["K6 g1"] = (lambda: insert_v1(G, d, pts, B), raw_plain,
+                         k2["plain_ms"], 3)
+    res = {"name": f"merge {group}", "shape": k2["shape"], "kernels": {}}
+    for name, (fn, ref, plain_ms, reps) in runs.items():
+        res["kernels"][name] = {"max_abs_err": max_abs_err(fn(), ref),
+                                "plain_ms": plain_ms,
+                                "ms": event_ms(fn, reps)}
+    if any(r["max_abs_err"] for r in res["kernels"].values()):
+        fail(f"K5, K2m or K6 disagrees with its plain version on {group}: "
+             f"{res}")
     return res
 
 
-def phase_msm(dc, group: str, log2n: int, dev) -> dict:
+def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
     """The path itself: the MSM of `group` at 2^log2n points through
-    msm_pippenger and to_affine, held against the structured oracle in a
-    first run and MSM_STEADY_RUNS steady runs.  The launch counts are set
-    to 0 just before the first run and read just after it."""
+    msm_pippenger and to_affine under cfg, on case = (scalars, points,
+    oracle), held against the structured oracle in a first run and
+    MSM_STEADY_RUNS steady runs.  The launch counts are set to 0 just
+    before the first run and read just after it."""
     from libff_tpu_torch import _build, workload
-    from libff_tpu_torch.msm.pippenger import default_config
 
     G = getattr(dc, group)
     n = 1 << log2n
-    cfg = default_config(n, dev)
-    scalars, points, want = workload.msm_case(dc, group, log2n, dev, SEED)
+    scalars, points, want = case
     runs = []
     for run in range(1 + MSM_STEADY_RUNS):
         if run == 0:
@@ -380,13 +424,12 @@ def phase_msm(dc, group: str, log2n: int, dev) -> dict:
             "points_per_sec": n / med, "launches": launches}
 
 
-def kernel_line(k1e, k4e, k3, k2, msm, peak) -> list[dict]:
+def kernel_line(k1e, k4e, k3, k2, merge, msm, peak) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
     (no single PyTorch call computes a Montgomery or group operation, so
     library_ms is null)."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
-    words = {1: 8, 2: 16}           # 32-bit words of an Fp, an Fq2 element
     out = []
 
     def add(name, path, source, replaces, ms, plain_ms, shape, err, bnd):
@@ -396,35 +439,95 @@ def kernel_line(k1e, k4e, k3, k2, msm, peak) -> list[dict]:
                     "ms": ms, "plain_ms": plain_ms, **bnd,
                     "library_ms": None, "shape": shape})
 
+    # each row's bound is its timed op's; op_bounds has every op's
     n = k1e["n"]
+    ob = field_op_bounds(k1e["ops"], 1, n, peak)
     add("K1e", "g1", "fp_ops.cu", "msm/pallas_insert.py:87",
         k1e["ops"]["mul"]["ms"], k1e["ops"]["mul"]["plain_ms"], [8, n],
-        max(k1e["max_abs_err"], k4e["k1e_max_abs_err"]),
-        bound(3 * 32 * n, IMAD_PER_FP_MUL * n, peak))
+        max(k1e["max_abs_err"], k4e["k1e_max_abs_err"]), ob["mul"])
     # its Fq2 branch (add, sub, neg of the G2 path) is checked in phase_k4e
-    out[-1]["launches_g2"] = msm["g2"]["launches"].get("K1e", 0)
+    out[-1].update(launches_g2=msm["g2"]["launches"].get("K1e", 0),
+                   op_bounds=ob)
     n = k4e["n"]
+    ob = field_op_bounds({**k4e["ops"], **k4e["k1e_ops"]}, 2, n, peak)
     add("K4e", "g2", "fp_ops.cu", "msm/pallas_insert.py:133",
         k4e["ops"]["mul"]["ms"], k4e["ops"]["mul"]["plain_ms"], [2, 8, n],
-        k4e["max_abs_err"],
-        bound(3 * 64 * n, 3 * IMAD_PER_FP_MUL * n, peak))
+        k4e["max_abs_err"], ob["mul"])
+    out[-1]["op_bounds"] = ob
     for g, k in (("g1", 1), ("g2", 2)):
         r = k3[g]
         n = r["n"]
+        ob = k3_op_bounds(r, k, peak)
         add(f"K3 {g}", g, "group_ops.cu", "curves/pallas_ops.py:66",
             r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"],
-            [2, 8, n] if k == 2 else [8, n], r["max_abs_err"],
-            bound(9 * 4 * words[k] * n,
-                  FP_MULS["padd"][k] * IMAD_PER_FP_MUL * n, peak))
+            [2, 8, n] if k == 2 else [8, n], r["max_abs_err"], ob["padd"])
+        out[-1]["op_bounds"] = ob
         r = k2[g]
         W, T, L, B = r["shape"]
-        nbytes = 4 * (W * T * L + T * L + 3 * words[k] * T * L
-                      + 3 * words[k] * W * B * L)
+        # K2: digits, flags and points read once, raw buckets written once
+        k2_in = 4 * (W * T * L + T * L + 3 * WORDS[k] * T * L)
+        bucket_bytes = 3 * 4 * WORDS[k] * W * B * L
+        k2_imads = FP_MULS["madd"][k] * IMAD_PER_FP_MUL * r["madds"]
         add(f"K2 {g}", g, "insert.cu", "msm/pallas_insert3.py:74",
             r["ms"], r["plain_ms"], r["shape"], r["max_abs_err"],
-            bound(nbytes, FP_MULS["madd"][k] * IMAD_PER_FP_MUL * r["madds"],
-                  peak))
+            bound(k2_in + bucket_bytes, k2_imads, peak))
+        # K5: raw buckets read once, totals written once; W*B*(L-1) adds
+        k5_imads = FP_MULS["padd"][k] * IMAD_PER_FP_MUL * W * B * (L - 1)
+        merged_bytes = 3 * 4 * WORDS[k] * W * B
+        kernels = merge[g]["kernels"]
+        for name, path, source, replaces, nbytes, imads in (
+                (f"K5 {g}", "merge=kernel", "merge.cu",
+                 "msm/pallas_insert3.py:204", bucket_bytes + merged_bytes,
+                 k5_imads),
+                (f"K2m {g}", "merge=True", "insert.cu",
+                 "msm/pallas_insert3.py:172", k2_in + merged_bytes,
+                 k2_imads + k5_imads),
+                ("K6 g1", "engine=pallas", "insert.cu",
+                 "msm/pallas_insert.py:35", k2_in + bucket_bytes, k2_imads)):
+            if name in kernels:
+                r = kernels[name]
+                add(name, f"{g} {path}", source, replaces, r["ms"],
+                    r["plain_ms"], [W, B, L] if name.startswith("K5") else
+                    [W, T, L, B], r["max_abs_err"], bound(nbytes, imads, peak))
     return out
+
+
+# K3's products per element by op, as formulas.cuh runs them: (products,
+# squarings, products by b3).  The Jacobian add and madd also run
+# dbl-2009-l (5 squarings, 2 products) for their P = Q lanes.  An Fp
+# squaring is a product; an Fq2 product is three base products, a
+# squaring two, and G2's b3 is a general Fq2 constant (G1's b3 = 9 is an
+# addition chain).
+K3_PRODUCTS = {"padd": (12, 0, 2), "pmadd": (11, 0, 2), "pdbl": (6, 2, 1),
+               "add": (13, 10, 0), "madd": (9, 9, 0), "dbl": (2, 5, 0)}
+# coordinates each op reads and writes, and whether it reads a mask
+K3_IO = {"padd": (9, 0), "add": (9, 0), "pmadd": (8, 1), "madd": (8, 1),
+         "pdbl": (6, 0), "dbl": (6, 0)}
+
+
+def k3_op_bounds(r: dict, k: int, peak: float) -> dict:
+    """K3's bound for each op it times at r["n"] elements."""
+    n = r["n"]
+    out = {}
+    for op in r["ops"]:
+        if op not in K3_PRODUCTS:
+            continue
+        mul, sqr, b3 = K3_PRODUCTS[op]
+        base = mul + sqr if k == 1 else 3 * mul + 2 * sqr + 3 * b3
+        coords, mask = K3_IO[op]
+        out[op] = bound(coords * 4 * WORDS[k] * n + 4 * mask * n,
+                        base * IMAD_PER_FP_MUL * n, peak)
+    return out
+
+
+def field_op_bounds(ops: dict, k: int, n: int, peak: float) -> dict:
+    """The bound of each timed elementwise op at n elements: two inputs
+    and one output (sqr: one input), and its base products (an Fp mul
+    one; an Fq2 mul three, a sqr two; add, sub and neg none)."""
+    products = {"mul": 1 if k == 1 else 3, "sqr": 2}
+    return {op: bound((2 if op == "sqr" else 3) * 4 * WORDS[k] * n,
+                      products.get(op, 0) * IMAD_PER_FP_MUL * n, peak)
+            for op in ops}
 
 
 def main() -> int:
@@ -432,7 +535,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from libff_tpu_torch import _build
+    from libff_tpu_torch import _build, workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.pippenger import default_config
 
@@ -452,31 +555,41 @@ def main() -> int:
 
     dc = device_curve("alt_bn128")
     rng = np.random.default_rng(SEED)
-    k3, k2, msm = {}, {}, {}
+    k3, k2, merge, msm = {}, {}, {}, {}
+
+    def group_path(group: str, log2n: int):
+        """K3, K2, the merge kernels and every MSM configuration of one
+        group's path."""
+        k3[group] = phase_k3(getattr(dc, group), group, rng, dev)
+        emit({"phase": f"K3 {group}", **k3[group]})
+        n = 1 << log2n
+        cfg = default_config(n, dev)
+        k2[group], inputs = phase_k2(dc, group, n, cfg, rng, dev)
+        emit({"phase": f"K2 {group}", **k2[group]})
+        merge[group] = phase_merge(dc, group, k2[group], inputs)
+        del inputs
+        emit({"phase": f"merge {group}", **merge[group]})
+        case = workload.msm_case(dc, group, log2n, dev, SEED)
+        msm[group] = phase_msm(dc, group, log2n, case, cfg)
+        emit({"phase": f"msm {group}", **msm[group]})
+        for key, fields, kernel in MSM_VARIANTS[group]:
+            r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
+            if r["launches"].get(kernel, 0) < 1:
+                fail(f"{kernel} was not launched on the {group} {key} path")
+            msm[f"{group} {key}"] = r
+            emit({"phase": f"msm {group} {key}", **r})
 
     # the G1 path: 2^20 points
     k1e = phase_k1e(dc.fq, rng, dev)
     emit({"phase": "K1e", **k1e})
-    k3["g1"] = phase_k3(dc.g1, "g1", rng, dev)
-    emit({"phase": "K3 g1", **k3["g1"]})
-    n = 1 << LOG2N
-    k2["g1"] = phase_k2(dc, "g1", n, default_config(n, dev), rng, dev)
-    emit({"phase": "K2 g1", **k2["g1"]})
-    msm["g1"] = phase_msm(dc, "g1", LOG2N, dev)
-    emit({"phase": "msm g1", **msm["g1"]})
+    group_path("g1", LOG2N)
 
     # the G2 path: 2^18 points over Fq2
     k4e = phase_k4e(dc.fq2, rng, dev)
     emit({"phase": "K4e", **k4e})
-    k3["g2"] = phase_k3(dc.g2, "g2", rng, dev)
-    emit({"phase": "K3 g2", **k3["g2"]})
-    n = 1 << LOG2N_G2
-    k2["g2"] = phase_k2(dc, "g2", n, default_config(n, dev), rng, dev)
-    emit({"phase": "K2 g2", **k2["g2"]})
-    msm["g2"] = phase_msm(dc, "g2", LOG2N_G2, dev)
-    emit({"phase": "msm g2", **msm["g2"]})
+    group_path("g2", LOG2N_G2)
 
-    kernels = kernel_line(k1e, k4e, k3, k2, msm, imad_per_s())
+    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, imad_per_s())
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

@@ -11,8 +11,10 @@ ahead of time with :func:`build`.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on any value other than 0.
 
-``LAUNCHES`` counts kernel launches by kernel and branch (K1e, K4e, and
-"K2 g1", "K2 g2", "K3 g1", "K3 g2" for the G1 and G2 branches).  A wrapper
+``LAUNCHES`` counts kernel launches by kernel and branch: "K1e", "K4e";
+"K2 g1", "K2 g2" (the insert), "K2m g1", "K2m g2" (the insert with its
+fused lane merge), "K3 g1", "K3 g2", "K5 g1", "K5 g2" (the lane merge)
+for the G1 and G2 branches; "K6 g1" (the v1 insert, G1 only).  A wrapper
 adds one where it launches its kernel and nowhere else.
 """
 

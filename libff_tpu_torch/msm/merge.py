@@ -1,0 +1,102 @@
+"""Kernel K5: the lane merge of the MSM buckets (port of
+libff_tpu/msm/pallas_insert3.py:36 ``_lane_merge``, :204 ``_merge_kernel``
+and :250 ``_merge_lanes_kernel_call``, both branches: G1 over Fp and G2
+over Fq2).
+
+:func:`merge_lanes` takes raw projective buckets with coordinates ``(*el,
+W, B, L)``, ``el`` the field's element dims, and returns ``(*el, W, B,
+1)``: each (window, bucket)'s lane total.  L is any power of two (the TPU
+kernel's ``L % 128 == 0`` follows its (Ls, 128) tiles).  The order of the
+additions is the TPU kernel's, so the totals equal its lane 0 bit for bit:
+level h = L/2, L/4, ..., 1 replaces lane l < h by ``padd(P_l, P_(l+h))``.
+The kernel's Ls-halving slices are the levels h >= 128, and its roll
+butterfly at stride s gives lane i ``padd(P_i, P_(i+s))``, whose lanes
+i < s are those that reach lane 0: the levels h = 64 .. 1.  That is also
+the halving loop of ``pippenger._reduce_buckets``, so every ``merge``
+setting of the MSM gives the same buckets.  A CUDA tensor launches
+``csrc/merge.cu``; a CPU tensor runs :func:`merge_lanes_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..curves.group import ProjectivePoint
+from ..curves.group_ops import group_op_plain, kernel_branch
+
+_ARGS = [ctypes.POINTER(ctypes.c_void_p)] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32,
+    ctypes.c_int, _build.VP]
+
+
+def _check(G, buckets: ProjectivePoint):
+    el = G.F.el_shape
+    shape = buckets.z.shape
+    if len(shape) != len(el) + 3 or tuple(shape[:len(el)]) != el:
+        raise ValueError(f"bucket coordinates are {el} + (W, B, L); got "
+                         f"{tuple(shape)}")
+    for c in buckets:
+        if (c.shape != shape or c.dtype != torch.int32
+                or c.device != buckets.z.device):
+            raise ValueError("bucket coordinates differ in shape, device or "
+                             "dtype, or are not int32")
+    L = shape[-1]
+    if L < 1 or L & (L - 1):
+        raise ValueError(f"the lane count must be a power of two, not {L}")
+    if not G.a_is_zero:
+        raise NotImplementedError("the lane merge's complete adds need a == 0")
+
+
+def merge_lanes(G, buckets: ProjectivePoint) -> ProjectivePoint:
+    """The lane total of each (window, bucket): (*el, W, B, L) ->
+    (*el, W, B, 1)."""
+    _check(G, buckets)
+    dev = buckets.z.device
+    if dev.type == "cpu":
+        return merge_lanes_plain(G, buckets)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    k, b3, b3_mont = kernel_branch(G, "K5")
+    el = G.F.el_shape
+    W, B, L = buckets.z.shape[-3:]
+    n = W * B
+    ins = [c.contiguous() for c in buckets]
+    outs = [torch.empty(el + (W, B, 1), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    # the tree's levels after the first; none for L <= 2
+    tmp = [torch.empty(el + (n * (L // 2),), dtype=torch.int32, device=dev)
+           for _ in range(3 if L > 2 else 0)]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * 3)(*([t.data_ptr() for t in ts]
+                                       + [None] * (3 - len(ts))))
+
+    Fp = G.F.prime_field
+    fn = _build.function("merge", "merge_lanes", _ARGS)
+    _build.launch(fn, f"K5 merge_lanes (k = {k})", dev, ptrs(ins), ptrs(tmp),
+                  ptrs(outs), n, L, Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c,
+                  Fp.inv32, ins[0].get_device(), _build.stream_ptr(ins[0]))
+    _build.LAUNCHES[f"K5 g{k}"] += 1
+    return ProjectivePoint(*outs)
+
+
+def merge_lanes_plain(G, buckets: ProjectivePoint) -> ProjectivePoint:
+    """The plain version of K5 on any device: the levels h = L/2 .. 1 of
+    the module docstring, each one batched ``padd`` of K3's plain version
+    over every (window, bucket) row."""
+    _check(G, buckets)
+    el = G.F.el_shape
+    W, B, L = buckets.z.shape[-3:]
+    P = [c.reshape(el + (W * B, L)) for c in buckets]
+    while L > 1:
+        h = L // 2
+        halves = [c[..., s:s + h].reshape(el + (W * B * h,))
+                  for s in (0, h) for c in P]
+        P = [c.reshape(el + (W * B, h))
+             for c in group_op_plain(G, "padd", halves)]
+        L = h
+    return ProjectivePoint(*(c.reshape(el + (W, B, 1)) for c in P))

@@ -7,13 +7,22 @@ batch splits into L lanes of T = N/L points, each lane owning private
 buckets for every window.
 
   digits : signed c-bit digits (W, T, L)                      torch ops
-  insert : bucket |d|-1 += +-P, per (window, lane), in t order  kernel K2
-  reduce : lane halving tree, bucket suffix tree, sum tree       kernel K3
+  insert : bucket |d|-1 += +-P, per (window, lane), in t order
+           kernel K2 (engine "auto" or "pallas3"), K6 ("pallas", G1)
+  merge  : the lane tree of the buckets, (W, B, L) -> (W, B, 1)
+           kernel K5 (merge="kernel"), fused into K2 (merge=True)
+  reduce : lane halving tree (merge=False), bucket suffix tree, sum tree
+                                                                 kernel K3
   horner : window-parallel masked doubling, then a sum tree      kernel K3
   finish : projective -> Jacobian                      kernel K1e (K4e on G2)
 
-The JAX package's TPU-only knobs (engine, formulas, merge, tb, kmul,
-scatter) choose among TPU schedules and have no counterpart here.
+``MsmConfig.engine`` and ``MsmConfig.merge`` have the JAX package's
+meanings and routes (pippenger.py:41-69, :520-540); every setting gives
+the same buckets bit for bit, so the same result.  The JAX package's
+other knobs choose among TPU schedules and have no counterpart here:
+``tb`` (time rows per grid step), ``formulas`` (its formula VM),
+``scatter`` (the XLA path's bucket update); ``kmul`` (the in-kernel
+Montgomery product) waits for ROADMAP Queue 2's K7b.
 """
 
 from __future__ import annotations
@@ -26,12 +35,23 @@ import torch
 from ..curves.group import (AffinePoint, Group, JacobianPoint,
                             ProjectivePoint)
 from . import digits as dig
-from .insert import insert
+from .insert import insert, insert_v1
+from .merge import merge_lanes
+
+ENGINES = ("auto", "pallas3", "pallas", "xla")
+MERGES = (False, "kernel", True)
 
 
 class MsmConfig(NamedTuple):
     c: int        # signed-digit window width
     lanes: int    # number of independent bucket lanes (a power of two)
+    engine: str = "auto"       # insert kernel: "auto" or "pallas3" (K2),
+                               # "pallas" (K6, the v1 insert, G1 only);
+                               # "xla" waits for ROADMAP Queue 1 item 18
+    merge: bool | str = False  # lane merge: False = K3's halving tree in
+                               # the reduce, "kernel" = K5 after the
+                               # insert, True = fused into K2 (lanes a
+                               # multiple of 128)
 
 
 def default_config(n: int, device) -> MsmConfig:
@@ -98,15 +118,22 @@ def _shift_down(G: Group, P: ProjectivePoint, k: int, axis: int
                              for a, z in zip(P, zero)))
 
 
-def _reduce_buckets(G: Group, buckets: ProjectivePoint, B: int
-                    ) -> ProjectivePoint:
-    """Lane merge + bucket suffix reduction of a (W, B, L) bucket array
-    (pippenger.py:376-398).  Returns sum_b (b+1) * B_b per window, (W,)."""
+def _halve_lanes(G: Group, buckets: ProjectivePoint) -> ProjectivePoint:
+    """The lane merge as a halving tree of batched padds on K3: (W, B, L)
+    -> (W, B, 1); nothing to do when L is 1 (a merged insert)."""
     while buckets.z.shape[-1] > 1:
         half = buckets.z.shape[-1] // 2
         buckets = G.padd(
             ProjectivePoint(*(a[..., :half] for a in buckets)),
             ProjectivePoint(*(a[..., half:2 * half] for a in buckets)))
+    return buckets
+
+
+def _reduce_buckets(G: Group, buckets: ProjectivePoint, B: int
+                    ) -> ProjectivePoint:
+    """Lane merge + bucket suffix reduction of a (W, B, L) bucket array
+    (pippenger.py:376-398).  Returns sum_b (b+1) * B_b per window, (W,)."""
+    buckets = _halve_lanes(G, buckets)
     s = ProjectivePoint(*(a[..., 0] for a in buckets))      # batch (W, B)
     # suffix sums s_b = sum_{b' >= b} B_b' by a log-depth shift tree; then
     # sum_b s_b = sum_b (b+1) B_b  (multiexp.tcc:90-125)
@@ -128,6 +155,33 @@ def _horner_complete(G: Group, totals: ProjectivePoint, c: int
     for k in range(c * (W - 1)):
         P = G.select(k < thresh, G.pdbl(P), P)
     return G.proj_sum_tree(P, axis=-1)
+
+
+def window_totals_v1(G: Group, d: torch.Tensor, pts, B: int
+                     ) -> ProjectivePoint:
+    """The v1 insert (K6) + lane merge + bucket suffix tree: per-window
+    totals, (W,) (pallas_insert.py:265-272)."""
+    return _reduce_buckets(G, insert_v1(G, d, pts, B), B)
+
+
+def _check_config(G: Group, cfg: MsmConfig) -> None:
+    """The engine and merge settings the port runs (pippenger.py:520-540),
+    or raise: "xla" is still to port; "pallas" is G1 only and has no lane
+    merge (the JAX package would ignore one silently)."""
+    if cfg.engine not in ENGINES:
+        raise ValueError(f"unknown engine {cfg.engine!r}; one of {ENGINES}")
+    if not (isinstance(cfg.merge, bool) or cfg.merge == "kernel"):
+        raise ValueError(f"unknown merge {cfg.merge!r}; one of {MERGES}")
+    if cfg.engine == "xla":
+        raise NotImplementedError(
+            "the XLA insert engine waits for ROADMAP Queue 1 item 18")
+    if cfg.engine == "pallas":
+        if G.F.el_ndim != 1:
+            raise ValueError("engine 'pallas' (the v1 insert) is G1 only")
+        if cfg.merge is not False:
+            raise ValueError("engine 'pallas' has no lane merge; use "
+                             "engine 'pallas3' for merge "
+                             f"{cfg.merge!r}")
 
 
 class _PhaseClock:
@@ -161,9 +215,10 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     scalar_limbs: (n32, N) plain-form int32 limbs, values < the group order.
     points: affine batch of N points (infinity allowed via the mask).
     num_bits: bit width of the scalar field.
+    config: window, lanes, insert engine and lane merge (MsmConfig).
     phase_times: when a dict, the card is synchronized after each phase
-    and its host seconds are recorded (digits, insert, reduce, horner,
-    finish).
+    and its host seconds are recorded (digits, insert, merge with
+    merge="kernel", reduce, horner, finish).
     """
     if not signed:
         raise NotImplementedError(
@@ -173,6 +228,7 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
             "the non-complete Jacobian path waits for ROADMAP Queue 1 item 10")
     N = scalar_limbs.shape[-1]
     cfg = config or default_config(N, scalar_limbs.device)
+    _check_config(G, cfg)
     c = cfg.c
     W = dig.num_signed_digits(G.order, num_bits, c)
     B = 1 << (c - 1)
@@ -180,8 +236,14 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     scalar_limbs, pts, T, L = _prepare(G, scalar_limbs, points, cfg)
     d = dig.signed_digits(scalar_limbs, c, W).reshape(W, T, L)
     clock("digits")
-    buckets = insert(G, d, pts, B)
+    if cfg.engine == "pallas":
+        buckets = insert_v1(G, d, pts, B)
+    else:
+        buckets = insert(G, d, pts, B, merge=cfg.merge is True)
     clock("insert")
+    if cfg.merge == "kernel":
+        buckets = merge_lanes(G, buckets)
+        clock("merge")
     totals = _reduce_buckets(G, buckets, B)
     clock("reduce")
     res = _horner_complete(G, totals, c)

@@ -22,7 +22,8 @@ from libff_tpu_torch.curves.group_ops import OPS, group_op, group_op_plain
 from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
 from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
 from libff_tpu_torch.host import field as hf
-from libff_tpu_torch.msm.insert import insert, insert_plain
+from libff_tpu_torch.msm.insert import insert, insert_plain, insert_v1
+from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 from libff_tpu_torch.msm.pippenger import MsmConfig
 
 pytestmark = pytest.mark.cuda
@@ -130,6 +131,73 @@ def test_k2_matches_plain(dev, dc, group):
     assert _build.LAUNCHES[f"K2 {group}"] == before + 1
     for g, w in zip(got, insert_plain(G, d, pts, B)):
         assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def k2_case(dev, dc):
+    """Per group: distinct points (some at infinity) through the path's
+    digits at c = 8, 256 lanes, with the plain raw buckets and their plain
+    lane totals."""
+    out = {}
+    for group in ("g1", "g2"):
+        G = getattr(dc, group)
+        d, pts, B = chip_smoke.k2_inputs(dc, group, 1 << 12,
+                                         MsmConfig(c=8, lanes=256),
+                                         np.random.default_rng(7), dev)
+        raw = insert_plain(G, d, pts, B)
+        out[group] = (G, d, pts, B, raw, merge_lanes_plain(G, raw))
+    return out
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k5_matches_plain(dev, k2_case, group):
+    G, d, pts, B, raw, merged = k2_case[group]
+    before = _build.LAUNCHES[f"K5 {group}"]
+    got = merge_lanes(G, raw)
+    assert _build.LAUNCHES[f"K5 {group}"] == before + 1
+    for g, w in zip(got, merged):
+        assert torch.equal(g, w)
+    # lane counts the TPU kernel does not take, and the input left as it was
+    for L in (1, 2, 32):
+        part = type(raw)(*(a[..., :L].contiguous() for a in raw))
+        copy = [a.clone() for a in part]
+        for g, w in zip(merge_lanes(G, part), merge_lanes_plain(G, part)):
+            assert torch.equal(g, w)
+        assert all(torch.equal(a, c) for a, c in zip(part, copy))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k2m_matches_plain(dev, k2_case, group):
+    G, d, pts, B, raw, merged = k2_case[group]
+    before = _build.LAUNCHES[f"K2m {group}"]
+    got = insert(G, d, pts, B, merge=True)
+    assert _build.LAUNCHES[f"K2m {group}"] == before + 1
+    for g, w in zip(got, merged):
+        assert torch.equal(g, w)
+
+
+def test_k6_matches_plain(dev, k2_case):
+    G, d, pts, B, raw, _ = k2_case["g1"]
+    before = _build.LAUNCHES["K6 g1"]
+    got = insert_v1(G, d, pts, B)
+    assert _build.LAUNCHES["K6 g1"] == before + 1
+    for g, w in zip(got, raw):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        insert_v1(k2_case["g2"][0], *k2_case["g2"][1:4])
+
+
+@pytest.mark.parametrize("group,fields,kernel", [
+    ("g1", {"merge": "kernel"}, "K5 g1"), ("g1", {"merge": True}, "K2m g1"),
+    ("g1", {"engine": "pallas"}, "K6 g1"),
+    ("g2", {"merge": "kernel"}, "K5 g2"), ("g2", {"merge": True}, "K2m g2")])
+def test_msm_configs_match_oracle(dev, dc, group, fields, kernel):
+    s, A, want = workload.msm_case(dc, group, 12, dev, 8)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(getattr(dc, group), s, A,
+                                 MsmConfig(c=8, lanes=256, **fields))
+    assert _build.LAUNCHES[kernel] == 1
+    assert got == want
 
 
 def test_msm_matches_oracle_and_keeps_current_device(dev, dc):

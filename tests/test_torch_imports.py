@@ -4,8 +4,8 @@ An AST scan of every module of ``libff_tpu_torch`` (its own copies of the
 JAX package's jax-free modules included) and of ``chip_smoke.py`` finds no
 ``jax`` import and no import of the JAX package ``libff_tpu`` at all.
 Importing the whole port in a fresh interpreter and running one G1 and one
-G2 group op leaves ``jax`` and every ``libff_tpu`` module out of
-``sys.modules``, needs no ``nvcc`` and no card, and leaves out ``sympy``
+G2 group op and one lane merge leaves ``jax`` and every ``libff_tpu``
+module out of ``sys.modules``, needs no ``nvcc`` and no card, and leaves out ``sympy``
 too (its import cost seconds in the first MSM).  ``chip_smoke.py`` refuses
 to run without a card.
 """
@@ -64,12 +64,15 @@ def test_import_leaves_jax_out():
             "    importlib.import_module(m)\n"
             "from libff_tpu_torch.curves.device import device_curve\n"
             "from libff_tpu_torch.curves.group import ProjectivePoint\n"
+            "from libff_tpu_torch.msm.merge import merge_lanes\n"
             "dc = device_curve('alt_bn128')\n"
             "for G in (dc.g1, dc.g2):\n"
             "    P = ProjectivePoint(*(G.F.one((2, 1), 'cpu')\n"
             "                          for _ in range(3)))\n"
             "    G.padd(P, ProjectivePoint(*(G.F.one((2,), 'cpu')\n"
             "                                for _ in range(3))))\n"
+            "    merge_lanes(G, ProjectivePoint(*(G.F.one((1, 1, 4), 'cpu')\n"
+            "                                     for _ in range(3))))\n"
             "assert 'sympy' not in sys.modules, 'a group op imported sympy'\n"
             "from libff_tpu_torch import _build\n"
             "assert not _build._libs, 'importing loaded a kernel library'\n"
