@@ -6,18 +6,28 @@ against its plain PyTorch version.
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its fused
-merge K2m, K3, K4e, K5, K6), checks each bit for bit against its plain
-version on the card at the shapes its path gives it (K2, K2m, K5 and K6
-on distinct points, some at infinity), and runs these paths through
+merge K2m, K3, K4e, K5, K6, each of K2, K2m and K5 over the three
+Montgomery products of ``MsmConfig.kmul``, and the field-mul benches K7a,
+K7b, K7c, K7d), checks each bit for bit against its plain version on the
+card at the shapes its path gives it (K2, K2m, K5 and K6 on distinct
+points, some at infinity), and runs these paths through
 ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
   exact oracle of bench.py:113-137, with the default configuration (K1e,
   K2 and K3's G1 branches), with merge="kernel" (K5 after K2), with
-  merge=True (K2m) and with engine="pallas" (K6);
+  merge=True (K2m), with engine="pallas" (K6), and with kmul="sos" and
+  "sos2", each alone, with merge="kernel" and with merge=True;
 - the alt_bn128 G2 MSM over Fq2 at 2^18 points, held against the oracle
   of profile/bench_g2.py:76-80, with the default configuration (K1e, K4e,
-  K2 and K3's G2 branches), with merge="kernel" and with merge=True.
+  K2 and K3's G2 branches), with merge="kernel", with merge=True, and
+  with the same six kmul configurations.
+
+Then the field-mul benches: the issue rates K7c (every body checked, then
+its ops a clock per SM beside the 64 the bounds assume) and the roofline
+K7a, K7b, K7d (checked at 2^20 elements, timed at the JAX shapes, with
+the ratio and production ratio of profile/roofline.py), whose launches
+are counted from 0 over these two phases.
 
 The launch counts are set to 0 just before each path's first run and read
 just after it.  Each phase prints one JSON line; then a line listing the
@@ -37,36 +47,58 @@ import time
 import numpy as np
 import torch
 
+from libff_tpu_torch import _build
+from libff_tpu_torch.issue_rates import IMAD_PER_CLOCK_PER_SM
+from libff_tpu_torch.timing import event_ms
+from libff_tpu_torch.workload import edge_values, rand_elements
+
 LOG2N = 20
 LOG2N_G2 = 18
 SEED = 2024
 MSM_STEADY_RUNS = 10
-# event_ms's spin before the timed calls: 10^8 cycles, about 50 ms at a
-# 1980 MHz SM clock, longer than the host takes to queue 200 calls
-SPIN_CYCLES = 10 ** 8
-# the card's memory rate and integer-multiply issue rate, for the bounds:
-# 3.35 TB/s of HBM3 (H100 SXM data sheet); 64 32-bit integer multiply-adds
-# (IMAD, one per mad.lo or mad.hi) per clock per SM on compute capability
-# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
-# times the SM count and the card's maximum SM clock read at run time
+K7_CHECK_N = 1 << 20            # elements the K7 benches are checked at
+# the card's memory rate and integer-multiply issue rates, for the
+# bounds: 3.35 TB/s of HBM3 (H100 SXM data sheet).  The CUDA C++
+# Programming Guide gives 64 32-bit integer multiply-adds a clock per SM
+# on compute capability 9.0 for every kind; K7c measures on the card that
+# mul.hi (IMAD.HI) issues at half the rate of mul.lo, so each kind is
+# charged its rate as K7c measures it in this run (phase "issue rates":
+# the mul.lo and mul.hi bodies at full occupancy), times the SM count and
+# the card's maximum SM clock; each row also keeps the bound at 64 for
+# every kind ("bound_ms_derived").
 HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_CLOCK_PER_SM = 64
-# IMADs of one 8-limb Montgomery product (fp.cuh: 8 rows of 8 mad.lo,
-# 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8 mad.hi)
-IMAD_PER_FP_MUL = 264
+# multiply-adds of one 8-limb Montgomery product by kmul and kind (lo:
+# mul.lo/mad.lo, hi: mul.hi/mad.hi), counted from fp.cuh's PTX: CIOS 8
+# rows of 8 mad.lo, 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8
+# mad.hi; SOS the same ops in another order; SOS2 the product's 64 + 64,
+# then 4 waves of a 64-bit quotient (3 lo, 1 hi) and 16 mad.lo + 16
+# mad.hi.  K7a's synthetic product has CIOS's mix.
+IMAD_PER_FP_MUL = {"cios": {"lo": 136, "hi": 128},
+                   "sos": {"lo": 136, "hi": 128},
+                   "sos2": {"lo": 140, "hi": 132}}
 # base-field products per element: the merge's complete adds (12 products;
 # an Fq2 product is three, and G2's two products by b3 add six) and K2's
 # mixed add (11; 39)
 FP_MULS = {"padd": {1: 12, 2: 42}, "madd": {1: 11, 2: 39}}
 WORDS = {1: 8, 2: 16}           # 32-bit words of an Fp, an Fq2 element
+# the Montgomery products of MsmConfig.kmul beside the default CIOS
+SOS_KMULS = ("sos", "sos2")
 # the MSM configurations of each path beside the default: (phase key,
-# MsmConfig fields beyond c and lanes, the kernel each must launch)
+# MsmConfig fields beyond c and lanes, the kernel each must launch); each
+# SOS product alone, with K5 and with the fused merge
 MSM_VARIANTS = {
-    "g1": [("merge=kernel", {"merge": "kernel"}, "K5 g1"),
-           ("merge=True", {"merge": True}, "K2m g1"),
-           ("engine=pallas", {"engine": "pallas"}, "K6 g1")],
-    "g2": [("merge=kernel", {"merge": "kernel"}, "K5 g2"),
-           ("merge=True", {"merge": True}, "K2m g2")]}
+    g: base + [(f"kmul={k}{key}", {"kmul": k, **fields}, f"{kern} {g} {k}")
+               for k in SOS_KMULS
+               for key, fields, kern in (
+                   ("", {}, "K2"),
+                   (" merge=kernel", {"merge": "kernel"}, "K5"),
+                   (" merge=True", {"merge": True}, "K2m"))]
+    for g, base in (
+        ("g1", [("merge=kernel", {"merge": "kernel"}, "K5 g1"),
+                ("merge=True", {"merge": True}, "K2m g1"),
+                ("engine=pallas", {"engine": "pallas"}, "K6 g1")]),
+        ("g2", [("merge=kernel", {"merge": "kernel"}, "K5 g2"),
+                ("merge=True", {"merge": True}, "K2m g2")]))}
 
 
 def emit(obj: dict) -> None:
@@ -75,24 +107,6 @@ def emit(obj: dict) -> None:
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def event_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of fn over reps calls (warmed).
-    A spin kernel holds the stream while the host queues the calls, so a
-    call whose kernel is shorter than its Python launch path is timed by
-    the card, not by the host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def host_timed(fn):
@@ -113,42 +127,38 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def imad_per_s() -> float:
-    """The card's 32-bit integer multiply-add peak, derived from its SM
-    count and maximum SM clock (not a data-sheet figure)."""
+def imad_rates(k7c: dict) -> dict:
+    """Multiply-adds a second by kind: "lo" and "hi" as K7c measured them
+    (ops a clock per SM), "derived" the Programming Guide's 64 for any
+    kind; each times the SM count and the card's maximum SM clock."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                         "--format=csv,noheader,nounits"], capture_output=True,
                        text=True, check=True)
-    mhz = float(r.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * IMAD_PER_CLOCK_PER_SM * mhz * 1e6
+    per_sm = float(r.stdout.strip().splitlines()[0]) * 1e6 * k7c["sms"]
+    rates = {kind: k7c["bodies"][f"mul_{kind} full"]["ops_per_clock_per_sm"]
+             * per_sm for kind in ("lo", "hi")}
+    rates["derived"] = IMAD_PER_CLOCK_PER_SM * per_sm
+    return rates
 
 
-def bound(nbytes: float, imads: float, peak_imad: float) -> dict:
+def imads(products: float, kmul: str = "cios") -> dict:
+    """The multiply-adds of `products` Montgomery products, by kind."""
+    return {k: v * products for k, v in IMAD_PER_FP_MUL[kmul].items()}
+
+
+def bound(nbytes: float, imad: dict, rates: dict) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the multiplies over the integer-multiply peak."""
+    the memory rate and the multiply-adds, each kind over its measured
+    rate (imad_rates); beside it the bound with every kind at the derived
+    64 a clock per SM."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / peak_imad * 1e3
+    t_ops = sum(n / rates[k] for k, n in imad.items()) * 1e3
+    t_derived = sum(imad.values()) / rates["derived"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "imads": imads}
-
-
-def rand_elements(F, n: int, rng, dev) -> torch.Tensor:
-    """n canonical field elements (*el, n): random limbs under p's top limb
-    in every coefficient."""
-    B = F.prime_field
-    k = F.el_shape[0] if F.el_ndim == 2 else 1
-    limbs = rng.integers(0, 1 << 32, size=(k, B.n32, n), dtype=np.uint64)
-    limbs[:, -1] = rng.integers(0, B.p_limbs[-1], size=(k, n), dtype=np.uint64)
-    t = torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
-    return t.reshape(F.el_shape + (n,))
-
-
-def edge_values(B) -> list[int]:
-    p, R = B.p, B.mp.R
-    return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, p - R % p,
-                   (1 << 32) - 1, (1 << 224) % p, p - (1 << 128)})
+            "bound_ms_derived": max(t_bytes, t_derived),
+            "bytes": nbytes, "imads": sum(imad.values()),
+            "imads_by_kind": imad}
 
 
 def phase_k1e(F, rng, dev) -> dict:
@@ -357,12 +367,15 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev):
 
 
 def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
-    """K5, K2's fused merge (K2m) and, on G1, K6 against their plain
-    versions at the path's shape, on phase_k2's inputs and plain buckets:
-    K5 runs on K2's raw buckets and K2m on the inputs, both held against
-    merge_lanes_plain of the plain buckets; K6 is held against the plain
-    buckets.  K2m's plain version is insert_plain then merge_lanes_plain,
-    and K6's is insert_plain, so their plain times add up phase_k2's."""
+    """K5, K2's fused merge (K2m), on G1 K6, and K2, K2m and K5 over each
+    SOS product against their plain versions at the path's shape, on
+    phase_k2's inputs and plain buckets: K5 runs on K2's raw buckets and
+    K2m on the inputs, both held against merge_lanes_plain of the plain
+    buckets; K2 and K6 are held against the plain buckets.  Every product
+    gives the same buckets, so the CIOS plain versions serve all of them
+    (a plain insert takes tens of seconds at this shape).  K2m's plain
+    version is insert_plain then merge_lanes_plain, and K6's is
+    insert_plain, so their plain times add up phase_k2's."""
     from libff_tpu_torch.msm.insert import insert, insert_v1
     from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 
@@ -370,20 +383,120 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
     d, pts, B, raw_plain = inputs
     want, merge_ms = host_timed(lambda: merge_lanes_plain(G, raw_plain))
     raw = insert(G, d, pts, B)
+    fused_ms = k2["plain_ms"] + merge_ms
     runs = {f"K5 {group}": (lambda: merge_lanes(G, raw), want, merge_ms, 20),
             f"K2m {group}": (lambda: insert(G, d, pts, B, merge=True), want,
-                             k2["plain_ms"] + merge_ms, 3)}
+                             fused_ms, 3)}
     if group == "g1":
         runs["K6 g1"] = (lambda: insert_v1(G, d, pts, B), raw_plain,
                          k2["plain_ms"], 3)
+    for k in SOS_KMULS:
+        runs[f"K2 {group} {k}"] = (
+            lambda k=k: insert(G, d, pts, B, kmul=k), raw_plain,
+            k2["plain_ms"], 3)
+        runs[f"K2m {group} {k}"] = (
+            lambda k=k: insert(G, d, pts, B, merge=True, kmul=k), want,
+            fused_ms, 3)
+        runs[f"K5 {group} {k}"] = (lambda k=k: merge_lanes(G, raw, k), want,
+                                   merge_ms, 20)
     res = {"name": f"merge {group}", "shape": k2["shape"], "kernels": {}}
     for name, (fn, ref, plain_ms, reps) in runs.items():
         res["kernels"][name] = {"max_abs_err": max_abs_err(fn(), ref),
                                 "plain_ms": plain_ms,
                                 "ms": event_ms(fn, reps)}
     if any(r["max_abs_err"] for r in res["kernels"].values()):
-        fail(f"K5, K2m or K6 disagrees with its plain version on {group}: "
-             f"{res}")
+        fail(f"K5, K2m, K6 or a kmul branch disagrees with its plain version "
+             f"on {group}: {res}")
+    return res
+
+
+def phase_issue_rates(rng, dev) -> dict:
+    """K7c: every body against its plain version at 2^20 elements, R =
+    1024, launched both at one element a thread and at 4 warps a SM; then
+    every body timed at the JAX shape (issue_rates.measure)."""
+    from libff_tpu_torch import issue_rates as ir
+    from libff_tpu_torch.roofline import random_words
+
+    n = K7_CHECK_N
+    a, b = random_words((n,), rng, dev), random_words((n,), rng, dev)
+    a[0], b[0] = -1, -1                              # 0xFFFFFFFF
+    res = {"name": "K7c", "checked_n": n, "plain_ms": {}, "ms_checked_n": {}}
+    err = 0
+    for name in ir.BODIES:
+        want, res["plain_ms"][name] = host_timed(
+            lambda: ir.issue_body_plain(name, a, b))
+        for warps in (None, 4):
+            err = max(err, max_abs_err(
+                [ir.issue_body(name, a, b, warps_per_sm=warps)], [want]))
+        res["ms_checked_n"][name] = event_ms(lambda: ir.issue_body(name, a, b),
+                                             5)
+    res["max_abs_err"] = err
+    if err:
+        fail(f"K7c disagrees with its plain version: {res}")
+    res.update(ir.measure())
+    return res
+
+
+def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
+    """K7a, K7b and K7d over each product against their plain versions at
+    2^20 elements (K7b and K7d with the edge values in the first lanes),
+    each timed there and at the JAX shapes; K1e's chained products; the
+    SASS count of the products where the toolkit has cuobjdump; and the
+    ratio and production ratio of profile/roofline.py, the latter from
+    phase_k2's G1 insert."""
+    from libff_tpu_torch import roofline as rl
+    from libff_tpu_torch.fields.fp import KMULS
+
+    n = K7_CHECK_N
+    res = {"name": "roofline", "checked_n": n, "kernels": {}}
+
+    def check(key, fn, plain, n_timed, per_elem, ns_fn):
+        want, plain_ms = host_timed(plain)
+        e = max_abs_err([fn()], [want])
+        del want
+        ns = ns_fn()
+        res["kernels"][key] = {
+            "max_abs_err": e, "plain_ms": plain_ms,
+            "ms_checked_n": event_ms(fn, 5), "n": n_timed,
+            "products_per_element": per_elem, "ns_per_product": ns,
+            "ms": ns * n_timed * per_elem * 1e-6}
+
+    a, b = rl.random_words((8, n), rng, dev), rl.random_words((8, n), rng, dev)
+    check("K7a", lambda: rl.sol_mix(a, b, rl.SOL_REPS),
+          lambda: rl.sol_mix_plain(a, b, rl.SOL_REPS), rl.SOL_N, rl.SOL_REPS,
+          lambda: rl.sol_mul_ns(rng, dev))
+    for F, k7 in ((dc.fq, "K7b"), (dc.fq2, "K7d")):
+        B = F.prime_field
+        a, b = rand_elements(F, n, rng, dev), rand_elements(F, n, rng, dev)
+        edges = edge_values(B)
+        pairs = [(x, y) for x in edges for y in edges][:n]
+        m = len(pairs)
+        X = B.plain_from_ints([x for x, _ in pairs], dev)
+        Y = B.plain_from_ints([y for _, y in pairs], dev)
+        if F.el_ndim == 1:
+            a[:, :m], b[:, :m] = X, Y
+        else:                                   # a = (x, y), b = (y, x)
+            a[..., :m], b[..., :m] = torch.stack([X, Y]), torch.stack([Y, X])
+        n_timed, reps = ((rl.CHAIN_N, rl.CHAIN_REPS) if k7 == "K7b"
+                         else (rl.FQ2_N, rl.FQ2_REPS))
+        for k in KMULS:
+            check(f"{k7} {k}", lambda: rl.mul_chain(F, a, b, k, reps),
+                  lambda: rl.mul_chain_plain(F, a, b, k, reps), n_timed,
+                  reps * rl.CHAINS[F.el_ndim],
+                  lambda: rl.chain_mul_ns(F, k, rng, dev))
+    if any(r["max_abs_err"] for r in res["kernels"].values()):
+        fail(f"K7a, K7b or K7d disagrees with its plain version: {res}")
+    products = {"k1e": rl.k1e_mul_ns(dc.fq, n, rng, dev)}
+    products.update({k: res["kernels"][f"K7b {k}"]["ns_per_product"]
+                     for k in KMULS})
+    ins = k2_g1["ms"] * 1e6 / (k2_g1["madds"] * rl.MADDS_MULS)
+    res.update({"field_mul_k1e_ns": products["k1e"],
+                "field_mul_insert_kernel_ns": ins,
+                "roofline_ns": res["kernels"]["K7a"]["ns_per_product"],
+                **{f"field_mul_{k}_ns": products[k] for k in KMULS},
+                **rl.ratios(res["kernels"]["K7a"]["ns_per_product"],
+                            products, ins),
+                "sass": rl.sass_report()})
     return res
 
 
@@ -424,24 +537,28 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
             "points_per_sec": n / med, "launches": launches}
 
 
-def kernel_line(k1e, k4e, k3, k2, merge, msm, peak) -> list[dict]:
+def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7_launches,
+                rates) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
-    (no single PyTorch call computes a Montgomery or group operation, so
-    library_ms is null)."""
+    (the K7 benches: in the issue-rate and roofline phases, k7_launches).
+    No single PyTorch call computes a Montgomery or group operation, so
+    library_ms is null."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
     def add(name, path, source, replaces, ms, plain_ms, shape, err, bnd):
+        launches = (k7_launches if path is None
+                    else msm[path]["launches"]).get(name, 0)
         out.append({"name": name, "route": "cuda", "source": src + source,
-                    "replaces": ref + replaces, "launches":
-                    msm[path]["launches"].get(name, 0), "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, **bnd,
-                    "library_ms": None, "shape": shape})
+                    "replaces": replaces if replaces.startswith("profile/")
+                    else ref + replaces, "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bnd, "library_ms": None, "shape": shape})
 
     # each row's bound is its timed op's; op_bounds has every op's
     n = k1e["n"]
-    ob = field_op_bounds(k1e["ops"], 1, n, peak)
+    ob = field_op_bounds(k1e["ops"], 1, n, rates)
     add("K1e", "g1", "fp_ops.cu", "msm/pallas_insert.py:87",
         k1e["ops"]["mul"]["ms"], k1e["ops"]["mul"]["plain_ms"], [8, n],
         max(k1e["max_abs_err"], k4e["k1e_max_abs_err"]), ob["mul"])
@@ -449,7 +566,7 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, peak) -> list[dict]:
     out[-1].update(launches_g2=msm["g2"]["launches"].get("K1e", 0),
                    op_bounds=ob)
     n = k4e["n"]
-    ob = field_op_bounds({**k4e["ops"], **k4e["k1e_ops"]}, 2, n, peak)
+    ob = field_op_bounds({**k4e["ops"], **k4e["k1e_ops"]}, 2, n, rates)
     add("K4e", "g2", "fp_ops.cu", "msm/pallas_insert.py:133",
         k4e["ops"]["mul"]["ms"], k4e["ops"]["mul"]["plain_ms"], [2, 8, n],
         k4e["max_abs_err"], ob["mul"])
@@ -457,38 +574,72 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, peak) -> list[dict]:
     for g, k in (("g1", 1), ("g2", 2)):
         r = k3[g]
         n = r["n"]
-        ob = k3_op_bounds(r, k, peak)
+        ob = k3_op_bounds(r, k, rates)
         add(f"K3 {g}", g, "group_ops.cu", "curves/pallas_ops.py:66",
             r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"],
             [2, 8, n] if k == 2 else [8, n], r["max_abs_err"], ob["padd"])
         out[-1]["op_bounds"] = ob
         r = k2[g]
         W, T, L, B = r["shape"]
-        # K2: digits, flags and points read once, raw buckets written once
+        # K2: digits, flags and points read once, raw buckets written once;
+        # K5: raw buckets read once, totals written once, W*B*(L-1) adds
         k2_in = 4 * (W * T * L + T * L + 3 * WORDS[k] * T * L)
         bucket_bytes = 3 * 4 * WORDS[k] * W * B * L
-        k2_imads = FP_MULS["madd"][k] * IMAD_PER_FP_MUL * r["madds"]
-        add(f"K2 {g}", g, "insert.cu", "msm/pallas_insert3.py:74",
-            r["ms"], r["plain_ms"], r["shape"], r["max_abs_err"],
-            bound(k2_in + bucket_bytes, k2_imads, peak))
-        # K5: raw buckets read once, totals written once; W*B*(L-1) adds
-        k5_imads = FP_MULS["padd"][k] * IMAD_PER_FP_MUL * W * B * (L - 1)
         merged_bytes = 3 * 4 * WORDS[k] * W * B
-        kernels = merge[g]["kernels"]
-        for name, path, source, replaces, nbytes, imads in (
-                (f"K5 {g}", "merge=kernel", "merge.cu",
-                 "msm/pallas_insert3.py:204", bucket_bytes + merged_bytes,
-                 k5_imads),
-                (f"K2m {g}", "merge=True", "insert.cu",
-                 "msm/pallas_insert3.py:172", k2_in + merged_bytes,
-                 k2_imads + k5_imads),
-                ("K6 g1", "engine=pallas", "insert.cu",
-                 "msm/pallas_insert.py:35", k2_in + bucket_bytes, k2_imads)):
-            if name in kernels:
-                r = kernels[name]
-                add(name, f"{g} {path}", source, replaces, r["ms"],
-                    r["plain_ms"], [W, B, L] if name.startswith("K5") else
-                    [W, T, L, B], r["max_abs_err"], bound(nbytes, imads, peak))
+        kernels = {f"K2 {g}": r, **merge[g]["kernels"]}
+        for kmul in ("cios",) + SOS_KMULS:
+            k2_muls = FP_MULS["madd"][k] * r["madds"]
+            k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
+            path = g if kmul == "cios" else f"{g} kmul={kmul}"
+            ins = _build.kmul_stem("insert", kmul) + ".cu"
+            rows = [(_build.kmul_name(f"K2 {g}", kmul), path, ins,
+                     "msm/pallas_insert3.py:74", k2_in + bucket_bytes,
+                     k2_muls),
+                    (_build.kmul_name(f"K5 {g}", kmul),
+                     f"{path} merge=kernel",
+                     _build.kmul_stem("merge", kmul) + ".cu",
+                     "msm/pallas_insert3.py:204",
+                     bucket_bytes + merged_bytes, k5_muls),
+                    (_build.kmul_name(f"K2m {g}", kmul), f"{path} merge=True",
+                     ins, "msm/pallas_insert3.py:172", k2_in + merged_bytes,
+                     k2_muls + k5_muls)]
+            if g == "g1" and kmul == "cios":
+                rows.append(("K6 g1", "g1 engine=pallas", "insert.cu",
+                             "msm/pallas_insert.py:35", k2_in + bucket_bytes,
+                             k2_muls))
+            for name, path, source, replaces, nbytes, muls in rows:
+                q = kernels[name]
+                add(name, path, source, replaces, q["ms"], q["plain_ms"],
+                    [W, B, L] if name.startswith("K5") else [W, T, L, B],
+                    q["max_abs_err"],
+                    bound(nbytes, imads(muls, kmul), rates))
+    # the field-mul benches, each bound at its timed shape
+    rk = roof["kernels"]
+    r = rk["K7a"]
+    add("K7a", None, "roofline.cu", "profile/roofline.py:108", r["ms"],
+        r["plain_ms"], [8, r["n"]], r["max_abs_err"],
+        bound(96 * r["n"], imads(r["n"] * r["products_per_element"]),
+              rates))
+    out[-1]["ms_checked_n"] = r["ms_checked_n"]
+    # (row, call site, element dims, 32-bit words, base products a product)
+    for k7, replaces, el, words, base in (
+            ("K7b", "profile/roofline.py:193", [8], 8, 1),
+            ("K7d", "profile/g2_phases.py:95", [2, 8], 16, 3)):
+        for kmul in ("cios",) + SOS_KMULS:
+            r = rk[f"{k7} {kmul}"]
+            add(f"{k7} {kmul}", None, "roofline.cu", replaces, r["ms"],
+                r["plain_ms"], el + [r["n"]], r["max_abs_err"],
+                bound(3 * 4 * words * r["n"], imads(
+                    base * r["n"] * r["products_per_element"], kmul), rates))
+            out[-1]["ms_checked_n"] = r["ms_checked_n"]
+    # K7c's row: the carry-chain body (fp.cuh's rows) at full occupancy
+    body = k7c["bodies"]["carry full"]
+    n, R = k7c["elements"], k7c["op_groups"]
+    add("K7c", None, "issue_rates.cu", "profile/vpu_issue.py:74",
+        body["ms"], k7c["plain_ms"]["carry"], [n], k7c["max_abs_err"],
+        bound(12 * n, {"lo": n * R / 2, "hi": n * R / 2}, rates))
+    out[-1].update(ms_checked_n=k7c["ms_checked_n"]["carry"],
+                   checked_n=k7c["checked_n"])
     return out
 
 
@@ -505,7 +656,7 @@ K3_IO = {"padd": (9, 0), "add": (9, 0), "pmadd": (8, 1), "madd": (8, 1),
          "pdbl": (6, 0), "dbl": (6, 0)}
 
 
-def k3_op_bounds(r: dict, k: int, peak: float) -> dict:
+def k3_op_bounds(r: dict, k: int, rates: dict) -> dict:
     """K3's bound for each op it times at r["n"] elements."""
     n = r["n"]
     out = {}
@@ -516,17 +667,17 @@ def k3_op_bounds(r: dict, k: int, peak: float) -> dict:
         base = mul + sqr if k == 1 else 3 * mul + 2 * sqr + 3 * b3
         coords, mask = K3_IO[op]
         out[op] = bound(coords * 4 * WORDS[k] * n + 4 * mask * n,
-                        base * IMAD_PER_FP_MUL * n, peak)
+                        imads(base * n), rates)
     return out
 
 
-def field_op_bounds(ops: dict, k: int, n: int, peak: float) -> dict:
+def field_op_bounds(ops: dict, k: int, n: int, rates: dict) -> dict:
     """The bound of each timed elementwise op at n elements: two inputs
     and one output (sqr: one input), and its base products (an Fp mul
     one; an Fq2 mul three, a sqr two; add, sub and neg none)."""
     products = {"mul": 1 if k == 1 else 3, "sqr": 2}
     return {op: bound((2 if op == "sqr" else 3) * 4 * WORDS[k] * n,
-                      products.get(op, 0) * IMAD_PER_FP_MUL * n, peak)
+                      imads(products.get(op, 0) * n), rates)
             for op in ops}
 
 
@@ -535,7 +686,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from libff_tpu_torch import _build, workload
+    from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.pippenger import default_config
 
@@ -589,7 +740,19 @@ def main() -> int:
     emit({"phase": "K4e", **k4e})
     group_path("g2", LOG2N_G2)
 
-    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, imad_per_s())
+    # the field-mul benches; no MSM runs them, so their launches are
+    # counted over these two phases
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    k7c = phase_issue_rates(rng, dev)
+    emit({"phase": "issue rates", **k7c})
+    roof = phase_roofline(dc, rng, dev, k2["g1"])
+    emit({"phase": "roofline", **roof})
+    k7_launches = {k: v for k, v in _build.LAUNCHES.items()
+                   if k.startswith("K7")}
+
+    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof,
+                          k7_launches, imad_rates(k7c))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

@@ -14,8 +14,14 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``LAUNCHES`` counts kernel launches by kernel and branch: "K1e", "K4e";
 "K2 g1", "K2 g2" (the insert), "K2m g1", "K2m g2" (the insert with its
 fused lane merge), "K3 g1", "K3 g2", "K5 g1", "K5 g2" (the lane merge)
-for the G1 and G2 branches; "K6 g1" (the v1 insert, G1 only).  A wrapper
-adds one where it launches its kernel and nowhere else.
+for the G1 and G2 branches; "K6 g1" (the v1 insert, G1 only).  K2, K2m
+and K5 over the SOS products (``MsmConfig.kmul``) count under the same
+names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
+and so on; the CIOS names carry no suffix.  The field-mul benches count
+as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
+of products), "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos",
+"K7d sos2" (chains of Fq2 products).  A wrapper adds one where it
+launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,6 +53,18 @@ _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # ctypes argument types shared by the entry points
 VP = ctypes.c_void_p
 U32P = ctypes.POINTER(ctypes.c_uint32)
+
+
+def kmul_name(name: str, kmul: str) -> str:
+    """The launch-count key of a kernel branch over the product kmul:
+    the CIOS branch keeps the bare name."""
+    return name if kmul == "cios" else f"{name} {kmul}"
+
+
+def kmul_stem(stem: str, kmul: str) -> str:
+    """The source (and library) that holds kernel `stem` over the product
+    kmul: csrc/<stem>.cu for CIOS, csrc/<stem>_<kmul>.cu otherwise."""
+    return stem if kmul == "cios" else f"{stem}_{kmul}"
 
 
 def _nvcc() -> str:
@@ -98,6 +117,29 @@ def build() -> dict[str, float]:
         futs = [ex.submit(_compile, nvcc, s, out_dir / f"{s.stem}.so")
                 for s in todo]
         return dict(f.result() for f in futs)
+
+
+def sass_opcodes(stem: str) -> dict[str, collections.Counter] | None:
+    """{kernel symbol: Counter of its SASS opcodes} of the library built
+    from csrc/<stem>.cu, read with the toolkit's cuobjdump; None where the
+    toolkit has none."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    r = subprocess.run([str(tool), "-sass", str(build_dir() / f"{stem}.so")],
+                       capture_output=True, text=True, check=True)
+    out: dict[str, collections.Counter] = {}
+    cur = None
+    for line in r.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@\S+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return out
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -7,14 +7,18 @@
 // element type F::E and add/sub/dbl/mul/sqr/mul_b3/zero/one/is_zero/
 // select, plus load/store of one element of a limb-major array:
 //
-//   FpField<B3>  Fp over fp.cuh; b3 = 3b is a compile-time constant
+//   FpField<B3, M>  Fp over fp.cuh; b3 = 3b is a compile-time constant
 //                multiplied in by mul_small's addition chain (9 for
 //                alt_bn128 G1).
-//   Fp2Field     Fq2 over fp2.cuh (K4); b3 = 3b' of the twist is a general
+//   Fp2Field<M>  Fq2 over fp2.cuh (K4); b3 = 3b' of the twist is a general
 //                Fq2 element, a runtime argument in Montgomery form, and
 //                mul_b3 is one Karatsuba product.  The JAX VM multiplies
 //                by b3 coefficient-wise and the JAX kernel by Karatsuba;
 //                the values are equal and canonical, so the bits are too.
+//
+// M (fp.cuh's Mul, CIOS by default) is the Montgomery product behind mul
+// and sqr, MsmConfig.kmul's choice; every product gives the canonical
+// residue, so the formulas' outputs do not depend on it.
 #pragma once
 
 #include "fp.cuh"
@@ -22,7 +26,7 @@
 
 namespace lff {
 
-template <int B3>
+template <int B3, Mul M = Mul::Cios>
 struct FpField {
   using E = Fe<8>;
   FieldParams<8> P;
@@ -35,9 +39,11 @@ struct FpField {
   }
   __device__ __forceinline__ E dbl(const E& a) const { return lff::dbl(a, P); }
   __device__ __forceinline__ E mul(const E& a, const E& b) const {
-    return lff::mul(a, b, P);
+    return lff::mont_mul<M>(a, b, P);
   }
-  __device__ __forceinline__ E sqr(const E& a) const { return lff::sqr(a, P); }
+  __device__ __forceinline__ E sqr(const E& a) const {
+    return lff::mont_mul<M>(a, a, P);
+  }
   __device__ __forceinline__ E mul_b3(const E& a) const {
     return mul_small<B3, 8>(a, P);
   }
@@ -59,6 +65,7 @@ struct FpField {
   }
 };
 
+template <Mul M = Mul::Cios>
 struct Fp2Field {
   using E = Fe2;
   FieldParams<8> P;
@@ -72,11 +79,13 @@ struct Fp2Field {
   }
   __device__ __forceinline__ E dbl(const E& a) const { return lff::dbl(a, P); }
   __device__ __forceinline__ E mul(const E& a, const E& b) const {
-    return lff::mul(a, b, P);
+    return lff::mul<M>(a, b, P);
   }
-  __device__ __forceinline__ E sqr(const E& a) const { return lff::sqr(a, P); }
+  __device__ __forceinline__ E sqr(const E& a) const {
+    return lff::sqr<M>(a, P);
+  }
   __device__ __forceinline__ E mul_b3(const E& a) const {
-    return lff::mul(a, b3, P);
+    return lff::mul<M>(a, b3, P);
   }
   __device__ __forceinline__ E zero() const {
     return Fe2{lff::zero<8>(), lff::zero<8>()};

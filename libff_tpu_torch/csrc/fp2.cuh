@@ -20,9 +20,10 @@
 // Element layout in device memory: an Fq2 array is (2, 8, n) limb-major,
 // component c's limb i in row c*8 + i -- the TPU kernel's K = k*n rows.
 //
-// Cost: three base products (792 IMADs) for a mul and two (528) for a
-// sqr.  Inside K2 and K3 the multiplies bound it; elementwise (K4e) the
-// 192 bytes an element moves do.
+// Cost: three base products (792 IMADs over CIOS or SOS, 816 over SOS2)
+// for a mul and two (528, 544) for a sqr.  Inside K2 and K3 the
+// multiplies bound it; elementwise (K4e) the 192 bytes an element moves
+// do.
 #pragma once
 
 #include "fp.cuh"
@@ -59,18 +60,23 @@ __device__ __forceinline__ Fe2 dbl(const Fe2& a, const FieldParams<8>& P) {
 }
 
 // Karatsuba (tower.py:250-261); the sums a0 + a1, b0 + b1 are reduced.
+// M is the base product (fp.cuh's Mul), as _KernelField2(F2, kmul) takes
+// it (pallas_insert.py:139-160).
+template <Mul M = Mul::Cios>
 __device__ __forceinline__ Fe2 mul(const Fe2& a, const Fe2& b,
                                    const FieldParams<8>& P) {
-  const Fe<8> v0 = mul(a.c0, b.c0, P);
-  const Fe<8> v1 = mul(a.c1, b.c1, P);
-  const Fe<8> t = mul(add(a.c0, a.c1, P), add(b.c0, b.c1, P), P);
+  const Fe<8> v0 = mont_mul<M>(a.c0, b.c0, P);
+  const Fe<8> v1 = mont_mul<M>(a.c1, b.c1, P);
+  const Fe<8> t = mont_mul<M>(add(a.c0, a.c1, P), add(b.c0, b.c1, P), P);
   return Fe2{sub(v0, v1, P), sub(sub(t, v0, P), v1, P)};
 }
 
 // complex squaring (tower.py:276-285) with nr = -1
+template <Mul M = Mul::Cios>
 __device__ __forceinline__ Fe2 sqr(const Fe2& a, const FieldParams<8>& P) {
-  const Fe<8> v = mul(a.c0, a.c1, P);
-  return Fe2{mul(add(a.c0, a.c1, P), sub(a.c0, a.c1, P), P), dbl(v, P)};
+  const Fe<8> v = mont_mul<M>(a.c0, a.c1, P);
+  return Fe2{mont_mul<M>(add(a.c0, a.c1, P), sub(a.c0, a.c1, P), P),
+             dbl(v, P)};
 }
 
 __device__ __forceinline__ Fe2 select(bool c, const Fe2& a, const Fe2& b) {

@@ -16,9 +16,12 @@
 // the card; on the MSM path it runs in the G2 to_affine and
 // proj_to_jacobian.
 //
-// Bound on an H100: memory, for mul as well as add/sub.  An Fp product is
-// 264 IMADs per 96 bytes moved and an Fq2 product 792 per 192, below the
-// card's ~5 IMADs per byte (16.7 T IMAD/s over 3.35 TB/s).  Limb-major
+// Bound on an H100: memory for Fp add/sub/mul and Fq2 add/sub, multiply
+// issue for the Fq2 products.  At the issue rates K7c measures
+// (issue_rates.cu: mul.lo about 61, mul.hi about 31 a clock per SM), an Fp
+// product's 136 lo and 128 hi multiply-adds take about 24 ps of the
+// card, less than its 96 bytes at 3.35 TB/s (29 ps); an Fq2 product's
+// three take about 73 ps against 57 ps for its 192 bytes.  Limb-major
 // layout makes every limb load a coalesced 128-byte warp transaction.
 #include "fp2.cuh"
 
@@ -27,13 +30,6 @@ using namespace lff;
 namespace {
 
 enum Op { kAdd = 0, kSub = 1, kMul = 2 };
-
-FieldParams<8> params(const uint32_t* p, uint32_t inv) {
-  FieldParams<8> P{};
-  for (int k = 0; k < 8; k++) P.p[k] = p[k];
-  P.inv = inv;
-  return P;
-}
 
 // element e of group g at column e of the (8, n) array at out + g*8*n
 template <int OP>
@@ -86,7 +82,7 @@ int launch(void* out, const void* a, const void* b, long long n, int groups,
   const long long blocks = (total + threads - 1) / threads;
   fp_elementwise<OP><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, total,
-      params(p, inv));
+      field_params(p, nullptr, inv));
   return (int)cudaGetLastError();
 }
 
@@ -101,7 +97,7 @@ int launch2(void* out, const void* a, const void* b, long long n, int n32,
   const long long blocks = (n + threads - 1) / threads;
   fp2_elementwise<SQR><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n,
-      params(p, inv));
+      field_params(p, nullptr, inv));
   return (int)cudaGetLastError();
 }
 

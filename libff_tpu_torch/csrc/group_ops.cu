@@ -118,17 +118,12 @@ extern "C" int group_op(int op, void* const* in, const void* mask,
   A.mask = (const int32_t*)mask;
   for (int i = 0; i < 3; i++) A.out[i] = (uint32_t*)out[i];
   A.n = n;
-  FieldParams<8> P{};
-  for (int i = 0; i < 8; i++) {
-    P.p[i] = p[i];
-    P.one[i] = one_mont[i];
-  }
-  P.inv = inv;
+  const FieldParams<8> P = field_params(p, one_mont, inv);
   const int threads = 128;
   const int blocks = (int)((n + threads - 1) / threads);
   const cudaStream_t s = (cudaStream_t)stream;
   if (k == 1) return launch_op(op, A, FpField<9>{P}, blocks, threads, s);
-  Fp2Field f{P, {}};
+  Fp2Field<> f{P, {}};
   for (int i = 0; i < 8; i++) {
     f.b3.c0.v[i] = b3_mont[i];
     f.b3.c1.v[i] = b3_mont[8 + i];

@@ -1,0 +1,6 @@
+// insert_sos2.cu -- kernel K2 and its fused merge K2m over fp.cuh's
+// mul_sos2 (MsmConfig.kmul = "sos2"); the kernel and its note are in
+// insert.cuh.
+#include "insert.cuh"
+
+LFF_INSERT_ENTRY(lff::Mul::Sos2)

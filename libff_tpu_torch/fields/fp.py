@@ -14,7 +14,9 @@ the plain version, :class:`PlainField`, which follows the JAX package's
 16-bit CIOS (fp.py:246-276) in int64 tensors: this torch build has no CPU
 right shift for uint32, and a 32x32-bit product wraps int64.  The plain
 version runs on any device, which is how the card's kernels are checked
-against it.
+against it.  It also has the JAX package's two other in-kernel Montgomery
+products, SOS and SOS with block-2 reduction (fp.py:278-375), which
+``MsmConfig.kmul`` chooses for the insert and merge kernels (``KMULS``).
 
 :class:`FieldBase` holds what the prime field and the Fq2 tower
 (``tower.py``) share: predicates, select, pow_static and the batch
@@ -34,6 +36,9 @@ from .. import _build
 from ..host import mont as hm
 
 MASK16 = 0xFFFF
+MASK32 = 0xFFFFFFFF
+# the in-kernel Montgomery products (pallas_insert.py:96-99, fp.cuh)
+KMULS = ("cios", "sos", "sos2")
 
 
 # -- the n16 <-> n32 repack --------------------------------------------------
@@ -42,7 +47,7 @@ def to16(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """int32 array with its 32-bit limb axis at `axis` -> int64 array of
     twice as many 16-bit limbs there (axis 1 of an Fq2 array (2, n32,
     *batch))."""
-    u = x.to(torch.int64) & 0xFFFFFFFF
+    u = as_u32(x)
     shape = tuple(x.shape)
     return torch.stack([u & MASK16, u >> 16], dim=axis + 1).reshape(
         shape[:axis] + (2 * shape[axis],) + shape[axis + 1:])
@@ -53,8 +58,17 @@ def to32(y: torch.Tensor, axis: int = 0) -> torch.Tensor:
     limbs there."""
     shape = tuple(y.shape)
     y = y.reshape(shape[:axis] + (shape[axis] // 2, 2) + shape[axis + 1:])
-    v = y.select(axis + 1, 0) | (y.select(axis + 1, 1) << 16)
+    return as_int32(y.select(axis + 1, 0) | (y.select(axis + 1, 1) << 16))
+
+
+def as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2^32 -> the int32 tensor of their bit patterns."""
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def as_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 values below 2^32."""
+    return x.to(torch.int64) & MASK32
 
 
 def ints_to_limbs(vals, n32: int) -> np.ndarray:
@@ -109,19 +123,52 @@ def _mul_small_const(F, a, c: int, big):
     return F.neg(acc) if neg else acc
 
 
+def check_kmul(kmul: str) -> None:
+    """Raise unless kmul names one of the Montgomery products (KMULS)."""
+    if kmul not in KMULS:
+        raise ValueError(f"unknown Montgomery product {kmul!r}; one of "
+                         f"{KMULS}")
+
+
+def mul_lo32(x: torch.Tensor, y) -> torch.Tensor:
+    """(x * y) mod 2^32 of int64 tensors holding values below 2^32, by
+    16-bit halves of x: the full product would wrap int64."""
+    return ((x & MASK16) * y + ((((x >> 16) * (y & MASK16)) & MASK16) << 16)
+            ) & MASK32
+
+
+def mul_hi32(x: torch.Tensor, y) -> torch.Tensor:
+    """floor(x * y / 2^32) of int64 tensors holding values below 2^32."""
+    xl, xh, yl, yh = x & MASK16, x >> 16, y & MASK16, y >> 16
+    mid = xl * yh + xh * yl + ((xl * yl) >> 16)
+    return xh * yh + (mid >> 16)
+
+
 class PlainField:
     """The plain version of kernel K1: Montgomery arithmetic on (n16,
     *batch) int64 tensors of 16-bit limbs, on any device.  Same canonical
-    residues as fields/fp.py's ``_cios`` (a canonical residue is unique):
-    the CIOS outer loop with the limb carries deferred, which int64
-    columns hold (each column sums at most 2n products below 2^32)."""
+    residues as fields/fp.py's ``_cios``, ``mul_sos`` and ``mul_sos2`` (a
+    canonical residue is unique), with the limb carries deferred, which
+    int64 columns hold (each column sums at most 2n products below 2^32).
+    ``kmul`` names the Montgomery product that ``mul`` runs
+    (:data:`KMULS`); :meth:`with_kmul` gives the same field over another."""
 
-    def __init__(self, p: int, bits: int | None = None):
+    def __init__(self, p: int, bits: int | None = None, kmul: str = "cios"):
+        check_kmul(kmul)
         self.mp = hm.derive(p, bits)
         self.p = p
         self.n = self.mp.n16
+        if kmul == "sos2" and self.n % 2:
+            raise ValueError("the block-2 reduction needs an even limb count")
+        self.kmul = kmul
         self.inv16 = self.mp.inv16
         self._p = hm.int_to_limbs(p, self.n)
+
+    def with_kmul(self, kmul: str) -> "PlainField":
+        """This field with `kmul` as the product behind ``mul``."""
+        if kmul == self.kmul:
+            return self
+        return PlainField(self.p, self.mp.bits, kmul)
 
     def add(self, a, b):
         # a + b and a + b - p carried in one pass; keep the difference
@@ -144,22 +191,75 @@ class PlainField:
         return self.add(a, a)
 
     def mul(self, a, b):
+        """Montgomery product a*b*R^-1 mod p, canonical, by ``kmul``."""
+        return getattr(self, f"mul_{self.kmul}")(a, b)
+
+    def _columns(self, b, extra: int) -> torch.Tensor:
+        """Zeroed int64 columns (2n + extra, *batch) on b's device."""
+        return torch.zeros((2 * self.n + extra,) + tuple(b.shape[1:]),
+                           dtype=torch.int64, device=b.device)
+
+    def _reduced(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """Relaxed columns t (n + 1 of them) of a value below 2p -> its
+        canonical residue: carried, then p subtracted unless it borrows."""
+        n = self.n
+        t, _ = _carry(t)                       # t[n] is 0 or 1
+        d, brw = _carry(t[:n] - p)
+        return torch.where((t[n] + brw >= 0)[None], d, t[:n])
+
+    def mul_cios(self, a, b):
+        """CIOS (fp.py:246-276): per limb of a, the row a_i * b, then the
+        reduction step of the row's quotient."""
         a, b = torch.broadcast_tensors(a, b)
         n = self.n
         p = _col(self._p, b.ndim, b)
         # column k of a*b + m*p at t[k]; round i zeroes column i mod 2^16
         # and carries it into column i + 1, so t[n:] ends as the product
         # times 2^(-16n), below 2p, in relaxed limbs
-        t = torch.zeros((2 * n + 1,) + tuple(b.shape[1:]), dtype=torch.int64,
-                        device=b.device)
+        t = self._columns(b, 1)
         for i in range(n):
             t[i:i + n] += a[i] * b
             m = ((t[i] & MASK16) * self.inv16) & MASK16
             t[i:i + n] += m * p
             t[i + 1] += t[i] >> 16
-        t, _ = _carry(t[n:])                   # value < 2p: t[n] is 0 or 1
-        d, brw = _carry(t[:n] - p)
-        return torch.where((t[n] + brw >= 0)[None], d, t[:n])
+        return self._reduced(t[n:], p)
+
+    def mul_sos(self, a, b):
+        """SOS (fp.py:278-327): the product's columns first, all rows
+        independent, then n serial reduction steps of one 16-bit quotient
+        each; column i is exact mod 2^16 when step i reads it, because
+        carries only move up."""
+        a, b = torch.broadcast_tensors(a, b)
+        n = self.n
+        p = _col(self._p, b.ndim, b)
+        t = self._columns(b, 1)
+        for i in range(n):
+            t[i:i + n] += a[i] * b
+        for i in range(n):
+            m = ((t[i] & MASK16) * self.inv16) & MASK16
+            t[i:i + n] += m * p
+            t[i + 1] += t[i] >> 16
+        return self._reduced(t[n:], p)
+
+    def mul_sos2(self, a, b):
+        """SOS with block-2 reduction (fp.py:329-375): n/2 waves, each
+        retiring two 16-bit columns with the 32-bit quotient m = t_low32 *
+        (-p^-1 mod 2^32), t_low32 the exact low 32 bits of the relaxed
+        columns from column i up."""
+        a, b = torch.broadcast_tensors(a, b)
+        n = self.n
+        p = _col(self._p, b.ndim, b)
+        inv32 = self.mp.inv64 & MASK32
+        t = self._columns(b, 2)
+        for i in range(n):
+            t[i:i + n] += a[i] * b
+        for i in range(0, n, 2):
+            m = mul_lo32((t[i] + (t[i + 1] << 16)) & MASK32, inv32)
+            t[i:i + n] += (m & MASK16) * p
+            t[i + 1:i + 1 + n] += (m >> 16) * p
+            # both columns are 0 mod 2^16 now: their joint carry moves up
+            t[i + 2] += (t[i + 1] + (t[i] >> 16)) >> 16
+        return self._reduced(t[n:2 * n + 1], p)
 
     def sqr(self, a):
         return self.mul(a, a)

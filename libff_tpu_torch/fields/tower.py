@@ -35,11 +35,18 @@ class PlainField2:
     int64 tensors of 16-bit limbs, on any device.  The values are the JAX
     formulas' (tower.py:211-285); the base-field products of one Fq2 mul
     or sqr go through the plain prime field in one call, stacked on a
-    trailing axis, which saves its per-call overhead at small batches."""
+    trailing axis, which saves its per-call overhead at small batches.
+    They run on B's Montgomery product (``B.kmul``)."""
 
     def __init__(self, B: PlainField, nr: int):
         self.B = B
         self.nr = nr
+
+    def with_kmul(self, kmul: str) -> "PlainField2":
+        """This field with its base products by `kmul` (``KMULS``), as
+        ``_KernelField2(F2, kmul)`` runs them (pallas_insert.py:139-160)."""
+        B = self.B.with_kmul(kmul)
+        return self if B is self.B else PlainField2(B, self.nr)
 
     def _lin(self, op, a, b):
         # both coefficients in one base-field call: limb axis first

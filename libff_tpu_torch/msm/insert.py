@@ -11,8 +11,12 @@ coordinates ``(*el, T, L)`` (``el`` the field's element dims) and ``pinf
 repack, or with ``merge=True`` their lane totals ``(*el, W, B, 1)``, in
 ``merge.py``'s order.  :func:`insert_v1` is ``insert_pallas``'s
 counterpart (pallas_insert.py:198): the same function as :func:`insert`
-on G1, refused on G2 as there.  A CUDA tensor launches ``csrc/insert.cu``;
-a CPU tensor runs :func:`insert_plain` (and ``merge_lanes_plain``).
+on G1, refused on G2 as there.  ``kmul`` chooses the Montgomery product
+inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
+``csrc/insert.cu``, "sos" and "sos2" from ``csrc/insert_sos.cu`` and
+``csrc/insert_sos2.cu``; every product gives the same buckets.  A CUDA
+tensor launches the kernel; a CPU tensor runs :func:`insert_plain` (and
+``merge_lanes_plain``) over the same product.
 """
 
 from __future__ import annotations
@@ -25,10 +29,10 @@ from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
 from ..curves.group_ops import kernel_branch
-from ..fields.fp import to16, to32
+from ..fields.fp import KMULS, check_kmul, to16, to32
 from .merge import merge_lanes_plain
 
-_ARGS = [_build.VP] * 8 + [ctypes.c_int] * 7 + [
+_ARGS = [ctypes.c_int] + [_build.VP] * 8 + [ctypes.c_int] * 7 + [
     _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, _build.VP,
     ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, _build.VP]
 _ARGS_V1 = [_build.VP] * 8 + [ctypes.c_int] * 6 + [
@@ -38,7 +42,8 @@ _ARGS_V1 = [_build.VP] * 8 + [ctypes.c_int] * 6 + [
 MERGE_LANE_MULTIPLE = 128
 
 
-def _check(G, d, pts, B):
+def _check(G, d, pts, B, kmul="cios"):
+    check_kmul(kmul)
     px, py, pneg, pinf = pts
     if d.ndim != 3 or d.dtype != torch.int32:
         raise ValueError("digits are (W, T, L) int32")
@@ -57,21 +62,21 @@ def _check(G, d, pts, B):
         raise NotImplementedError("the complete insert needs a == 0")
 
 
-def insert(G, d: torch.Tensor, pts, B: int,
-           merge: bool = False) -> ProjectivePoint:
+def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
+           kmul: str = "cios") -> ProjectivePoint:
     """Bucket accumulation: bucket |d|-1 of (window, lane) += +-P in t
     order; zero digits and points at infinity leave it unchanged.  With
     merge, the lane axis is then tree-summed in the same launch (K2's
     fused branch, pallas_insert3.py:172-201) and (*el, W, B, 1) returned;
-    it needs L % 128 == 0."""
-    _check(G, d, pts, B)
+    it needs L % 128 == 0.  kmul: the Montgomery product (KMULS)."""
+    _check(G, d, pts, B, kmul)
     W, T, L = d.shape
     if merge and L % MERGE_LANE_MULTIPLE:
         raise ValueError(f"the fused merge needs L % {MERGE_LANE_MULTIPLE} "
                          f"== 0, not L = {L}")
     if d.device.type == "cpu":
-        raw = insert_plain(G, d, pts, B)
-        return merge_lanes_plain(G, raw) if merge else raw
+        raw = insert_plain(G, d, pts, B, kmul)
+        return merge_lanes_plain(G, raw, kmul) if merge else raw
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     k, b3, b3_mont = kernel_branch(G, "K2")
@@ -84,14 +89,14 @@ def insert(G, d: torch.Tensor, pts, B: int,
         counter = torch.zeros(W, dtype=torch.int32, device=d.device)
         m = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in out])
     Fp = G.F.prime_field
-    fn = _build.function("insert", "insert", _ARGS)
-    name = "K2m" if merge else "K2"
-    _build.launch(fn, f"{name} insert (k = {k})", d.device,
+    fn = _build.function(_build.kmul_stem("insert", kmul), "insert", _ARGS)
+    name = _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul)
+    _build.launch(fn, f"{name} insert", d.device, KMULS.index(kmul),
                   *(_build.ptr(t) for t in ts), W, T, L, B, Fp.n32, k, b3,
                   b3_mont, Fp.p_c, Fp.one_c, Fp.inv32,
                   None if counter is None else _build.ptr(counter), m,
                   d.get_device(), _build.stream_ptr(d))
-    _build.LAUNCHES[f"{name} g{k}"] += 1
+    _build.LAUNCHES[name] += 1
     return ProjectivePoint(*out)
 
 
@@ -132,12 +137,13 @@ def _kernel_tensors(G, d, pts, B) -> list[torch.Tensor]:
             *raw]
 
 
-def insert_plain(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
+def insert_plain(G, d: torch.Tensor, pts, B: int,
+                 kmul: str = "cios") -> ProjectivePoint:
     """The plain version of K2 on any device: a loop over t with
     gather/scatter on the bucket axis and formulas.rcb_madd_a0 over the
-    plain field (pallas_insert3.py:127-170)."""
-    _check(G, d, pts, B)
-    F = G.F.plain
+    plain field with `kmul`'s product (pallas_insert3.py:127-170)."""
+    _check(G, d, pts, B, kmul)
+    F = G.F.plain.with_kmul(kmul)
     ax = G.F.el_ndim - 1                                # the limb axis
     px, py, pneg, pinf = pts
     W, T, L = d.shape

@@ -13,8 +13,11 @@ The kernel's Ls-halving slices are the levels h >= 128, and its roll
 butterfly at stride s gives lane i ``padd(P_i, P_(i+s))``, whose lanes
 i < s are those that reach lane 0: the levels h = 64 .. 1.  That is also
 the halving loop of ``pippenger._reduce_buckets``, so every ``merge``
-setting of the MSM gives the same buckets.  A CUDA tensor launches
-``csrc/merge.cu``; a CPU tensor runs :func:`merge_lanes_plain`.
+setting of the MSM gives the same buckets.  ``kmul`` chooses the
+Montgomery product (``MsmConfig.kmul``, pallas_insert3.py:251-256): "cios"
+builds from ``csrc/merge.cu``, "sos" and "sos2" from ``csrc/merge_sos.cu``
+and ``csrc/merge_sos2.cu``.  A CUDA tensor launches the kernel; a CPU
+tensor runs :func:`merge_lanes_plain` over the same product.
 """
 
 from __future__ import annotations
@@ -24,16 +27,19 @@ import ctypes
 import torch
 
 from .. import _build
+from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import group_op_plain, kernel_branch
+from ..curves.group_ops import kernel_branch
+from ..fields.fp import KMULS, check_kmul, to16, to32
 
-_ARGS = [ctypes.POINTER(ctypes.c_void_p)] * 3 + [
+_ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32,
     ctypes.c_int, _build.VP]
 
 
-def _check(G, buckets: ProjectivePoint):
+def _check(G, buckets: ProjectivePoint, kmul: str):
+    check_kmul(kmul)
     el = G.F.el_shape
     shape = buckets.z.shape
     if len(shape) != len(el) + 3 or tuple(shape[:len(el)]) != el:
@@ -51,13 +57,14 @@ def _check(G, buckets: ProjectivePoint):
         raise NotImplementedError("the lane merge's complete adds need a == 0")
 
 
-def merge_lanes(G, buckets: ProjectivePoint) -> ProjectivePoint:
+def merge_lanes(G, buckets: ProjectivePoint,
+                kmul: str = "cios") -> ProjectivePoint:
     """The lane total of each (window, bucket): (*el, W, B, L) ->
-    (*el, W, B, 1)."""
-    _check(G, buckets)
+    (*el, W, B, 1).  kmul: the Montgomery product (KMULS)."""
+    _check(G, buckets, kmul)
     dev = buckets.z.device
     if dev.type == "cpu":
-        return merge_lanes_plain(G, buckets)
+        return merge_lanes_plain(G, buckets, kmul)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     k, b3, b3_mont = kernel_branch(G, "K5")
@@ -76,27 +83,31 @@ def merge_lanes(G, buckets: ProjectivePoint) -> ProjectivePoint:
                                        + [None] * (3 - len(ts))))
 
     Fp = G.F.prime_field
-    fn = _build.function("merge", "merge_lanes", _ARGS)
-    _build.launch(fn, f"K5 merge_lanes (k = {k})", dev, ptrs(ins), ptrs(tmp),
-                  ptrs(outs), n, L, Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c,
-                  Fp.inv32, ins[0].get_device(), _build.stream_ptr(ins[0]))
-    _build.LAUNCHES[f"K5 g{k}"] += 1
+    fn = _build.function(_build.kmul_stem("merge", kmul), "merge_lanes",
+                         _ARGS)
+    name = _build.kmul_name(f"K5 g{k}", kmul)
+    _build.launch(fn, f"{name} merge_lanes", dev, KMULS.index(kmul),
+                  ptrs(ins), ptrs(tmp), ptrs(outs), n, L, Fp.n32, k, b3,
+                  b3_mont, Fp.p_c, Fp.one_c, Fp.inv32, ins[0].get_device(),
+                  _build.stream_ptr(ins[0]))
+    _build.LAUNCHES[name] += 1
     return ProjectivePoint(*outs)
 
 
-def merge_lanes_plain(G, buckets: ProjectivePoint) -> ProjectivePoint:
+def merge_lanes_plain(G, buckets: ProjectivePoint,
+                      kmul: str = "cios") -> ProjectivePoint:
     """The plain version of K5 on any device: the levels h = L/2 .. 1 of
-    the module docstring, each one batched ``padd`` of K3's plain version
-    over every (window, bucket) row."""
-    _check(G, buckets)
-    el = G.F.el_shape
+    the module docstring, each one batched complete add (K3's ``padd``,
+    formulas.rcb_add_a0) over every (window, bucket) row, on the plain
+    field with `kmul`'s product."""
+    _check(G, buckets, kmul)
+    F = G.F.plain.with_kmul(kmul)
+    ax = G.F.el_ndim - 1                                # the limb axis
     W, B, L = buckets.z.shape[-3:]
-    P = [c.reshape(el + (W * B, L)) for c in buckets]
+    P = [to16(c, ax) for c in buckets]
     while L > 1:
         h = L // 2
-        halves = [c[..., s:s + h].reshape(el + (W * B * h,))
-                  for s in (0, h) for c in P]
-        P = [c.reshape(el + (W * B, h))
-             for c in group_op_plain(G, "padd", halves)]
+        P = fml.rcb_add_a0(F, *(c[..., :h] for c in P),
+                           *(c[..., h:] for c in P), G._b3_host)
         L = h
-    return ProjectivePoint(*(c.reshape(el + (W, B, 1)) for c in P))
+    return ProjectivePoint(*(to32(c, ax) for c in P))

@@ -16,13 +16,15 @@ buckets for every window.
   horner : window-parallel masked doubling, then a sum tree      kernel K3
   finish : projective -> Jacobian                      kernel K1e (K4e on G2)
 
-``MsmConfig.engine`` and ``MsmConfig.merge`` have the JAX package's
-meanings and routes (pippenger.py:41-69, :520-540); every setting gives
-the same buckets bit for bit, so the same result.  The JAX package's
-other knobs choose among TPU schedules and have no counterpart here:
-``tb`` (time rows per grid step), ``formulas`` (its formula VM),
-``scatter`` (the XLA path's bucket update); ``kmul`` (the in-kernel
-Montgomery product) waits for ROADMAP Queue 2's K7b.
+``MsmConfig.engine``, ``MsmConfig.merge`` and ``MsmConfig.kmul`` have the
+JAX package's meanings and routes (pippenger.py:41-69, :520-540); every
+setting gives the same buckets bit for bit, so the same result.
+``kmul`` ("cios", "sos", "sos2") is the Montgomery product inside K2 and
+K5, as the JAX package passes it to insert_pallas3 (pippenger.py:534);
+K3 and K6 stay on CIOS there and here.  The JAX package's other knobs
+choose among TPU schedules and have no counterpart here: ``tb`` (time
+rows per grid step), ``formulas`` (its formula VM), ``scatter`` (the XLA
+path's bucket update).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from ..curves.group import (AffinePoint, Group, JacobianPoint,
                             ProjectivePoint)
+from ..fields.fp import KMULS
 from . import digits as dig
 from .insert import insert, insert_v1
 from .merge import merge_lanes
@@ -52,6 +55,8 @@ class MsmConfig(NamedTuple):
                                # the reduce, "kernel" = K5 after the
                                # insert, True = fused into K2 (lanes a
                                # multiple of 128)
+    kmul: str = "cios"         # Montgomery product in K2 and K5: "cios",
+                               # "sos", "sos2" (engine "pallas": CIOS only)
 
 
 def default_config(n: int, device) -> MsmConfig:
@@ -165,13 +170,17 @@ def window_totals_v1(G: Group, d: torch.Tensor, pts, B: int
 
 
 def _check_config(G: Group, cfg: MsmConfig) -> None:
-    """The engine and merge settings the port runs (pippenger.py:520-540),
-    or raise: "xla" is still to port; "pallas" is G1 only and has no lane
-    merge (the JAX package would ignore one silently)."""
+    """The engine, merge and kmul settings the port runs
+    (pippenger.py:520-540), or raise: "xla" is still to port; "pallas" is
+    G1 only and has no lane merge and no product but CIOS (the JAX package
+    would ignore either silently, and would run an unknown kmul as CIOS,
+    pallas_insert.py:98-99)."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; one of {ENGINES}")
     if not (isinstance(cfg.merge, bool) or cfg.merge == "kernel"):
         raise ValueError(f"unknown merge {cfg.merge!r}; one of {MERGES}")
+    if cfg.kmul not in KMULS:
+        raise ValueError(f"unknown kmul {cfg.kmul!r}; one of {KMULS}")
     if cfg.engine == "xla":
         raise NotImplementedError(
             "the XLA insert engine waits for ROADMAP Queue 1 item 18")
@@ -182,6 +191,9 @@ def _check_config(G: Group, cfg: MsmConfig) -> None:
             raise ValueError("engine 'pallas' has no lane merge; use "
                              "engine 'pallas3' for merge "
                              f"{cfg.merge!r}")
+        if cfg.kmul != "cios":
+            raise ValueError("engine 'pallas' runs the CIOS product only; "
+                             f"use engine 'pallas3' for kmul {cfg.kmul!r}")
 
 
 class _PhaseClock:
@@ -215,7 +227,8 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     scalar_limbs: (n32, N) plain-form int32 limbs, values < the group order.
     points: affine batch of N points (infinity allowed via the mask).
     num_bits: bit width of the scalar field.
-    config: window, lanes, insert engine and lane merge (MsmConfig).
+    config: window, lanes, insert engine, lane merge and in-kernel
+    Montgomery product (MsmConfig).
     phase_times: when a dict, the card is synchronized after each phase
     and its host seconds are recorded (digits, insert, merge with
     merge="kernel", reduce, horner, finish).
@@ -239,10 +252,11 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     if cfg.engine == "pallas":
         buckets = insert_v1(G, d, pts, B)
     else:
-        buckets = insert(G, d, pts, B, merge=cfg.merge is True)
+        buckets = insert(G, d, pts, B, merge=cfg.merge is True,
+                         kmul=cfg.kmul)
     clock("insert")
     if cfg.merge == "kernel":
-        buckets = merge_lanes(G, buckets)
+        buckets = merge_lanes(G, buckets, cfg.kmul)
         clock("merge")
     totals = _reduce_buckets(G, buckets, B)
     clock("reduce")

@@ -30,6 +30,24 @@ PERIOD = {"g1": 32, "g2": 16}
 SEED = 2024
 
 
+def rand_elements(F, n: int, rng, dev) -> torch.Tensor:
+    """n canonical elements of field F (Fp or Fq2), (*el, n) on dev:
+    random limbs under p's top limb in every coefficient."""
+    B = F.prime_field
+    k = F.el_shape[0] if F.el_ndim == 2 else 1
+    limbs = rng.integers(0, 1 << 32, size=(k, B.n32, n), dtype=np.uint64)
+    limbs[:, -1] = rng.integers(0, B.p_limbs[-1], size=(k, n), dtype=np.uint64)
+    t = torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
+    return t.reshape(F.el_shape + (n,))
+
+
+def edge_values(B) -> list[int]:
+    """Plain values of prime field B at the edges of its arithmetic."""
+    p, R = B.p, B.mp.R
+    return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, p - R % p,
+                   (1 << 32) - 1, (1 << 224) % p, p - (1 << 128)})
+
+
 def random_scalars(cd, n: int, rng) -> np.ndarray:
     """n scalars < r as (n16, n) plain 16-bit limbs; 0, 1 and r-1 sit at
     indices 0..2 when n allows."""

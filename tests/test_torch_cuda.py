@@ -25,6 +25,7 @@ from libff_tpu_torch.host import field as hf
 from libff_tpu_torch.msm.insert import insert, insert_plain, insert_v1
 from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 from libff_tpu_torch.msm.pippenger import MsmConfig
+from libff_tpu_torch import issue_rates, roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -215,3 +216,75 @@ def test_g2_msm_matches_oracle(dev, dc):
     assert all(_build.LAUNCHES[k] > 0
                for k in ("K1e", "K2 g2", "K3 g2", "K4e"))
     assert got == want
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("kmul", ["sos", "sos2"])
+def test_kmul_branches_match_plain(dev, k2_case, group, kmul):
+    """K2, K2m and K5 over each SOS product give the CIOS plain version's
+    buckets: every product gives the canonical residue."""
+    G, d, pts, B, raw, merged = k2_case[group]
+    for name, fn, want in (
+            (f"K2 {group} {kmul}", lambda: insert(G, d, pts, B, kmul=kmul),
+             raw),
+            (f"K2m {group} {kmul}",
+             lambda: insert(G, d, pts, B, merge=True, kmul=kmul), merged),
+            (f"K5 {group} {kmul}", lambda: merge_lanes(G, raw, kmul),
+             merged)):
+        before = _build.LAUNCHES[name]
+        got = fn()
+        assert _build.LAUNCHES[name] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("kmul", ["sos", "sos2"])
+def test_msm_kmul_matches_oracle(dev, dc, group, kmul):
+    s, A, want = workload.msm_case(dc, group, 12, dev, 9)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(getattr(dc, group), s, A,
+                                 MsmConfig(c=8, lanes=256, kmul=kmul))
+    assert _build.LAUNCHES[f"K2 {group} {kmul}"] == 1
+    assert got == want
+
+
+def test_k7a_matches_plain(dev):
+    rng = np.random.default_rng(11)
+    a = roofline.random_words((8, 4099), rng, dev)
+    b = roofline.random_words((8, 4099), rng, dev)
+    b[:, :3] = a[:, :3]
+    before = _build.LAUNCHES["K7a"]
+    got = roofline.sol_mix(a, b, 3)
+    assert _build.LAUNCHES["K7a"] == before + 1
+    assert torch.equal(got, roofline.sol_mix_plain(a, b, 3))
+
+
+@pytest.mark.parametrize("field", ["fq", "fq2"])
+@pytest.mark.parametrize("kmul", ["cios", "sos", "sos2"])
+def test_k7b_k7d_match_plain(dev, dc, field, kmul):
+    F = getattr(dc, field)
+    rng = np.random.default_rng(12)
+    a = chip_smoke.rand_elements(F, 4099, rng, dev)
+    b = chip_smoke.rand_elements(F, 4099, rng, dev)
+    B = F.prime_field
+    edges = [0, 1, B.p - 1, B.p - 2, B.mp.R % B.p]
+    (a[0] if field == "fq2" else a)[:, :5] = B.plain_from_ints(edges, dev)
+    (b[-1] if field == "fq2" else b)[:, 5:10] = B.plain_from_ints(edges, dev)
+    name = f"{'K7b' if field == 'fq' else 'K7d'} {kmul}"
+    before = _build.LAUNCHES[name]
+    got = roofline.mul_chain(F, a, b, kmul, 2)
+    assert _build.LAUNCHES[name] == before + 1
+    assert torch.equal(got, roofline.mul_chain_plain(F, a, b, kmul, 2))
+
+
+@pytest.mark.parametrize("warps", [None, 4])
+@pytest.mark.parametrize("body", sorted(issue_rates.BODIES))
+def test_k7c_matches_plain(dev, body, warps):
+    rng = np.random.default_rng(13)
+    a = roofline.random_words((4099,), rng, dev)
+    b = roofline.random_words((4099,), rng, dev)
+    before = _build.LAUNCHES["K7c"]
+    got = issue_rates.issue_body(body, a, b, 64, warps)
+    assert _build.LAUNCHES["K7c"] == before + 1
+    assert torch.equal(got, issue_rates.issue_body_plain(body, a, b, 64))
