@@ -23,11 +23,12 @@ points, some at infinity), and runs these paths through
   K2 and K3's G2 branches), with merge="kernel", with merge=True, and
   with the same six kmul configurations.
 
-Then the field-mul benches: the issue rates K7c (every body checked, then
-its ops a clock per SM beside the 64 the bounds assume) and the roofline
-K7a, K7b, K7d (checked at 2^20 elements, timed at the JAX shapes, with
-the ratio and production ratio of profile/roofline.py), whose launches
-are counted from 0 over these two phases.
+Then the field-mul benches: the issue rates K7c (every body's ops a
+clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
+the roofline K7a, K7b, K7d (timed at the JAX shapes, with the ratio and
+production ratio of profile/roofline.py); each bench's timed output is
+held against its plain version on the same inputs.  Their launches are
+counted from 0 over these two phases.
 
 The launch counts are set to 0 just before each path's first run and read
 just after it.  Each phase prints one JSON line; then a line listing the
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 
 from libff_tpu_torch import _build
-from libff_tpu_torch.issue_rates import IMAD_PER_CLOCK_PER_SM
+from libff_tpu_torch.issue_rates import IMAD_PER_CLOCK_PER_SM, check_imad
 from libff_tpu_torch.timing import event_ms
 from libff_tpu_torch.workload import edge_values, rand_elements
 
@@ -56,16 +57,14 @@ LOG2N = 20
 LOG2N_G2 = 18
 SEED = 2024
 MSM_STEADY_RUNS = 10
-K7_CHECK_N = 1 << 20            # elements the K7 benches are checked at
+CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 # the card's memory rate and integer-multiply issue rates, for the
-# bounds: 3.35 TB/s of HBM3 (H100 SXM data sheet).  The CUDA C++
-# Programming Guide gives 64 32-bit integer multiply-adds a clock per SM
-# on compute capability 9.0 for every kind; K7c measures on the card that
-# mul.hi (IMAD.HI) issues at half the rate of mul.lo, so each kind is
-# charged its rate as K7c measures it in this run (phase "issue rates":
-# the mul.lo and mul.hi bodies at full occupancy), times the SM count and
-# the card's maximum SM clock; each row also keeps the bound at 64 for
-# every kind ("bound_ms_derived").
+# bounds: 3.35 TB/s of HBM3 (H100 SXM data sheet), and each multiply kind
+# at its peak a clock per SM (issue_rates.IMAD_PER_CLOCK_PER_SM: mul.lo
+# and mad.lo at the Programming Guide's 64, mul.hi and mad.hi at half of
+# it) times the SM count and the card's maximum SM clock.  K7c confirms
+# both peaks in every run (phase "issue rates"), and the run fails if
+# either measures more than 5% away.
 HBM_BYTES_PER_S = 3.35e12
 # multiply-adds of one 8-limb Montgomery product by kmul and kind (lo:
 # mul.lo/mad.lo, hi: mul.hi/mad.hi), counted from fp.cuh's PTX: CIOS 8
@@ -127,18 +126,15 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def imad_rates(k7c: dict) -> dict:
-    """Multiply-adds a second by kind: "lo" and "hi" as K7c measured them
-    (ops a clock per SM), "derived" the Programming Guide's 64 for any
-    kind; each times the SM count and the card's maximum SM clock."""
+def imad_rates(dev) -> dict:
+    """Multiply-adds a second by kind ("lo", "hi"): each kind's peak a
+    clock per SM times the SM count and the card's maximum SM clock."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                         "--format=csv,noheader,nounits"], capture_output=True,
                        text=True, check=True)
-    per_sm = float(r.stdout.strip().splitlines()[0]) * 1e6 * k7c["sms"]
-    rates = {kind: k7c["bodies"][f"mul_{kind} full"]["ops_per_clock_per_sm"]
-             * per_sm for kind in ("lo", "hi")}
-    rates["derived"] = IMAD_PER_CLOCK_PER_SM * per_sm
-    return rates
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = float(r.stdout.strip().splitlines()[0]) * 1e6 * sms
+    return {kind: v * per_sm for kind, v in IMAD_PER_CLOCK_PER_SM.items()}
 
 
 def imads(products: float, kmul: str = "cios") -> dict:
@@ -148,15 +144,12 @@ def imads(products: float, kmul: str = "cios") -> dict:
 
 def bound(nbytes: float, imad: dict, rates: dict) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the multiply-adds, each kind over its measured
-    rate (imad_rates); beside it the bound with every kind at the derived
-    64 a clock per SM."""
+    the memory rate and the multiply-adds, each kind over its rate
+    (imad_rates)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = sum(n / rates[k] for k, n in imad.items()) * 1e3
-    t_derived = sum(imad.values()) / rates["derived"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_ms_derived": max(t_bytes, t_derived),
             "bytes": nbytes, "imads": sum(imad.values()),
             "imads_by_kind": imad}
 
@@ -410,66 +403,76 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
     return res
 
 
+def check_chunked(gots: list, plain, n: int):
+    """The largest max_abs_err of a K7 bench's outputs gots, each (...,
+    n), against its plain version plain(sl) on the same inputs' slice sl,
+    CHECK_CHUNK elements at a time; returns (the error, the plain host
+    ms)."""
+    err, plain_ms = 0, 0.0
+    for i in range(0, n, CHECK_CHUNK):
+        sl = slice(i, min(n, i + CHECK_CHUNK))
+        want, ms = host_timed(lambda: plain(sl))
+        plain_ms += ms
+        err = max([err] + [max_abs_err([g[..., sl]], [want]) for g in gots])
+    return err, plain_ms
+
+
 def phase_issue_rates(rng, dev) -> dict:
-    """K7c: every body against its plain version at 2^20 elements, R =
-    1024, launched both at one element a thread and at 4 warps a SM; then
-    every body timed at the JAX shape (issue_rates.measure)."""
+    """K7c: every body timed on issue_rates.elements words, R = 1024, at
+    one element a thread (the chains also at 4 warps a SM), each timed
+    launch's output held against its plain version; then the mul.lo and
+    mul.hi rates held to the peaks the bounds charge."""
     from libff_tpu_torch import issue_rates as ir
     from libff_tpu_torch.roofline import random_words
 
-    n = K7_CHECK_N
+    n = ir.elements(dev)
     a, b = random_words((n,), rng, dev), random_words((n,), rng, dev)
     a[0], b[0] = -1, -1                              # 0xFFFFFFFF
-    res = {"name": "K7c", "checked_n": n, "plain_ms": {}, "ms_checked_n": {}}
-    err = 0
+    res, outs = ir.rates(a, b)
+    res.update(name="K7c", plain_ms={}, max_abs_err=0)
     for name in ir.BODIES:
-        want, res["plain_ms"][name] = host_timed(
-            lambda: ir.issue_body_plain(name, a, b))
-        for warps in (None, 4):
-            err = max(err, max_abs_err(
-                [ir.issue_body(name, a, b, warps_per_sm=warps)], [want]))
-        res["ms_checked_n"][name] = event_ms(lambda: ir.issue_body(name, a, b),
-                                             5)
-    res["max_abs_err"] = err
-    if err:
+        gots = [v for k, v in outs.items() if k.split()[0] == name]
+        e, res["plain_ms"][name] = check_chunked(
+            gots, lambda sl: ir.issue_body_plain(name, a[sl], b[sl]), n)
+        res["max_abs_err"] = max(res["max_abs_err"], e)
+    del outs
+    if res["max_abs_err"]:
         fail(f"K7c disagrees with its plain version: {res}")
-    res.update(ir.measure())
+    res["imad_rate_over_peak"] = check_imad(res)    # raises beyond 5%
     return res
 
 
 def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
-    """K7a, K7b and K7d over each product against their plain versions at
-    2^20 elements (K7b and K7d with the edge values in the first lanes),
-    each timed there and at the JAX shapes; K1e's chained products; the
-    SASS count of the products where the toolkit has cuobjdump; and the
-    ratio and production ratio of profile/roofline.py, the latter from
-    phase_k2's G1 insert."""
+    """K7a, K7b and K7d over each product, timed at the JAX shapes (K7b
+    and K7d with the edge values in the first lanes), each timed call's
+    output held against its plain version on the same inputs; K1e's
+    chained products; the SASS count of the products where the toolkit
+    has cuobjdump; and the ratio and production ratio of
+    profile/roofline.py, the latter from phase_k2's G1 insert."""
     from libff_tpu_torch import roofline as rl
     from libff_tpu_torch.fields.fp import KMULS
 
-    n = K7_CHECK_N
-    res = {"name": "roofline", "checked_n": n, "kernels": {}}
+    res = {"name": "roofline", "kernels": {}}
 
-    def check(key, fn, plain, n_timed, per_elem, ns_fn):
-        want, plain_ms = host_timed(plain)
-        e = max_abs_err([fn()], [want])
-        del want
-        ns = ns_fn()
+    def check(key, timed, plain, n, per_elem):
+        ns, got = timed()
+        e, plain_ms = check_chunked([got], plain, n)
         res["kernels"][key] = {
-            "max_abs_err": e, "plain_ms": plain_ms,
-            "ms_checked_n": event_ms(fn, 5), "n": n_timed,
+            "max_abs_err": e, "plain_ms": plain_ms, "n": n,
             "products_per_element": per_elem, "ns_per_product": ns,
-            "ms": ns * n_timed * per_elem * 1e-6}
+            "ms": ns * n * per_elem * 1e-6}
 
-    a, b = rl.random_words((8, n), rng, dev), rl.random_words((8, n), rng, dev)
-    check("K7a", lambda: rl.sol_mix(a, b, rl.SOL_REPS),
-          lambda: rl.sol_mix_plain(a, b, rl.SOL_REPS), rl.SOL_N, rl.SOL_REPS,
-          lambda: rl.sol_mul_ns(rng, dev))
+    a, b = rl.sol_inputs(rng, dev)
+    check("K7a", lambda: rl.sol_mul_ns(a, b),
+          lambda sl: rl.sol_mix_plain(a[:, sl], b[:, sl], rl.SOL_REPS),
+          rl.SOL_N, rl.SOL_REPS)
+    del a, b
     for F, k7 in ((dc.fq, "K7b"), (dc.fq2, "K7d")):
         B = F.prime_field
+        n, reps = rl.chain_shape(F)
         a, b = rand_elements(F, n, rng, dev), rand_elements(F, n, rng, dev)
         edges = edge_values(B)
-        pairs = [(x, y) for x in edges for y in edges][:n]
+        pairs = [(x, y) for x in edges for y in edges]
         m = len(pairs)
         X = B.plain_from_ints([x for x, _ in pairs], dev)
         Y = B.plain_from_ints([y for _, y in pairs], dev)
@@ -477,16 +480,15 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
             a[:, :m], b[:, :m] = X, Y
         else:                                   # a = (x, y), b = (y, x)
             a[..., :m], b[..., :m] = torch.stack([X, Y]), torch.stack([Y, X])
-        n_timed, reps = ((rl.CHAIN_N, rl.CHAIN_REPS) if k7 == "K7b"
-                         else (rl.FQ2_N, rl.FQ2_REPS))
         for k in KMULS:
-            check(f"{k7} {k}", lambda: rl.mul_chain(F, a, b, k, reps),
-                  lambda: rl.mul_chain_plain(F, a, b, k, reps), n_timed,
-                  reps * rl.CHAINS[F.el_ndim],
-                  lambda: rl.chain_mul_ns(F, k, rng, dev))
+            check(f"{k7} {k}", lambda: rl.chain_mul_ns(F, k, a, b),
+                  lambda sl: rl.mul_chain_plain(F, a[..., sl], b[..., sl], k,
+                                                reps),
+                  n, reps * rl.CHAINS[F.el_ndim])
+        del a, b
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K7a, K7b or K7d disagrees with its plain version: {res}")
-    products = {"k1e": rl.k1e_mul_ns(dc.fq, n, rng, dev)}
+    products = {"k1e": rl.k1e_mul_ns(dc.fq, 1 << LOG2N, rng, dev)}
     products.update({k: res["kernels"][f"K7b {k}"]["ns_per_product"]
                      for k in KMULS})
     ins = k2_g1["ms"] * 1e6 / (k2_g1["madds"] * rl.MADDS_MULS)
@@ -620,7 +622,6 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7_launches,
         r["plain_ms"], [8, r["n"]], r["max_abs_err"],
         bound(96 * r["n"], imads(r["n"] * r["products_per_element"]),
               rates))
-    out[-1]["ms_checked_n"] = r["ms_checked_n"]
     # (row, call site, element dims, 32-bit words, base products a product)
     for k7, replaces, el, words, base in (
             ("K7b", "profile/roofline.py:193", [8], 8, 1),
@@ -631,15 +632,12 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7_launches,
                 r["plain_ms"], el + [r["n"]], r["max_abs_err"],
                 bound(3 * 4 * words * r["n"], imads(
                     base * r["n"] * r["products_per_element"], kmul), rates))
-            out[-1]["ms_checked_n"] = r["ms_checked_n"]
     # K7c's row: the carry-chain body (fp.cuh's rows) at full occupancy
     body = k7c["bodies"]["carry full"]
     n, R = k7c["elements"], k7c["op_groups"]
     add("K7c", None, "issue_rates.cu", "profile/vpu_issue.py:74",
         body["ms"], k7c["plain_ms"]["carry"], [n], k7c["max_abs_err"],
         bound(12 * n, {"lo": n * R / 2, "hi": n * R / 2}, rates))
-    out[-1].update(ms_checked_n=k7c["ms_checked_n"]["carry"],
-                   checked_n=k7c["checked_n"])
     return out
 
 
@@ -752,7 +750,7 @@ def main() -> int:
                    if k.startswith("K7")}
 
     kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof,
-                          k7_launches, imad_rates(k7c))
+                          k7_launches, imad_rates(dev))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

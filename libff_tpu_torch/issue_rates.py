@@ -3,13 +3,15 @@ of profile/vpu_issue.py).
 
     python3 -m libff_tpu_torch.issue_rates
 
-On a CUDA card (it refuses to run without one) it runs each body of
-``csrc/issue_rates.cu`` at the JAX shape (2^21 elements, R = 1024 op
-groups each) and prints one JSON line: for each body its ns per op and
-its ops per clock per SM at the SM clock nvidia-smi read under load,
-beside the 64 32-bit multiply-adds a clock per SM that the CUDA C++
-Programming Guide gives compute capability 9.0 (``chip_smoke.py``'s
-bounds charge each multiply kind the rate measured here).  The bodies
+On a CUDA card (it refuses to run without one) it runs each body on
+:func:`elements` words, R = 1024 op groups each: 16 whole waves of full
+occupancy (4,325,376 words on 132 SMs), where the JAX shape's 2^21 would
+leave a partial last wave that dilutes a rate.  It prints one JSON line:
+for each body its ns per op (the best of TRIALS timings, as
+vpu_issue.py takes it) and its ops per clock per SM at the SM clock
+nvidia-smi read under load.  ``IMAD_PER_CLOCK_PER_SM`` holds the rates
+that the bounds of ``chip_smoke.py`` charge, and ``check_imad`` holds
+these measurements to them.  The bodies
 (the op counted):
 
 - ``mul_lo``, ``mul_hi``: 8 independent chains of mul.lo / mul.hi (one
@@ -42,16 +44,26 @@ import torch
 from . import _build
 from .fields.fp import (MASK16, MASK32, as_int32, as_u32, kernel_device,
                         mul_hi32, mul_lo32)
-from .timing import clock_under_load, event_ms
+from .timing import clock_under_load, timed_output
 
-N, R = 1 << 21, 1024        # vpu_issue.py: T = 2048 of (Ls = 8, 128)
+R = 1024                    # vpu_issue.py: T = 2048 of (Ls = 8, 128)
+# a body's elements: WAVES whole waves of a card's full occupancy (2048
+# resident threads a SM, in 256-thread blocks)
+WAVES, THREADS_PER_SM = 16, 2048
+# timings a body's time is the best of, as vpu_issue.py's _time takes it;
+# each is the mean of 5 launches
+TRIALS = 3
 # name -> (its code in csrc/issue_rates.cu, PTX ops per op group counted)
 BODIES = {"mul_lo": (0, 1), "mul_hi": (1, 1), "carry": (2, 1),
           "cheap": (3, 3), "mac": (4, 1), "chain_1": (5, 1),
           "chain_2": (6, 1), "chain_4": (7, 1), "chain_8": (8, 1)}
-# the Programming Guide's 32-bit integer multiply-adds a clock per SM on
-# compute capability 9.0, which the measured rates are set beside
-IMAD_PER_CLOCK_PER_SM = 64
+# 32-bit multiply-adds a clock per SM by kind, the peak the bounds
+# charge: "lo" (mul.lo, mad.lo: IMAD) the 64 that the CUDA C++ Programming
+# Guide gives compute capability 9.0, "hi" (mul.hi, mad.hi: IMAD.HI) half
+# of it, as the mul_hi body measures on an H100
+IMAD_PER_CLOCK_PER_SM = {"lo": 64, "hi": 32}
+# the largest relative distance of a measured rate from those peaks
+IMAD_RATE_TOLERANCE = 0.05
 _ARGS = [ctypes.c_int, _build.VP, _build.VP, _build.VP, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _build.VP]
 
@@ -155,32 +167,69 @@ def _carry_rows(a, b, R):
     return out
 
 
-def measure(n: int = N, R: int = R) -> dict:
-    """Every body's rate on the first card (see the module docstring)."""
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(7)
-    a, b = (torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32)).to(dev)
-            for _ in range(2))
-    _build.build()
+def elements(dev) -> int:
+    """The words a body runs on: WAVES whole waves of full occupancy on
+    the card dev."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return WAVES * THREADS_PER_SM * sms
+
+
+def rates(a: torch.Tensor, b: torch.Tensor, R: int = R):
+    """Every body's rate on the card that holds the (n,) words a, b (see
+    the module docstring).  Returns (the rates, the output of each timed
+    launch by the rates' body key)."""
+    dev = a.device
+    n = a.shape[0]
     mhz = clock_under_load(lambda: issue_body("mul_lo", a, b, R))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {"device": torch.cuda.get_device_name(0),
+    res = {"device": torch.cuda.get_device_name(dev),
            "card": _build.card_name_power(), "sm_clock_mhz": mhz, "sms": sms,
            "elements": n, "op_groups": R,
-           "derived_imad_per_clock_per_sm": IMAD_PER_CLOCK_PER_SM,
-           "bodies": {}}
+           "imad_per_clock_per_sm": IMAD_PER_CLOCK_PER_SM, "bodies": {}}
+    outs = {}
     for name, (_, per_group) in BODIES.items():
         ops = n * R * per_group
         runs = {"full": None}
         if name.startswith("chain_"):
             runs["4_warps_per_sm"] = 4
         for key, warps in runs.items():
-            ms = event_ms(lambda: issue_body(name, a, b, R, warps), 5)
-            out["bodies"][f"{name} {key}"] = {
+            ms = float("inf")
+            for _ in range(TRIALS):
+                t, outs[f"{name} {key}"] = timed_output(
+                    lambda: issue_body(name, a, b, R, warps), 5)
+                ms = min(ms, t)
+            res["bodies"][f"{name} {key}"] = {
                 "ms": ms, "ns_per_op": ms * 1e6 / ops,
                 "ops_per_clock_per_sm": ops / (ms * 1e-3 * mhz * 1e6 * sms)}
+    return res, outs
+
+
+def check_imad(res: dict) -> dict:
+    """Each multiply kind's measured rate (the mul_lo and mul_hi bodies at
+    full occupancy in `res`, from :func:`rates`) over the peak it is
+    charged; raises if one is more than IMAD_RATE_TOLERANCE away."""
+    out = {}
+    for kind, peak in IMAD_PER_CLOCK_PER_SM.items():
+        got = res["bodies"][f"mul_{kind} full"]["ops_per_clock_per_sm"]
+        out[kind] = got / peak
+        if abs(got / peak - 1) > IMAD_RATE_TOLERANCE:
+            raise RuntimeError(
+                f"mul.{kind} issues {got:.2f} a clock per SM, more than "
+                f"{IMAD_RATE_TOLERANCE:.0%} away from the {peak} the bounds "
+                f"charge")
     return out
+
+
+def measure(R: int = R) -> dict:
+    """Every body's rate on the first card, on random words."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+    a, b = (torch.from_numpy(rng.integers(0, 1 << 32, elements(dev),
+                                          dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+            for _ in range(2))
+    _build.build()
+    return rates(a, b, R)[0]
 
 
 def main() -> int:

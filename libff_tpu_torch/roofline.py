@@ -49,7 +49,7 @@ from .fields.fp import (KMULS, MASK32, as_int32, as_u32, check_kmul,
 from .msm import digits as dig
 from .msm.insert import insert
 from .msm.pippenger import _prepare, default_config
-from .timing import clock_under_load, event_ms
+from .timing import clock_under_load, event_ms, timed_output
 
 # the JAX shapes: elements (T * Ls * 128) and rounds of the chains
 SOL_N, SOL_REPS = 1 << 22, 16          # K7a: T = 8192, Ls = 4; 16 products
@@ -178,20 +178,31 @@ def random_words(shape, rng, dev) -> torch.Tensor:
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
-def sol_mul_ns(rng, dev) -> float:
-    """K7a's ns per synthetic product at the JAX shape."""
-    a, b = (random_words((8, SOL_N), rng, dev) for _ in range(2))
-    return event_ms(lambda: sol_mix(a, b, SOL_REPS), 10) * 1e6 / (
-        SOL_N * SOL_REPS)
+def sol_inputs(rng, dev):
+    """K7a's inputs at the JAX shape: two (8, SOL_N) random word arrays."""
+    return tuple(random_words((8, SOL_N), rng, dev) for _ in range(2))
 
 
-def chain_mul_ns(F, kmul: str, rng, dev) -> float:
-    """K7b's (F prime) or K7d's (F Fq2) ns per product at the JAX
+def sol_mul_ns(a: torch.Tensor, b: torch.Tensor):
+    """K7a's ns per synthetic product on a, b (SOL_REPS products an
+    element), and the output of the timed calls."""
+    ms, out = timed_output(lambda: sol_mix(a, b, SOL_REPS), 10)
+    return ms * 1e6 / (a.shape[-1] * SOL_REPS), out
+
+
+def chain_shape(F) -> tuple[int, int]:
+    """(elements, rounds) of K7b (F prime) or K7d (F Fq2) at the JAX
     shape."""
-    n, reps = (CHAIN_N, CHAIN_REPS) if F.el_ndim == 1 else (FQ2_N, FQ2_REPS)
-    a, b = (workload.rand_elements(F, n, rng, dev) for _ in range(2))
-    ms = event_ms(lambda: mul_chain(F, a, b, kmul, reps), 5)
-    return ms * 1e6 / (n * reps * CHAINS[F.el_ndim])
+    return (CHAIN_N, CHAIN_REPS) if F.el_ndim == 1 else (FQ2_N, FQ2_REPS)
+
+
+def chain_mul_ns(F, kmul: str, a: torch.Tensor, b: torch.Tensor):
+    """K7b's (F prime) or K7d's (F Fq2) ns per product on the canonical
+    arrays a, b, at the JAX shape's rounds, and the output of the timed
+    calls."""
+    reps = chain_shape(F)[1]
+    ms, out = timed_output(lambda: mul_chain(F, a, b, kmul, reps), 5)
+    return ms * 1e6 / (a.shape[-1] * reps * CHAINS[F.el_ndim]), out
 
 
 def k1e_mul_ns(F, n: int, rng, dev) -> float:
@@ -285,20 +296,24 @@ def measure(log2n: int = 20, impls: tuple = KMULS) -> dict:
     dc = device_curve("alt_bn128")
     rng = np.random.default_rng(0)
     _build.build()
-    a = random_words((8, SOL_N), rng, dev)
-    mhz = clock_under_load(lambda: sol_mix(a, a, SOL_REPS))
-    del a
-    roof = sol_mul_ns(rng, dev)
+    a, b = sol_inputs(rng, dev)
+    mhz = clock_under_load(lambda: sol_mix(a, b, SOL_REPS))
+    roof = sol_mul_ns(a, b)[0]
+    del a, b
     out = {"platform": "gpu", "device": torch.cuda.get_device_name(0),
            "card": _build.card_name_power(), "sm_clock_mhz": mhz,
            "limbs": dc.fq.n32, "elements": 1 << log2n,
            "field_mul_k1e_ns": k1e_mul_ns(dc.fq, 1 << log2n, rng, dev)}
     products = {"k1e": out["field_mul_k1e_ns"]}
-    for k in KMULS:
-        v = chain_mul_ns(dc.fq, k, rng, dev) if k in impls else None
-        out[f"field_mul_{k}_ns"] = products[k] = v
-        out[f"fq2_mul_{k}_ns"] = (chain_mul_ns(dc.fq2, k, rng, dev)
-                                  if k in impls else None)
+    for F, key in ((dc.fq, "field_mul"), (dc.fq2, "fq2_mul")):
+        n = chain_shape(F)[0]
+        a, b = (workload.rand_elements(F, n, rng, dev) for _ in range(2))
+        for k in KMULS:
+            v = chain_mul_ns(F, k, a, b)[0] if k in impls else None
+            out[f"{key}_{k}_ns"] = v
+            if F.el_ndim == 1:
+                products[k] = v
+        del a, b
     ins, madds = insert_mul_ns(dc, min(log2n, 18), dev)
     out.update({"field_mul_insert_kernel_ns": ins, "insert_madds": madds,
                 "roofline_ns": roof, **ratios(roof, products, ins),

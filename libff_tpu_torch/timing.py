@@ -31,6 +31,18 @@ def event_ms(fn, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
+def timed_output(fn, reps: int):
+    """(event_ms(fn, reps), the output of fn's last timed call), so that
+    what is checked is what was timed."""
+    last = [None]
+
+    def call():
+        last[0] = fn()
+
+    ms = event_ms(call, reps)
+    return ms, last[0]
+
+
 def sm_clock_mhz() -> float:
     """The first card's current SM clock as nvidia-smi reports it."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
