@@ -7,8 +7,9 @@ against its plain PyTorch version.
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its fused
 merge K2m, K3, K4e, K5, K6, each of K2, K2m and K5 over the three
-Montgomery products of ``MsmConfig.kmul``, and the field-mul benches K7a,
-K7b, K7c, K7d), checks each bit for bit against its plain version on the
+Montgomery products of ``MsmConfig.kmul``, the field-mul benches K7a,
+K7b, K7c, K7d and the batched-affine experiment K7e), checks each bit for
+bit against its plain version on the
 card at the shapes its path gives it (K2, K2m, K5 and K6 on distinct
 points, some at infinity), and runs these paths through
 ``msm_pippenger``:
@@ -28,7 +29,15 @@ clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
 the roofline K7a, K7b, K7d (timed at the JAX shapes, with the ratio and
 production ratio of profile/roofline.py); each bench's timed output is
 held against its plain version on the same inputs.  Their launches are
-counted from 0 over these two phases.
+counted from 0 over these two phases.  Last the batched-affine experiment
+K7e through its harness (``affine_experiment.measure``: the madd, affine
+and lane-inversion bodies over T = 2048 steps of 512 lanes, two waves of
+instances, timed at T and T/2), its launches counted from 0 over the
+harness; each body's timed output is held against its plain version on
+its inputs (madd and affine on every instance, the lane inversion's o and
+checksum on four, whose plain time the kernels line scales to all
+instances as ``plain_ms`` beside ``plain_ms_measured``), and each body's
+time at T must be twice its time at T/2 within 10%.  The harness's JSON line comes before the phase's.
 
 The launch counts are set to 0 just before each path's first run and read
 just after it.  Each phase prints one JSON line; then a line listing the
@@ -41,7 +50,6 @@ prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -49,7 +57,8 @@ import numpy as np
 import torch
 
 from libff_tpu_torch import _build
-from libff_tpu_torch.issue_rates import IMAD_PER_CLOCK_PER_SM, check_imad
+from libff_tpu_torch.fields.fp import to16, to32
+from libff_tpu_torch.issue_rates import bound, check_imad, imad_rates, imads
 from libff_tpu_torch.timing import event_ms
 from libff_tpu_torch.workload import edge_values, rand_elements
 
@@ -58,23 +67,14 @@ LOG2N_G2 = 18
 SEED = 2024
 MSM_STEADY_RUNS = 10
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
-# the card's memory rate and integer-multiply issue rates, for the
-# bounds: 3.35 TB/s of HBM3 (H100 SXM data sheet), and each multiply kind
-# at its peak a clock per SM (issue_rates.IMAD_PER_CLOCK_PER_SM: mul.lo
-# and mad.lo at the Programming Guide's 64, mul.hi and mad.hi at half of
-# it) times the SM count and the card's maximum SM clock.  K7c confirms
-# both peaks in every run (phase "issue rates"), and the run fails if
-# either measures more than 5% away.
-HBM_BYTES_PER_S = 3.35e12
-# multiply-adds of one 8-limb Montgomery product by kmul and kind (lo:
-# mul.lo/mad.lo, hi: mul.hi/mad.hi), counted from fp.cuh's PTX: CIOS 8
-# rows of 8 mad.lo, 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8
-# mad.hi; SOS the same ops in another order; SOS2 the product's 64 + 64,
-# then 4 waves of a 64-bit quotient (3 lo, 1 hi) and 16 mad.lo + 16
-# mad.hi.  K7a's synthetic product has CIOS's mix.
-IMAD_PER_FP_MUL = {"cios": {"lo": 136, "hi": 128},
-                   "sos": {"lo": 136, "hi": 128},
-                   "sos2": {"lo": 140, "hi": 132}}
+K7E_CHECKED = 4                 # lane_inv instances held against the plain
+# The bounds: the card's memory rate, and each multiply kind at its peak
+# a clock per SM (issue_rates.IMAD_PER_CLOCK_PER_SM: mul.lo and mad.lo at
+# the Programming Guide's 64, mul.hi and mad.hi at half of it) times the
+# SM count and the card's maximum SM clock (issue_rates.bound).  K7c
+# confirms both peaks in every run (phase "issue rates"), and the run
+# fails if either measures more than 5% away.
+#
 # base-field products per element: the merge's complete adds (12 products;
 # an Fq2 product is three, and G2's two products by b3 add six) and K2's
 # mixed add (11; 39)
@@ -126,41 +126,14 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def imad_rates(dev) -> dict:
-    """Multiply-adds a second by kind ("lo", "hi"): each kind's peak a
-    clock per SM times the SM count and the card's maximum SM clock."""
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                        "--format=csv,noheader,nounits"], capture_output=True,
-                       text=True, check=True)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = float(r.stdout.strip().splitlines()[0]) * 1e6 * sms
-    return {kind: v * per_sm for kind, v in IMAD_PER_CLOCK_PER_SM.items()}
-
-
-def imads(products: float, kmul: str = "cios") -> dict:
-    """The multiply-adds of `products` Montgomery products, by kind."""
-    return {k: v * products for k, v in IMAD_PER_FP_MUL[kmul].items()}
-
-
-def bound(nbytes: float, imad: dict, rates: dict) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the multiply-adds, each kind over its rate
-    (imad_rates)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / rates[k] for k, n in imad.items()) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "imads": sum(imad.values()),
-            "imads_by_kind": imad}
-
-
 def phase_k1e(F, rng, dev) -> dict:
     """add, sub, mul and neg (sub from 0) at the main path's shapes: one
     element (the Fermat inverse of to_affine) and 2^20 (the negation of
-    every y in _prepare), timed at 2^20."""
+    every y in _prepare), timed at both."""
     from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
 
-    res = {"name": "K1e", "n": 1 << 20, "checked_n": [1, 1 << 20], "ops": {}}
+    res = {"name": "K1e", "n": 1 << 20, "checked_n": [1, 1 << 20], "ops": {},
+           "ms_at_1": {}}
     err = 0
     for n in res["checked_n"]:
         a, b = rand_elements(F, n, rng, dev), rand_elements(F, n, rng, dev)
@@ -175,10 +148,12 @@ def phase_k1e(F, rng, dev) -> dict:
             want, plain_ms = host_timed(lambda: fp_op_plain(F, op, x, y))
             e = max_abs_err([fp_op(F, op, x, y)], [want])
             err = max(err, e)
+            ms = event_ms(lambda: fp_op(F, op, x, y), 200)
             if n == res["n"]:
-                res["ops"][name] = {
-                    "max_abs_err": e, "plain_ms": plain_ms,
-                    "ms": event_ms(lambda: fp_op(F, op, x, y), 200)}
+                res["ops"][name] = {"max_abs_err": e, "plain_ms": plain_ms,
+                                    "ms": ms}
+            else:
+                res["ms_at_1"][name] = ms
     res["max_abs_err"] = err
     if err:
         fail(f"K1e disagrees with its plain version: {res}")
@@ -262,7 +237,7 @@ def phase_k3(G, group: str, rng, dev) -> dict:
     lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512 for G1
     at 2^20 and for G2 at 2^18), timed there; padd also at 1 point and
     padd and pdbl at 32 (the Horner scan's and the last sum tree's
-    sizes)."""
+    sizes), timed there too."""
     from libff_tpu_torch.curves.group_ops import group_op, group_op_plain
 
     n = 1 << 21
@@ -286,7 +261,9 @@ def phase_k3(G, group: str, rng, dev) -> dict:
         e = max_abs_err(group_op(G, op, coords),
                         group_op_plain(G, op, coords))
         err = max(err, e)
-        res["ops"][f"{op}_{m}"] = {"max_abs_err": e}
+        res["ops"][f"{op}_{m}"] = {
+            "max_abs_err": e,
+            "ms": event_ms(lambda: group_op(G, op, coords), 200)}
     res["max_abs_err"] = err
     if err:
         fail(f"K3 disagrees with its plain version on {group}: {res}")
@@ -502,6 +479,69 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
     return res
 
 
+def phase_affine(dc) -> tuple[dict, dict]:
+    """K7e: the harness of affine_experiment at its defaults (T = 2048, Ls
+    = 4, two waves of instances), timed at T and T/2, then each timed
+    output held against its plain version on its inputs: madd's and
+    affine's o of every instance, lane_inv's o and chk of K7E_CHECKED
+    instances spread over all (its plain version runs ~380 products an
+    element, about 5 s an instance), with o = suf, the row suffix of the
+    last step.  Returns (the harness's report, the phase's result); the
+    launch counts of the harness's run are read by the caller."""
+    from libff_tpu_torch import affine_experiment as ae
+
+    t0 = time.perf_counter()
+    _build.LAUNCHES.clear()
+    rep, (a, b), outs = ae.measure()
+    launches = {k: v for k, v in _build.LAUNCHES.items()
+                if k.startswith("K7e")}
+    inst = rep["instances"]
+    _, T, _, L = a.shape
+    res = {"name": "K7e", "T": T, "lanes": L, "instances": inst,
+           "launches": launches, "kernels": {}}
+    for body, plain in (("madd", lambda x, y: ae.madd_body_plain(dc.g1, x, y)),
+                        ("affine",
+                         lambda x, y: ae.affine_body_plain(dc.fq, x, y))):
+        I = inst[body]
+        want, plain_ms = host_timed(lambda: plain(a[:I], b[:I]))
+        res["kernels"][body] = {"max_abs_err": max_abs_err([outs[body]],
+                                                           [want]),
+                                "plain_ms": plain_ms,
+                                "plain_ms_measured": plain_ms,
+                                "checked_instances": I}
+    I = inst["lane_inv"]
+    o, chk = outs["lane_inv"]
+    idx = sorted({round(k * (I - 1) / (K7E_CHECKED - 1))
+                  for k in range(K7E_CHECKED)})
+    err, plain_ms, suf_err = 0, 0.0, 0
+    for i in idx:
+        want, ms = host_timed(lambda: ae.lane_inv_plain(dc.fq, a[i:i + 1]))
+        plain_ms += ms
+        err = max(err, max_abs_err([o[i:i + 1], chk[i:i + 1]], list(want)))
+        d = to16(a[i, -1].reshape(8, L // ae.ROW, ae.ROW))
+        suf = to32(ae.lane_scans(dc.fq.plain, d)[1]).reshape(8, L)
+        suf_err = max(suf_err, max_abs_err([o[i]], [suf]))
+    # plain_ms is scaled to all I instances (they are independent, and the
+    # plain version's time grows with their count) so that it compares
+    # with the kernel's ms; plain_ms_measured is the time on len(idx)
+    res["kernels"]["lane_inv"] = {"max_abs_err": err,
+                                  "plain_ms": plain_ms * I / len(idx),
+                                  "plain_ms_measured": plain_ms,
+                                  "checked_instances": len(idx),
+                                  "o_equals_suf_max_abs_err": suf_err}
+    for body, key in (("madd", "madd"), ("affine", "affine_body"),
+                      ("lane_inv", "lane_inv")):
+        r = res["kernels"][body]
+        r.update(ms=rep["ms"][body], t_over_half_t=rep[f"{key}_t_over_half_t"])
+        if not 1.8 <= r["t_over_half_t"] <= 2.2:
+            fail(f"K7e {body}'s time at T is {r['t_over_half_t']:.3f} times "
+                 f"its time at T/2, not 2 within 10%")
+    if any(r["max_abs_err"] for r in res["kernels"].values()) or suf_err:
+        fail(f"K7e disagrees with its plain version: {res}")
+    res["seconds"] = time.perf_counter() - t0
+    return rep, res
+
+
 def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
     """The path itself: the MSM of `group` at 2^log2n points through
     msm_pippenger and to_affine under cfg, on case = (scalars, points,
@@ -539,8 +579,8 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
             "points_per_sec": n / med, "launches": launches}
 
 
-def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7_launches,
-                rates) -> list[dict]:
+def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
+                k7_launches, rates) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
     (the K7 benches: in the issue-rate and roofline phases, k7_launches).
@@ -638,6 +678,17 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7_launches,
     add("K7c", None, "issue_rates.cu", "profile/vpu_issue.py:74",
         body["ms"], k7c["plain_ms"]["carry"], [n], k7c["max_abs_err"],
         bound(12 * n, {"lo": n * R / 2, "hi": n * R / 2}, rates))
+    # K7e's rows, each bound by the harness at its timed shape
+    for body, name in (("madd", "K7e madd"), ("affine", "K7e affine"),
+                       ("lane_inv", "K7e inv")):
+        r = k7e["kernels"][body]
+        add(name, None, "affine_experiment.cu",
+            "profile/affine_experiment.py:80", r["ms"], r["plain_ms"],
+            [k7e["instances"][body], k7e["T"], 8, k7e["lanes"]],
+            r["max_abs_err"], k7e_rep["bounds"][body])
+        out[-1].update(t_over_half_t=r["t_over_half_t"],
+                       plain_ms_measured=r["plain_ms_measured"],
+                       plain_measured_instances=r["checked_instances"])
     return out
 
 
@@ -688,6 +739,7 @@ def main() -> int:
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.pippenger import default_config
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "env", **_build.env_report(), "device": name,
@@ -748,12 +800,18 @@ def main() -> int:
     emit({"phase": "roofline", **roof})
     k7_launches = {k: v for k, v in _build.LAUNCHES.items()
                    if k.startswith("K7")}
+    # the batched-affine experiment, its launches counted over its harness
+    k7e_rep, k7e = phase_affine(dc)
+    emit(k7e_rep)
+    emit({"phase": "affine experiment", **k7e})
+    k7_launches.update(k7e["launches"])
 
-    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof,
-                          k7_launches, imad_rates(dev))
+    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep,
+                          k7e, k7_launches, imad_rates(dev))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(_build.card_name_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

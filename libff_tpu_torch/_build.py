@@ -20,7 +20,8 @@ names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
 and so on; the CIOS names carry no suffix.  The field-mul benches count
 as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
 of products), "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos",
-"K7d sos2" (chains of Fq2 products).  A wrapper adds one where it
+"K7d sos2" (chains of Fq2 products), and the batched-affine experiment as
+"K7e madd", "K7e affine" and "K7e inv".  A wrapper adds one where it
 launches its kernel and nowhere else.
 """
 

@@ -141,7 +141,8 @@ __device__ __forceinline__ Fe<N> select(bool c, const Fe<N>& a,
 
 // a + b mod p for canonical a, b: the sum with its carry, then the sum
 // minus p with its borrow; keep the difference unless it went negative
-// (fp.py:206-212).
+// (fp.py:206-212).  On any 256-bit a, b it gives fp.py's bits: where the
+// sum carries out of 2^256 the difference is kept, modulo 2^256.
 __device__ __forceinline__ Fe<8> add(const Fe<8>& a, const Fe<8>& b,
                                      const FieldParams<8>& P) {
   Fe<8> s, d;
@@ -178,8 +179,9 @@ __device__ __forceinline__ Fe<8> add(const Fe<8>& a, const Fe<8>& b,
         "r"(s.v[5]), "r"(s.v[6]), "r"(s.v[7]), "r"(P.p[0]), "r"(P.p[1]),
         "r"(P.p[2]), "r"(P.p[3]), "r"(P.p[4]), "r"(P.p[5]), "r"(P.p[6]),
         "r"(P.p[7]), "r"(c));
-  // hb = carry - borrow: 0 when s + carry*2^256 >= p, all ones otherwise
-  return select(hb == 0, d, s);
+  // hb = carry - borrow: all ones when s + carry*2^256 < p, else 0 (or 1,
+  // when a + b >= 2^256 + p, which only operands >= p reach)
+  return select(hb != 0xFFFFFFFFu, d, s);
 }
 
 // a - b mod p: the difference with its borrow, then p added back where it

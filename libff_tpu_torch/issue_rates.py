@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import subprocess
 import sys
 
 import numpy as np
@@ -64,8 +65,48 @@ BODIES = {"mul_lo": (0, 1), "mul_hi": (1, 1), "carry": (2, 1),
 IMAD_PER_CLOCK_PER_SM = {"lo": 64, "hi": 32}
 # the largest relative distance of a measured rate from those peaks
 IMAD_RATE_TOLERANCE = 0.05
+# the card's memory rate for the bounds: 3.35 TB/s of HBM3 (H100 SXM data
+# sheet)
+HBM_BYTES_PER_S = 3.35e12
+# multiply-adds of one 8-limb Montgomery product by kmul and kind (lo:
+# mul.lo/mad.lo, hi: mul.hi/mad.hi), counted from fp.cuh's PTX: CIOS 8
+# rows of 8 mad.lo, 8 mad.hi, the quotient's mul.lo, 8 mad.lo and 8
+# mad.hi; SOS the same ops in another order; SOS2 the product's 64 + 64,
+# then 4 waves of a 64-bit quotient (3 lo, 1 hi) and 16 mad.lo + 16
+# mad.hi.  K7a's synthetic product has CIOS's mix.
+IMAD_PER_FP_MUL = {"cios": {"lo": 136, "hi": 128},
+                   "sos": {"lo": 136, "hi": 128},
+                   "sos2": {"lo": 140, "hi": 132}}
 _ARGS = [ctypes.c_int, _build.VP, _build.VP, _build.VP, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _build.VP]
+
+
+def imad_rates(dev) -> dict:
+    """Multiply-adds a second by kind ("lo", "hi"): each kind's peak a
+    clock per SM times the SM count and the card's maximum SM clock."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, check=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = float(r.stdout.strip().splitlines()[0]) * 1e6 * sms
+    return {kind: v * per_sm for kind, v in IMAD_PER_CLOCK_PER_SM.items()}
+
+
+def imads(products: float, kmul: str = "cios") -> dict:
+    """The multiply-adds of `products` Montgomery products, by kind."""
+    return {k: v * products for k, v in IMAD_PER_FP_MUL[kmul].items()}
+
+
+def bound(nbytes: float, imad: dict, rates: dict) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the multiply-adds, each kind over its rate
+    (imad_rates)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / rates[k] for k, n in imad.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "imads": sum(imad.values()),
+            "imads_by_kind": imad}
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor, R: int) -> None:

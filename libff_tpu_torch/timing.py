@@ -13,12 +13,14 @@ import torch
 SPIN_CYCLES = 10 ** 8
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of fn over reps calls (warmed).
-    A spin kernel holds the stream while the host queues the calls, so a
-    call whose kernel is shorter than its Python launch path is timed by
-    the card, not by the host's launch rate."""
-    fn()
+def event_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device milliseconds per call of fn over reps calls, after one
+    call that is not timed unless warm is False.  A spin kernel holds the
+    stream while the host queues the calls, so a call whose kernel is
+    shorter than its Python launch path is timed by the card, not by the
+    host's launch rate."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)

@@ -19,13 +19,13 @@ import chip_smoke
 from libff_tpu_torch import _build, workload
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group_ops import OPS, group_op, group_op_plain
-from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
+from libff_tpu_torch.fields.fp import fp_op, fp_op_plain, to16, to32
 from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
 from libff_tpu_torch.host import field as hf
 from libff_tpu_torch.msm.insert import insert, insert_plain, insert_v1
 from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 from libff_tpu_torch.msm.pippenger import MsmConfig
-from libff_tpu_torch import issue_rates, roofline
+from libff_tpu_torch import affine_experiment, issue_rates, roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +288,83 @@ def test_k7c_matches_plain(dev, body, warps):
     got = issue_rates.issue_body(body, a, b, 64, warps)
     assert _build.LAUNCHES["K7c"] == before + 1
     assert torch.equal(got, issue_rates.issue_body_plain(body, a, b, 64))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_k1e_matches_plain_on_non_canonical_values(dev, dc, op):
+    # 256-bit words, most of them >= p, as K7e's XOR-fed chains give them
+    rng = np.random.default_rng(14)
+    a = roofline.random_words((8, 4099), rng, dev)
+    b = roofline.random_words((8, 4099), rng, dev)
+    a[:, 0], b[:, 0] = -1, -1                        # 2^256 - 1
+    assert torch.equal(fp_op(dc.fq, op, a, b), fp_op_plain(dc.fq, op, a, b))
+
+
+@pytest.fixture(scope="module")
+def k7e_case(dev, dc):
+    """K7e inputs, I = 3, T = 4, Ls = 4, with x1 == x2 forced for the
+    affine body in lanes 0-7 of instance 0 at step 1."""
+    a, b = affine_experiment.random_inputs(dc.fq, 3, 4, 512, 15, dev)
+    o1 = affine_experiment.affine_body_plain(dc.fq, a[:, :1], b[:, :1])
+    a[0, 1, :, :8] = o1[0, :, :8]
+    return a, b
+
+
+@pytest.mark.parametrize("steps", [4, 2])
+@pytest.mark.parametrize("body", ["madd", "affine", "lane_inv"])
+def test_k7e_matches_plain(dev, dc, k7e_case, body, steps):
+    ae = affine_experiment
+    a, b = (x[:, :steps] for x in k7e_case)         # a view at steps < 4
+    runs = {"madd": (lambda: ae.madd_body(dc.g1, a, b),
+                     lambda: ae.madd_body_plain(dc.g1, a, b)),
+            "affine": (lambda: ae.affine_body(dc.fq, a, b),
+                       lambda: ae.affine_body_plain(dc.fq, a, b)),
+            "lane_inv": (lambda: ae.lane_inv(dc.fq, a),
+                         lambda: ae.lane_inv_plain(dc.fq, a))}
+    name = ae.BODIES[body][1]
+    before = _build.LAUNCHES[name]
+    kernel, plain = runs[body]
+    got, want = kernel(), plain()
+    assert _build.LAUNCHES[name] == before + 1
+    if body == "lane_inv":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # every product is of nonzero residues, so o = suf
+        x = to16(a[:, -1].permute(1, 0, 2).reshape(8, 3, 1, 4, 128))
+        suf = ae.lane_scans(dc.fq.plain, x)[1]
+        want_o = to32(suf).reshape(8, 3, 512).transpose(0, 1)
+        assert torch.equal(got[0], want_o)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Ls", [1, 2])
+def test_k7e_lane_inv_matches_plain_at_fewer_rows(dev, dc, Ls):
+    a, _ = affine_experiment.random_inputs(dc.fq, 2, 2, Ls * 128, 16, dev)
+    got = affine_experiment.lane_inv(dc.fq, a)
+    want = affine_experiment.lane_inv_plain(dc.fq, a)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k7e_refuses_other_fields_and_rows(dev, dc):
+    from libff_tpu_torch.fields.fp import PrimeField
+    a, b = affine_experiment.random_inputs(dc.fq, 1, 2, 640, 17, dev)
+    with pytest.raises(ValueError):                 # 5 rows
+        affine_experiment.lane_inv(dc.fq, a)
+    with pytest.raises(NotImplementedError):
+        affine_experiment.affine_body(PrimeField(dc.fr.p), a, b)
+
+
+def test_k7e_time_doubles_with_steps(dev, dc):
+    """Each body's time at T = 256 is 2x its time at T/2 within 10%, at two
+    waves of instances: no step's work is dropped."""
+    ae = affine_experiment
+    inst = ae.default_instances(ae.kernel_info(4, dev))
+    a, b = ae.random_inputs(dc.fq, max(inst.values()), 256, 512, 18, dev)
+    runs = {"madd": lambda x, y: ae.madd_body(dc.g1, x, y),
+            "affine": lambda x, y: ae.affine_body(dc.fq, x, y),
+            "lane_inv": lambda x, y: ae.lane_inv(dc.fq, x)}
+    for name, fn in runs.items():
+        x, y = a[:inst[name]], b[:inst[name]]
+        full = ae.best_ms(lambda: fn(x, y))[0]
+        half = ae.best_ms(lambda: fn(x[:, :128], y[:, :128]))[0]
+        assert 1.8 <= full / half <= 2.2, (name, full, half)
