@@ -5,13 +5,14 @@ against its plain PyTorch version.
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its fused
-merge K2m, K3, K4e, K5, K6, each of K2, K2m and K5 over the three
-Montgomery products of ``MsmConfig.kmul``, the field-mul benches K7a,
-K7b, K7c, K7d and the batched-affine experiment K7e), checks each bit for
-bit against its plain version on the
-card at the shapes its path gives it (K2, K2m, K5 and K6 on distinct
-points, some at infinity), and runs these paths through
+It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its sort
+launch and its fused merge K2m, K3, K4e, K5, K6, each of K2, K2m and K5
+over the three Montgomery products of ``MsmConfig.kmul``, the field-mul
+benches K7a, K7b, K7c, K7d and the batched-affine experiment K7e), checks
+each bit for bit against its plain version on the card at the shapes its
+path gives it (K2, K2m, K5 and K6 on distinct points, some at infinity;
+K2's sort against ``bucket_lists_plain``; K2 also on skewed digits, at 4
+windows of the path's steps and lanes), and runs these paths through
 ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
@@ -68,6 +69,7 @@ SEED = 2024
 MSM_STEADY_RUNS = 10
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 K7E_CHECKED = 4                 # lane_inv instances held against the plain
+SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
 # The bounds: the card's memory rate, and each multiply kind at its peak
 # a clock per SM (issue_rates.IMAD_PER_CLOCK_PER_SM: mul.lo and mad.lo at
 # the Programming Guide's 64, mul.hi and mad.hi at half of it) times the
@@ -270,17 +272,6 @@ def phase_k3(G, group: str, rng, dev) -> dict:
     return res
 
 
-def prepared(G, scalars, points, cfg):
-    """The main path's insert inputs: (d, pts, B)."""
-    from libff_tpu_torch.msm import digits as dig
-    from libff_tpu_torch.msm.pippenger import _prepare
-
-    W = dig.num_signed_digits(G.order, 254, cfg.c)
-    s, pts, T, L = _prepare(G, scalars, points, cfg)
-    d = dig.signed_digits(s, cfg.c, W).reshape(W, T, L)
-    return d, pts, 1 << (cfg.c - 1)
-
-
 def k2_inputs(dc, group: str, n: int, cfg, rng, dev):
     """The insert's inputs for n points of `group` under cfg, through the
     main path's _prepare and digits, with points that do not repeat: point
@@ -312,27 +303,63 @@ def k2_inputs(dc, group: str, n: int, cfg, rng, dev):
         fail("the K2 check's points are not distinct")
     inf = torch.from_numpy(rng.random(n) < 1 / 64).to(dev)
     scalars = convert.field_to_torch(workload.random_scalars(cd, n, rng), dev)
-    return prepared(G, scalars, AffinePoint(x, y, inf), cfg)
+    return workload.insert_inputs(G, scalars, AffinePoint(x, y, inf), cfg)
+
+
+def skewed(d, pts, B: int):
+    """The insert's inputs made to strain the chain kernel, by lane l mod
+    8: 0, every step in one bucket, whose chain is then T long; 1, every
+    digit zero; 2, every digit +-B, the last bucket; 3, every point at
+    infinity; the other lanes as given.  Returns new (d, pts)."""
+    d = d.clone()
+    lanes = torch.arange(d.shape[2], device=d.device)
+    sign = torch.where(d < 0, -1, 1).to(d.dtype)
+    one = lanes % 8 == 0
+    d[:, :, one] = sign[:, :, one] * (1 + (lanes[one] // 8) % B).to(d.dtype)
+    d[:, :, lanes % 8 == 1] = 0
+    last = lanes % 8 == 2
+    d[:, :, last] = sign[:, :, last] * B
+    pinf = pts[3].clone()
+    pinf[:, lanes % 8 == 3] = True
+    return d, (*pts[:3], pinf)
 
 
 def phase_k2(dc, group: str, n: int, cfg, rng, dev):
     """K2 against its plain version at the path's shape, on points that do
-    not repeat and some at infinity.  Returns the result and, for
+    not repeat and some at infinity; its sort launch against
+    bucket_lists_plain there; and K2 on skewed digits (``skewed``) at
+    SKEW_WINDOWS windows of the same (T, L).  Returns the result and, for
     phase_merge, the inputs and the plain buckets."""
-    from libff_tpu_torch.msm.insert import insert, insert_plain
+    from libff_tpu_torch.msm.insert import (bucket_lists, bucket_lists_plain,
+                                            insert, insert_plain)
 
     G = getattr(dc, group)
     d, pts, B = k2_inputs(dc, group, n, cfg, rng, dev)
     want, plain_ms = host_timed(lambda: insert_plain(G, d, pts, B))
     err = max_abs_err(insert(G, d, pts, B), want)
     madds = int(((d != 0) & ~pts[3][None]).sum())
+    lists = bucket_lists(G, d, pts[3], B)
+    want_lists, sort_plain_ms = host_timed(
+        lambda: bucket_lists_plain(d, pts[3], B))
+    sort = {"max_abs_err": max_abs_err(lists, want_lists),
+            "plain_ms": sort_plain_ms,
+            "entry_bytes": lists[1].element_size(),
+            "ms": event_ms(lambda: bucket_lists(G, d, pts[3], B), 20)}
+    del lists, want_lists
+    ds, ps = skewed(d[:SKEW_WINDOWS], pts, B)
+    skew = {"shape": list(ds.shape) + [B],
+            "max_abs_err": max_abs_err(insert(G, ds, ps, B),
+                                       insert_plain(G, ds, ps, B))}
+    del ds, ps
     res = {"name": f"K2 {group}", "shape": list(d.shape) + [B],
            "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
            "zero_digits": int((d == 0).sum()), "madds": madds,
            "plain_ms": plain_ms,
-           "ms": event_ms(lambda: insert(G, d, pts, B), 3)}
-    if err:
-        fail(f"K2 disagrees with its plain version on {group}: {res}")
+           "ms": event_ms(lambda: insert(G, d, pts, B), 3),
+           "sort": sort, "skewed": skew}
+    if err or sort["max_abs_err"] or skew["max_abs_err"]:
+        fail(f"K2 or its sort disagrees with its plain version on {group}: "
+             f"{res}")
     return res, (d, pts, B, want)
 
 
@@ -623,12 +650,20 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
         out[-1]["op_bounds"] = ob
         r = k2[g]
         W, T, L, B = r["shape"]
-        # K2: digits, flags and points read once, raw buckets written once;
-        # K5: raw buckets read once, totals written once, W*B*(L-1) adds
-        k2_in = 4 * (W * T * L + T * L + 3 * WORDS[k] * T * L)
+        # K2: digits, flags (bool bytes) and points read once, raw buckets
+        # written once; K5: raw buckets read once, totals written once,
+        # W*B*(L-1) adds
+        k2_in = 4 * (W * T * L + 3 * WORDS[k] * T * L) + T * L
         bucket_bytes = 3 * 4 * WORDS[k] * W * B * L
         merged_bytes = 3 * 4 * WORDS[k] * W * B
         kernels = {f"K2 {g}": r, **merge[g]["kernels"]}
+        # K2's sort: digits and flags (bool bytes) read once, lists
+        # written once
+        q = r["sort"]
+        add(f"K2 sort {g}", g, "insert.cu", "msm/pallas_insert3.py:74",
+            q["ms"], q["plain_ms"], [W, T, L, B], q["max_abs_err"],
+            bound(4 * (W * T * L + W * L * (B + 1)) + T * L
+                  + q["entry_bytes"] * W * L * T, imads(0), rates))
         for kmul in ("cios",) + SOS_KMULS:
             k2_muls = FP_MULS["madd"][k] * r["madds"]
             k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
@@ -747,9 +782,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_source = _build.build()
-    ptxas = {p.stem: [ln.split("info    : ")[-1].strip()
-                      for ln in p.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+    ptxas = {p.stem: _build.ptxas_lines(p)
              for p in sorted(_build.build_dir().glob("*.log"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_source, "ptxas": ptxas})

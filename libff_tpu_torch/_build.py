@@ -12,8 +12,9 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on any value other than 0.
 
 ``LAUNCHES`` counts kernel launches by kernel and branch: "K1e", "K4e";
-"K2 g1", "K2 g2" (the insert), "K2m g1", "K2m g2" (the insert with its
-fused lane merge), "K3 g1", "K3 g2", "K5 g1", "K5 g2" (the lane merge)
+"K2 sort g1", "K2 sort g2" (the insert's sort by bucket), "K2 g1", "K2
+g2" (the insert's chains), "K2m g1", "K2m g2" (the insert with its fused
+lane merge), "K3 g1", "K3 g2", "K5 g1", "K5 g2" (the lane merge)
 for the G1 and G2 branches; "K6 g1" (the v1 insert, G1 only).  K2, K2m
 and K5 over the SOS products (``MsmConfig.kmul``) count under the same
 names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -92,10 +94,12 @@ def build_dir() -> Path:
     return BUILD / _digest()
 
 
-def _compile(nvcc: str, src: Path, out: Path) -> tuple[str, float]:
+def _compile(nvcc: str, src: Path, out: Path,
+             defines: tuple[str, ...] = ()) -> tuple[str, float]:
     t0 = time.perf_counter()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
+           str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}{r.stderr}")
@@ -118,6 +122,50 @@ def build() -> dict[str, float]:
         futs = [ex.submit(_compile, nvcc, s, out_dir / f"{s.stem}.so")
                 for s in todo]
         return dict(f.result() for f in futs)
+
+
+def build_variant(stem: str, defines: dict[str, int]) -> Path:
+    """Compile csrc/<stem>.cu with each macro of `defines` set by -D, into
+    a directory of its own under the build; returns the library's path
+    (its ptxas log beside it, as <stem>.log).  Load it with
+    :func:`use_library`."""
+    tag = "-".join(f"{k}={v}" for k, v in sorted(defines.items()))
+    out = build_dir() / "variants" / (tag or "none") / f"{stem}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _compile(_nvcc(), CSRC / f"{stem}.cu", out,
+             tuple(f"-D{k}={v}" for k, v in sorted(defines.items())))
+    return out
+
+
+@contextlib.contextmanager
+def use_library(stem: str, path: Path):
+    """Within the block, the wrappers launch csrc/<stem>.cu's entry points
+    from the library at `path` (from :func:`build_variant`) in place of the
+    package's build."""
+    def forget():
+        for key in [k for k in _fns if k[0] == stem]:
+            del _fns[key]
+
+    old = _libs.get(stem)
+    forget()
+    _libs[stem] = ctypes.CDLL(str(path))
+    try:
+        yield
+    finally:
+        forget()
+        if old is None:
+            del _libs[stem]
+        else:
+            _libs[stem] = old
+
+
+def ptxas_lines(log: Path) -> list[str]:
+    """The ptxas -v lines of a build log that name a kernel and give its
+    registers, stack and spills."""
+    return [ln.split("info    : ")[-1].strip()
+            for ln in log.read_text().splitlines()
+            if "Function properties" in ln or "registers" in ln
+            or "spill" in ln]
 
 
 def sass_opcodes(stem: str) -> dict[str, collections.Counter] | None:

@@ -10,144 +10,452 @@
 // +-P_(t*L + l) over t in order with the complete mixed add
 // (formulas.rcb_madd_a0).  A zero digit or a point at infinity leaves the
 // bucket as it is.  Buckets start as the identity (0, 1, 0)
-// (pallas_insert3.py:91-97).  Order and formula are the TPU kernel's, so
-// the raw buckets are bit-identical to it whatever its time block tb was.
+// (pallas_insert3.py:91-97).
 //
-// Design: one thread per (window, lane) owns that lane's B buckets and
-// walks t = 0..T-1; nothing is shared between threads, so no atomics and
-// no ordering across blocks are needed (the TPU kernel's sequential grid
-// axis becomes the thread's loop).  Buckets stay in device memory, limb
-// index outermost then (w, b, l), so the lanes of a warp touching the
-// same bucket index read neighbouring words.
+// Bound on an H100: the multiplies.  A G1 madd is 11 Montgomery products,
+// a G2 madd 39 base products (13 Fq2 products of three, two of them by
+// b3), each 136 mul.lo and 128 mul.hi multiply-adds at the rates K7c
+// measures: 8.5 ms on the G1 path's 32.9 M madds, 7.5 ms on G2's 8.2 M.
+// The bytes (the digits and the points read once, the buckets written
+// once) take under a twentieth of that.
 //
-// The fused merge (merge=True, pallas_insert3.py:172-201): after the walk
-// over t the lane axis is tree-summed in the same launch, in merge.cuh's
-// order, and the totals go to (K, W, B, 1).  L % 128 == 0, as
+// Design.  A bucket (w, l, b) depends only on its own points, taken in t
+// order, so the W * L * B bucket chains are independent; walking each
+// chain in t order with the same rcb_madd and the same product gives the
+// TPU kernel's raw buckets bit for bit, whatever its time block tb was.
+// Three launches:
+//
+//   bucket_lists   (the sort) one thread per (w, l) lists the steps t
+//                  whose digit is non-zero and whose point is finite,
+//                  grouped by bucket and in t order within a bucket (a
+//                  stable counting sort): off (W, L, B + 1) int32, the
+//                  start of each bucket's list; ent (W, L, T), each entry
+//                  2t + 1 for a negative digit, 2t for a positive one,
+//                  then -1 to the end of the row; int16 while T <= 16384,
+//                  else int32.  The digits and the infinity flags (bool
+//                  bytes, as the caller holds them) are read with
+//                  neighbouring lanes on neighbouring words, kSortBatch
+//                  steps in flight; the counters live in shared memory,
+//                  one column per thread, kSortChunk buckets a pass.
+//                  kSortBlocksPerSM
+//                  blocks an SM walk all the lanes, so that the rows being
+//                  written at once fit in L2: with every lane at once the
+//                  scattered 2-byte writes left their sectors part-written
+//                  and the sort took twice as long.
+//   chain_kernel   S threads per (w, l), S = ceil(T / kEntries).  Thread
+//                  s owns the buckets whose lists start in the s-th of S
+//                  equal shares of the lane's list: a run of consecutive
+//                  buckets, a contiguous segment of the list of about
+//                  T / S entries, whatever the digits (the top window's
+//                  steps, for one, all fall in its first buckets).  The
+//                  thread walks its segment in one flat loop, each bucket
+//                  in a register accumulator that starts at the identity
+//                  and is stored once when its list ends.  So the buckets
+//                  are never read, never initialised in memory, and
+//                  written once; and since a warp takes as long as its
+//                  longest segment, the segments differ only by the one
+//                  chain that straddles a share's end (about T / B
+//                  entries: 8 on the G1 path, 2 on G2).  Lanes are the
+//                  fastest thread index, so a warp's list reads coalesce.
+//                  The threads of a warp finish their buckets at
+//                  different times, so each stores a bucket's limbs
+//                  contiguous, (W, L, B, K) per coordinate: whole 32-byte
+//                  sectors.  In the contract's (K, W, B, L) each store
+//                  would be one word of a sector that seven other threads
+//                  fill later; on G2 those part-written sectors cost more
+//                  than the madds.
+//   limb_major_kernel  the raw buckets from (W, L, B, K) into (K, W, B,
+//                  L) through shared memory, 32 lanes of one (w, b) a
+//                  block: the bucket bytes read and written once more.
+//
+// The wrapper repacks the points beforehand into one record per point,
+// x, y and -y contiguous (3 K words), so a madd reads its x and its y or
+// -y as 16-byte loads: 64 bytes on G1, 128 on G2, where the TPU layout
+// (K, T, L) costs one 32-byte sector per limb.
+//
+// kEntries, kSortBlocksPerSM and the blocks an SM that __launch_bounds__
+// asks for were chosen on an H100 with tune_insert.py, which builds this
+// header with other values of their LFF_ macros (PERF.md).
+// On the two MSM paths kEntries gives S = 2 (G1) and 1 (G2): one wave of
+// blocks, every thread with as many entries as the next.  Runs of a fixed
+// count of buckets a thread, tried first, lost up to 2x to the digits'
+// skew.  A G2 thread holds a 48-word accumulator, a 32-word point and the
+// Karatsuba temporaries in 255 registers with a few spills; asking for 3
+// blocks an SM (168 registers) spills a kilobyte and runs slower.
+//
+// The fused merge (merge=True, pallas_insert3.py:172-201): after the
+// chains the lane axis is tree-summed in the same launch, in merge.cuh's
+// order, and the totals go to (K, W, B, 1).  The chain kernel then writes
+// the raw buckets in (K, W, B, L), which the tail reads, and no repack
+// follows.  The blocks are ordered window-major and L % 128 == 0, as
 // insert_pallas3 requires, puts every block in one window.  Each block
 // fences its stores and counts itself in a per-window counter (zeroed by
-// the wrapper); the block that arrives last in window w merges that
-// window's buckets in place, one warp per bucket (CUDA's
+// the wrapper); the block that arrives last of the window's S * L / 128
+// merges that window's buckets in place, one warp per bucket (CUDA's
 // threadFenceReduction pattern).  No second launch and no host round
-// trip; but only W blocks run the merge, so it adds about W * B * (L - 1)
-// adds on W * 4 warps to the insert's time.
+// trip; but only W blocks run the merge.
 //
 // MsmConfig.kmul (pallas_insert3.py:302, :339, :343) picks the product:
-// each of insert.cu (CIOS, with K6), insert_sos.cu and insert_sos2.cu
-// instantiates this header for one product through LFF_INSERT_ENTRY, so
-// the three compile in parallel; every product gives the same buckets.
-//
-// Bound on an H100: the scattered bucket read-modify-write (48 words per
-// G1 madd, 96 per G2 madd, one 32-byte sector each when the lanes' bucket
-// indices differ) and the madd itself (11 Montgomery products for G1, 39
-// base products for G2).  A G2 thread holds a 48-word bucket, a 32-word
-// point and the Karatsuba temporaries, more than 255 registers, so ptxas
-// spills to local memory (its -v lines are in the build log).  Sorting
-// points by bucket is the later redesign that removes the scatter.
+// each of insert.cu (CIOS, with the sort and K6), insert_sos.cu and
+// insert_sos2.cu instantiates this header for one product through
+// LFF_INSERT_ENTRY, so the three compile in parallel; every product gives
+// the same buckets.
 #pragma once
 
 #include "merge.cuh"
 
 namespace lff {
 
-constexpr int kInsertThreads = 128;
+// The constants tune_insert.py varies, each open to -D at build time.
+#ifndef LFF_SORT_BLOCKS_PER_SM
+#define LFF_SORT_BLOCKS_PER_SM 4
+#endif
+#ifndef LFF_ENTRIES_G1
+#define LFF_ENTRIES_G1 512
+#endif
+#ifndef LFF_ENTRIES_G2
+#define LFF_ENTRIES_G2 256
+#endif
+#ifndef LFF_MIN_BLOCKS_G1
+#define LFF_MIN_BLOCKS_G1 4
+#endif
+#ifndef LFF_MIN_BLOCKS_G2
+#define LFF_MIN_BLOCKS_G2 1
+#endif
+
+constexpr int kSortThreads = 32;
+constexpr int kSortChunk = 128;  // buckets counted per pass over the digits
+constexpr int kSortBatch = 16;   // steps whose loads are in flight at once
+constexpr int kSortBlocksPerSM = LFF_SORT_BLOCKS_PER_SM;
+constexpr int kChainThreads = 128;
+// list entries a thread walks, G1 and G2
+constexpr int kEntriesG1 = LFF_ENTRIES_G1;
+constexpr int kEntriesG2 = LFF_ENTRIES_G2;
+// __launch_bounds__'s blocks an SM
+constexpr int kMinBlocksG1 = LFF_MIN_BLOCKS_G1;
+constexpr int kMinBlocksG2 = LFF_MIN_BLOCKS_G2;
+constexpr int kLayoutThreads = 256;
+
+// The bucket of a step, or -1 for a step that adds nothing.
+__device__ __forceinline__ int list_bucket(int dig, int inf, int B) {
+  return (dig == 0 || inf != 0) ? -1 : min(abs(dig) - 1, B - 1);
+}
+
+// Steps t0 .. t0 + kSortBatch - 1 of one lane, all loads issued before
+// any is used; a step past T reads as a zero digit.
+__device__ __forceinline__ void load_steps(const int32_t* __restrict__ dl,
+                                           const uint8_t* __restrict__ fl,
+                                           int t0, int T, int L, int* dig,
+                                           int* inf) {
+#pragma unroll
+  for (int k = 0; k < kSortBatch; k++) {
+    const bool in = t0 + k < T;
+    dig[k] = in ? __ldg(dl + (size_t)(t0 + k) * L) : 0;
+    inf[k] = in ? __ldg(fl + (size_t)(t0 + k) * L) : 0;
+  }
+}
+
+template <class Entry>
+__global__ void __launch_bounds__(kSortThreads)
+    bucket_lists_kernel(const int32_t* __restrict__ d,
+                        const uint8_t* __restrict__ pinf,
+                        int32_t* __restrict__ off, Entry* __restrict__ ent,
+                        int W, int T, int L, int B) {
+  __shared__ int32_t cnt[kSortChunk * kSortThreads];
+  int32_t* c = cnt + threadIdx.x;  // this thread's counter of bucket b0 + j
+                                   // at c[j * kSortThreads]
+  // a grid of few blocks walks the lanes, so that the rows of entries
+  // being written at once stay in L2 until their sectors are whole
+  for (long long gid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       gid < (long long)W * L; gid += (long long)gridDim.x * blockDim.x) {
+    const int w = (int)(gid / L);
+    const int l = (int)(gid % L);
+    const int32_t* dl = d + (size_t)w * T * L + l;  // step t at dl[t * L]
+    const uint8_t* fl = pinf + l;
+    int32_t* o = off + (size_t)gid * (B + 1);
+    Entry* e = ent + (size_t)gid * T;
+    int base = 0;
+    for (int b0 = 0; b0 < B; b0 += kSortChunk) {
+      const int nb = min(kSortChunk, B - b0);
+      for (int j = 0; j < nb; j++) c[j * kSortThreads] = 0;
+      for (int t0 = 0; t0 < T; t0 += kSortBatch) {
+        int dig[kSortBatch], inf[kSortBatch];
+        load_steps(dl, fl, t0, T, L, dig, inf);
+#pragma unroll
+        for (int k = 0; k < kSortBatch; k++) {
+          const unsigned j = list_bucket(dig[k], inf[k], B) - b0;
+          if (j < (unsigned)nb) c[j * kSortThreads]++;
+        }
+      }
+      for (int j = 0; j < nb; j++) {  // counts -> starts
+        const int n = c[j * kSortThreads];
+        o[b0 + j] = base;
+        c[j * kSortThreads] = base;
+        base += n;
+      }
+      for (int t0 = 0; t0 < T; t0 += kSortBatch) {
+        int dig[kSortBatch], inf[kSortBatch];
+        load_steps(dl, fl, t0, T, L, dig, inf);
+#pragma unroll
+        for (int k = 0; k < kSortBatch; k++) {
+          const unsigned j = list_bucket(dig[k], inf[k], B) - b0;
+          if (j < (unsigned)nb)
+            e[c[j * kSortThreads]++] = (Entry)(2 * (t0 + k) + (dig[k] < 0));
+        }
+      }
+    }
+    o[B] = base;
+    for (int i = base; i < T; i++) e[i] = (Entry)-1;
+  }
+}
+
+// The sort.  d (W, T, L) int32, pinf (T, L) bool (one byte each); wide:
+// int32 entries (else int16, which needs T <= 16384).
+inline int bucket_lists_entry(const void* d, const void* pinf, void* off,
+                              void* ent, int wide, int W, int T, int L,
+                              int B, int device, void* stream) {
+  if (W < 0 || T < 0 || L < 0 || B <= 0 || (wide != 0 && wide != 1) ||
+      (!wide && T > 16384))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)W * L == 0) return 0;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long lane_blocks =
+      ((long long)W * L + kSortThreads - 1) / kSortThreads;
+  const long long blocks = lane_blocks < (long long)sms * kSortBlocksPerSM
+                               ? lane_blocks
+                               : (long long)sms * kSortBlocksPerSM;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    bucket_lists_kernel<int32_t><<<(unsigned)blocks, kSortThreads, 0, s>>>(
+        (const int32_t*)d, (const uint8_t*)pinf, (int32_t*)off,
+        (int32_t*)ent, W, T, L, B);
+  else
+    bucket_lists_kernel<int16_t><<<(unsigned)blocks, kSortThreads, 0, s>>>(
+        (const int32_t*)d, (const uint8_t*)pinf, (int32_t*)off,
+        (int16_t*)ent, W, T, L, B);
+  return (int)cudaGetLastError();
+}
+
+// One coordinate of a point record or a bucket as 16-byte loads and
+// stores.
+__device__ __forceinline__ void load_words(const uint32_t* p, Fe<8>& r) {
+  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
+  r = Fe<8>{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+__device__ __forceinline__ void load_words(const uint32_t* p, Fe2& r) {
+  load_words(p, r.c0);
+  load_words(p + 8, r.c1);
+}
+
+__device__ __forceinline__ void store_words(uint32_t* p, const Fe<8>& a) {
+  ((uint4*)p)[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  ((uint4*)p)[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+__device__ __forceinline__ void store_words(uint32_t* p, const Fe2& a) {
+  store_words(p, a.c0);
+  store_words(p + 8, a.c1);
+}
+
+// The chain kernel's share of a lane and occupancy target by branch.
+template <class F>
+struct ChainShape {
+  static constexpr bool kG1 = sizeof(typename F::E) == sizeof(Fe<8>);
+  static constexpr int kEntries = kG1 ? kEntriesG1 : kEntriesG2;
+  static constexpr int kMinBlocks = kG1 ? kMinBlocksG1 : kMinBlocksG2;
+};
+
+// Threads per (w, l) for T steps.
+template <class F>
+__host__ __device__ constexpr int chain_threads(int T) {
+  return T <= ChainShape<F>::kEntries
+             ? 1
+             : (T + ChainShape<F>::kEntries - 1) / ChainShape<F>::kEntries;
+}
+
+// The first bucket b < B whose list starts at or after entry x, or B.
+__device__ __forceinline__ int first_bucket_from(const int32_t* o, int B,
+                                                 int x) {
+  int lo = 0, hi = B;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (o[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
 
 template <class F, bool MERGE>
-__global__ void __launch_bounds__(kInsertThreads)
-    insert_kernel(const int32_t* __restrict__ d,
-                  const uint32_t* __restrict__ px,
-                  const uint32_t* __restrict__ py,
-                  const uint32_t* __restrict__ pneg,
-                  const int32_t* __restrict__ pinf, uint32_t* bx,
-                  uint32_t* by, uint32_t* bz, int W, int T, int L, int B,
-                  int* counter, Rows merged, F f) {
+__global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
+    chain_kernel(const int32_t* __restrict__ off, const void* __restrict__ ent,
+                 int wide, const uint32_t* __restrict__ rec, uint32_t* bx,
+                 uint32_t* by, uint32_t* bz, int W, int T, int L, int B,
+                 int* counter, Rows merged, F f) {
   using E = typename F::E;
+  constexpr int K = sizeof(E) / sizeof(uint32_t);
+  const int S = chain_threads<F>(T);
   const long long gid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (gid >= (long long)W * L) return;
-  const int w = (int)(gid / L);
+  if (gid >= (long long)W * S * L) return;
   const int l = (int)(gid % L);
+  const int s = (int)(gid / L % S);
+  const int w = (int)(gid / L / S);
+  const size_t row = (size_t)w * L + l;  // the lane's row of the lists
+  const int32_t* o = off + row * (B + 1);
+  const int16_t* e16 = (const int16_t*)ent + row * T;
+  const int32_t* e32 = (const int32_t*)ent + row * T;
   const size_t bstride = (size_t)W * B * L;  // limb stride of the buckets
   const size_t base = (size_t)w * B * L + l;  // bucket b at base + b * L
-  const size_t pstride = (size_t)T * L;      // limb stride of the points
 
-  const E z = f.zero(), o = f.one();
-  for (int b = 0; b < B; b++) {
-    const size_t e = base + (size_t)b * L;
-    F::store(bx, bstride, e, z);
-    F::store(by, bstride, e, o);
-    F::store(bz, bstride, e, z);
-  }
-  for (int t = 0; t < T; t++) {
-    const int dig = d[((size_t)w * T + t) * L + l];
-    const size_t pe = (size_t)t * L + l;
-    if (dig == 0 || pinf[pe] != 0) continue;
-    const int idx = min(abs(dig) - 1, B - 1);
-    const size_t e = base + (size_t)idx * L;
-    const Pt<F> cur{F::load(bx, bstride, e), F::load(by, bstride, e),
-                    F::load(bz, bstride, e)};
-    const E qx = F::load(px, pstride, pe);
-    const E qy = F::load(dig < 0 ? pneg : py, pstride, pe);
-    const Pt<F> r = rcb_madd(f, cur, qx, qy);
-    F::store(bx, bstride, e, r.x);
-    F::store(by, bstride, e, r.y);
-    F::store(bz, bstride, e, r.z);
+  // this thread's buckets: those whose lists start in [n s / S, n (s+1) / S)
+  const long long n = o[B];
+  int b = first_bucket_from(o, B, (int)((n * s + S - 1) / S));
+  const int b1 = s == S - 1 ? B
+                            : first_bucket_from(o, B,
+                                                (int)((n * (s + 1) + S - 1) /
+                                                      S));
+  if (b < b1) {
+    const E z = f.zero(), one = f.one();
+    int i = o[b], next = o[b + 1];
+    Pt<F> acc{z, one, z};
+    for (;;) {
+      while (i == next) {  // bucket b's list has ended: store it once
+        if constexpr (MERGE) {  // (K, W, B, L), as the tail reads them
+          const size_t e = base + (size_t)b * L;
+          F::store(bx, bstride, e, acc.x);
+          F::store(by, bstride, e, acc.y);
+          F::store(bz, bstride, e, acc.z);
+        } else {  // (W, L, B, K): whole 32-byte sectors
+          const size_t e = (row * B + b) * K;
+          store_words(bx + e, acc.x);
+          store_words(by + e, acc.y);
+          store_words(bz + e, acc.z);
+        }
+        if (++b == b1) break;
+        next = o[b + 1];
+        acc = Pt<F>{z, one, z};
+      }
+      if (b == b1) break;
+      const int en = wide ? e32[i] : e16[i];
+      i++;
+      const uint32_t* q = rec + ((size_t)(en >> 1) * L + l) * (3 * K);
+      E qx, qy;
+      load_words(q, qx);
+      load_words(q + (1 + (en & 1)) * K, qy);
+      acc = rcb_madd(f, acc, qx, qy);
+    }
   }
   if constexpr (MERGE) {
-    // every thread of the block is live (W * L % kInsertThreads == 0) and
-    // in window w.  Release: the block's bucket stores, then the count.
+    // every thread of the block is live (L % kChainThreads == 0) and in
+    // window w.  Release: the block's bucket stores, then the count.
     __shared__ bool last;
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) {
       __threadfence();
-      last = atomicAdd(&counter[w], 1) == L / kInsertThreads - 1;
+      last = atomicAdd(&counter[w], 1) == S * (L / kChainThreads) - 1;
       __threadfence();  // acquire: the other blocks' stores, then reads
     }
     __syncthreads();
     if (!last) return;
     __threadfence();
     const Rows rows{{bx, by, bz}, bstride, 0};
-    for (int b = threadIdx.x / 32; b < B; b += kInsertThreads / 32) {
-      Rows row = rows, out = merged;
-      row.row = ((size_t)w * B + b) * L;
-      out.row = (size_t)w * B + b;
-      warp_tree(f, threadIdx.x % 32, L, row, row, out);
+    for (int bb = threadIdx.x / 32; bb < B; bb += kChainThreads / 32) {
+      Rows in = rows, out = merged;
+      in.row = ((size_t)w * B + bb) * L;
+      out.row = (size_t)w * B + bb;
+      warp_tree(f, threadIdx.x % 32, L, in, in, out);
     }
   }
 }
 
+// The raw buckets from the chain kernel's lane-major arrays (W, L, B, K)
+// into the contract's (K, W, B, L), one coordinate of a (w, b) row of 32
+// lanes a block: whole sectors read, whole lines written.
+template <int K>
+__global__ void __launch_bounds__(kLayoutThreads)
+    limb_major_kernel(const uint32_t* __restrict__ sx,
+                      const uint32_t* __restrict__ sy,
+                      const uint32_t* __restrict__ sz, uint32_t* bx,
+                      uint32_t* by, uint32_t* bz, int W, int L, int B) {
+  __shared__ uint32_t tile[K][33];
+  const uint32_t* in = blockIdx.z == 0 ? sx : blockIdx.z == 1 ? sy : sz;
+  uint32_t* out = blockIdx.z == 0 ? bx : blockIdx.z == 1 ? by : bz;
+  const int w = (int)(blockIdx.x / B), b = (int)(blockIdx.x % B);
+  const int l0 = blockIdx.y * 32;
+  for (int i = threadIdx.x; i < 32 * K; i += kLayoutThreads) {
+    const int l = i / K, k = i % K;
+    if (l0 + l < L)
+      tile[k][l] = in[(((size_t)w * L + l0 + l) * B + b) * K + k];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * K; i += kLayoutThreads) {
+    const int k = i / 32, l = i % 32;
+    if (l0 + l < L)
+      out[(((size_t)k * W + w) * B + b) * L + l0 + l] = tile[k][l];
+  }
+}
+
+// The chain kernel, then for the raw buckets the repack from the
+// lane-major scratch `lane` into bx, by, bz; the fused merge writes bx,
+// by, bz in the contract's layout itself and leaves `lane` unused.
 template <class F>
-int insert_launch(const void* d, const void* px, const void* py,
-                  const void* pneg, const void* pinf, void* bx, void* by,
-                  void* bz, int W, int T, int L, int B, int* counter,
-                  const Rows& merged, const F& f, cudaStream_t s) {
-  const long long blocks =
-      ((long long)W * L + kInsertThreads - 1) / kInsertThreads;
-  auto kernel = &insert_kernel<F, false>;
-  if (counter != nullptr) kernel = &insert_kernel<F, true>;
-  kernel<<<(unsigned)blocks, kInsertThreads, 0, s>>>(
-      (const int32_t*)d, (const uint32_t*)px, (const uint32_t*)py,
-      (const uint32_t*)pneg, (const int32_t*)pinf, (uint32_t*)bx,
-      (uint32_t*)by, (uint32_t*)bz, W, T, L, B, counter, merged, f);
+int chain_launch(const void* off, const void* ent, int wide, const void* rec,
+                 void* const* lane, void* bx, void* by, void* bz, int W,
+                 int T, int L, int B, int* counter, const Rows& merged,
+                 const F& f, cudaStream_t s) {
+  constexpr int K = sizeof(typename F::E) / sizeof(uint32_t);
+  const long long threads = (long long)W * chain_threads<F>(T) * L;
+  const long long blocks = (threads + kChainThreads - 1) / kChainThreads;
+  if (counter != nullptr) {
+    chain_kernel<F, true><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        (const int32_t*)off, ent, wide, (const uint32_t*)rec, (uint32_t*)bx,
+        (uint32_t*)by, (uint32_t*)bz, W, T, L, B, counter, merged, f);
+    return (int)cudaGetLastError();
+  }
+  chain_kernel<F, false><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+      (const int32_t*)off, ent, wide, (const uint32_t*)rec,
+      (uint32_t*)lane[0], (uint32_t*)lane[1], (uint32_t*)lane[2], W, T, L, B,
+      counter, merged, f);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((long long)W * B), (unsigned)((L + 31) / 32), 3);
+  limb_major_kernel<K><<<grid, kLayoutThreads, 0, s>>>(
+      (const uint32_t*)lane[0], (const uint32_t*)lane[1],
+      (const uint32_t*)lane[2], (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
+      W, L, B);
   return (int)cudaGetLastError();
 }
 
-// K2.  kmul: the product this library was built for ((int)M), checked;
-// k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont is unused; k = 2:
-// b3_mont holds the 16 Montgomery limbs of the Fq2 constant b3 (c0 then
-// c1).  counter null: the raw buckets; else the fused merge, with counter
-// W zeroed ints and m three (K, W, B, 1) outputs, and L % 128 == 0.
+// K2 after the sort: off and ent from bucket_lists (wide as there), rec
+// the point records (T * L, 3, K) words; out: bx, by, bz (K, W, B, L).
+// lane: three (W, L, B, K) scratch arrays for the raw buckets.  kmul: the
+// product this library was built for ((int)M), checked; k = 1: b3 must
+// be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3_mont holds the 16
+// Montgomery limbs of the Fq2 constant b3 (c0 then c1).  counter null:
+// the raw buckets; else the fused merge, with counter W zeroed ints and m
+// three (K, W, B, 1) outputs, bx, by, bz its scratch, and L % 128 == 0.
 template <Mul M>
-int insert_entry(int kmul, const void* d, const void* px, const void* py,
-                 const void* pneg, const void* pinf, void* bx, void* by,
+int insert_entry(int kmul, const void* off, const void* ent, int wide,
+                 const void* rec, void* const* lane, void* bx, void* by,
                  void* bz, int W, int T, int L, int B, int n32, int k, int b3,
                  const uint32_t* b3_mont, const uint32_t* p,
                  const uint32_t* one_mont, uint32_t inv, int* counter,
                  void* const* m, int device, void* stream) {
-  if (kmul != (int)M || n32 != 8 || W < 0 || T < 0 || L < 0 || B <= 0)
+  if (kmul != (int)M || n32 != 8 || W < 0 || T < 0 || L < 0 || B <= 0 ||
+      (wide != 0 && wide != 1))
     return (int)cudaErrorInvalidValue;
   if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (counter != nullptr && (L % kInsertThreads != 0 || m == nullptr))
+  if (counter != nullptr && (L % kChainThreads != 0 || m == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (counter == nullptr && lane == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -160,30 +468,30 @@ int insert_entry(int kmul, const void* d, const void* px, const void* py,
   const FieldParams<8> P = field_params(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
   if (k == 1)
-    return insert_launch(d, px, py, pneg, pinf, bx, by, bz, W, T, L, B,
-                         counter, merged, FpField<9, M>{P}, s);
+    return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
+                        counter, merged, FpField<9, M>{P}, s);
   Fp2Field<M> f{P, {}};
   for (int i = 0; i < 8; i++) {
     f.b3.c0.v[i] = b3_mont[i];
     f.b3.c1.v[i] = b3_mont[8 + i];
   }
-  return insert_launch(d, px, py, pneg, pinf, bx, by, bz, W, T, L, B,
-                       counter, merged, f, s);
+  return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
+                      counter, merged, f, s);
 }
 
 }  // namespace lff
 
 // The C entry point `insert` of one library, over the product M.
 #define LFF_INSERT_ENTRY(M)                                                  \
-  extern "C" int insert(int kmul, const void* d, const void* px,             \
-                        const void* py, const void* pneg, const void* pinf,  \
+  extern "C" int insert(int kmul, const void* off, const void* ent,          \
+                        int wide, const void* rec, void* const* lane,        \
                         void* bx, void* by, void* bz, int W, int T, int L,   \
                         int B, int n32, int k, int b3,                       \
                         const uint32_t* b3_mont, const uint32_t* p,          \
                         const uint32_t* one_mont, uint32_t inv,              \
                         int* counter, void* const* m, int device,            \
                         void* stream) {                                      \
-    return lff::insert_entry<M>(kmul, d, px, py, pneg, pinf, bx, by, bz, W,  \
-                                T, L, B, n32, k, b3, b3_mont, p, one_mont,   \
-                                inv, counter, m, device, stream);            \
+    return lff::insert_entry<M>(kmul, off, ent, wide, rec, lane, bx, by, bz, \
+                                W, T, L, B, n32, k, b3, b3_mont, p,          \
+                                one_mont, inv, counter, m, device, stream);  \
   }

@@ -14,14 +14,23 @@ counterpart (pallas_insert.py:198): the same function as :func:`insert`
 on G1, refused on G2 as there.  ``kmul`` chooses the Montgomery product
 inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
 ``csrc/insert.cu``, "sos" and "sos2" from ``csrc/insert_sos.cu`` and
-``csrc/insert_sos2.cu``; every product gives the same buckets.  A CUDA
-tensor launches the kernel; a CPU tensor runs :func:`insert_plain` (and
-``merge_lanes_plain``) over the same product.
+``csrc/insert_sos2.cu``; every product gives the same buckets.
+
+On the card K2 is the sort :func:`bucket_lists`, which lists each
+(window, lane)'s steps by bucket in t order, then the chain kernel, which
+walks each bucket's list in registers over the points repacked by
+:func:`point_records`, and for the raw buckets a repack into the
+contract's layout (``csrc/insert.cuh``).  A CUDA tensor launches the
+kernels; a CPU tensor runs the plain versions, :func:`insert_plain` (and
+``merge_lanes_plain``) over the same product and
+:func:`bucket_lists_plain`.  :func:`insert_from_lists_plain` walks the
+lists as the chain kernel does, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,34 +41,113 @@ from ..curves.group_ops import kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 from .merge import merge_lanes_plain
 
-_ARGS = [ctypes.c_int] + [_build.VP] * 8 + [ctypes.c_int] * 7 + [
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_ARGS = [ctypes.c_int, _build.VP, _build.VP, ctypes.c_int, _build.VP,
+         _PTRS] + [_build.VP] * 3 + [ctypes.c_int] * 7 + [
     _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, _build.VP,
-    ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, _build.VP]
-_ARGS_V1 = [_build.VP] * 8 + [ctypes.c_int] * 6 + [
+    _PTRS, ctypes.c_int, _build.VP]
+_ARGS_V1 = [_build.VP, _build.VP, ctypes.c_int, _build.VP, _PTRS] + [
+    _build.VP] * 3 + [ctypes.c_int] * 6 + [
     _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+_ARGS_SORT = [_build.VP] * 4 + [ctypes.c_int] * 6 + [_build.VP]
 # L % 128 == 0 puts every block of the fused merge in one window, as
 # insert_pallas3 requires it of every L (pallas_insert3.py:333)
 MERGE_LANE_MULTIPLE = 128
+# a list entry is 2t + (digit < 0): int16 holds it while T <= 16384
+INT16_ENTRIES_MAX_T = 1 << 14
 
 
 def _check(G, d, pts, B, kmul="cios"):
     check_kmul(kmul)
     px, py, pneg, pinf = pts
-    if d.ndim != 3 or d.dtype != torch.int32:
-        raise ValueError("digits are (W, T, L) int32")
-    W, T, L = d.shape
+    _check_lists_inputs(d, pinf, B)
+    _, T, L = d.shape
     el = G.F.el_shape
     for c in (px, py, pneg):
         if c.shape != el + (T, L) or c.dtype != torch.int32:
             raise ValueError(f"point coordinates are {el + (T, L)} int32")
-    if pinf.shape != (T, L) or pinf.dtype != torch.bool:
-        raise ValueError(f"pinf is ({T}, {L}) bool")
     if any(a.device != d.device for a in pts):
         raise ValueError("digits and points lie on different devices")
-    if B < 1:
-        raise ValueError("B >= 1 buckets")
     if not G.a_is_zero:
         raise NotImplementedError("the complete insert needs a == 0")
+
+
+def _check_lists_inputs(d, pinf, B):
+    if d.ndim != 3 or d.dtype != torch.int32:
+        raise ValueError("digits are (W, T, L) int32")
+    _, T, L = d.shape
+    if pinf.shape != (T, L) or pinf.dtype != torch.bool:
+        raise ValueError(f"pinf is ({T}, {L}) bool")
+    if pinf.device != d.device:
+        raise ValueError("digits and pinf lie on different devices")
+    if B < 1:
+        raise ValueError("B >= 1 buckets")
+
+
+def entry_dtype(T: int) -> torch.dtype:
+    """The dtype of the list entries for T steps."""
+    return torch.int16 if T <= INT16_ENTRIES_MAX_T else torch.int32
+
+
+def bucket_lists(G, d: torch.Tensor, pinf: torch.Tensor, B: int):
+    """K2's sort: for each (window, lane), the steps t whose digit is not
+    zero and whose point is finite, grouped by bucket min(|d| - 1, B - 1)
+    and in t order within a bucket.  Returns (off, ent): off (W, L, B + 1)
+    int32, the start of each bucket's list and the end of the last; ent
+    (W, L, T) of :func:`entry_dtype`, each entry 2t + (d < 0), then -1 to
+    the end of the row.  Counted as "K2 sort g1" or "K2 sort g2" by G's
+    branch."""
+    _check_lists_inputs(d, pinf, B)
+    if d.device.type == "cpu":
+        return bucket_lists_plain(d, pinf, B)
+    if d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {d.device}")
+    k, _, _ = kernel_branch(G, "K2")
+    return _bucket_lists(d, pinf, B, k)
+
+
+def _bucket_lists(d, pinf, B, k):
+    W, T, L = d.shape
+    off = torch.empty((W, L, B + 1), dtype=torch.int32, device=d.device)
+    ent = torch.empty((W, L, T), dtype=entry_dtype(T), device=d.device)
+    pinf, d = pinf.contiguous(), d.contiguous()   # the kernel reads bool bytes
+    fn = _build.function("insert", "bucket_lists", _ARGS_SORT)
+    _build.launch(fn, f"K2 sort g{k}", d.device, _build.ptr(d),
+                  _build.ptr(pinf), _build.ptr(off), _build.ptr(ent),
+                  int(ent.dtype == torch.int32), W, T, L, B, d.get_device(),
+                  _build.stream_ptr(d))
+    _build.LAUNCHES[f"K2 sort g{k}"] += 1
+    return off, ent
+
+
+def bucket_lists_plain(d: torch.Tensor, pinf: torch.Tensor, B: int):
+    """The plain version of :func:`bucket_lists` on any device: a stable
+    sort of each (window, lane)'s steps by bucket, the steps that add
+    nothing last."""
+    _check_lists_inputs(d, pinf, B)
+    W, T, L = d.shape
+    dl = d.permute(0, 2, 1)                              # (W, L, T)
+    key = torch.where((dl != 0) & ~pinf.T[None],
+                      (dl.abs() - 1).clamp(max=B - 1), B).contiguous()
+    skey, t = torch.sort(key, dim=-1, stable=True)
+    neg = (dl < 0).gather(-1, t)
+    ent = torch.where(skey < B, 2 * t + neg, -1).to(entry_dtype(T))
+    starts = torch.arange(B + 1, dtype=skey.dtype, device=d.device)
+    off = torch.searchsorted(skey, starts.expand(W, L, B + 1).contiguous())
+    return off.to(torch.int32), ent
+
+
+def point_records(G, pts) -> torch.Tensor:
+    """The points as K2's chain kernel reads them: (T * L, 3, K) int32,
+    point t*L + l's x, y and -y each as its K words contiguous (K = 8 on
+    G1, 16 on G2, c0's limbs then c1's)."""
+    px, py, pneg, _ = pts
+    T, L = px.shape[-2:]
+    K = math.prod(G.F.el_shape)
+    rec = torch.empty((T * L, 3, K), dtype=torch.int32, device=px.device)
+    for i, a in enumerate((px, py, pneg)):
+        rec[:, i] = a.reshape(K, T * L).T
+    return rec
 
 
 def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
@@ -80,22 +168,25 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     k, b3, b3_mont = kernel_branch(G, "K2")
-    ts = _kernel_tensors(G, d, pts, B)
-    out, counter, m = ts[5:], None, None
+    off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, k, merge)
+    out, counter, m = raw, None, None
     if merge:
         out = [torch.empty(G.F.el_shape + (W, B, 1), dtype=torch.int32,
                            device=d.device) for _ in range(3)]
         # the arrivals per window of the last-block merge
         counter = torch.zeros(W, dtype=torch.int32, device=d.device)
-        m = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in out])
+        m = _ptr_array(out)
     Fp = G.F.prime_field
     fn = _build.function(_build.kmul_stem("insert", kmul), "insert", _ARGS)
     name = _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul)
     _build.launch(fn, f"{name} insert", d.device, KMULS.index(kmul),
-                  *(_build.ptr(t) for t in ts), W, T, L, B, Fp.n32, k, b3,
-                  b3_mont, Fp.p_c, Fp.one_c, Fp.inv32,
-                  None if counter is None else _build.ptr(counter), m,
-                  d.get_device(), _build.stream_ptr(d))
+                  _build.ptr(off), _build.ptr(ent),
+                  int(ent.dtype == torch.int32), _build.ptr(rec),
+                  None if lane is None else _ptr_array(lane),
+                  *(_build.ptr(t) for t in raw),
+                  W, T, L, B, Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c,
+                  Fp.inv32, None if counter is None else _build.ptr(counter),
+                  m, d.get_device(), _build.stream_ptr(d))
     _build.LAUNCHES[name] += 1
     return ProjectivePoint(*out)
 
@@ -103,8 +194,8 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
 def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     """Kernel K6, the v1 insert (insert_pallas): G1 only, raw buckets
     (n, W, B, L).  The same function as :func:`insert`'s G1 branch, whose
-    kernel it launches under its own entry point and launch count; the
-    v1/v3 difference on the TPU is a VMEM tile shape."""
+    sort and chain kernel it launches under its own entry point and launch
+    count; the v1/v3 difference on the TPU is a VMEM tile shape."""
     _check(G, d, pts, B)
     if G.F.el_ndim != 1:
         raise ValueError("the v1 insert supports prime-field G1 only "
@@ -115,26 +206,41 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
         raise ValueError(f"no kernel for device {d.device}")
     kernel_branch(G, "K6")
     W, T, L = d.shape
-    ts = _kernel_tensors(G, d, pts, B)
+    off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, False)
     Fp = G.F.prime_field
     fn = _build.function("insert", "insert_v1", _ARGS_V1)
-    _build.launch(fn, "K6 insert_v1", d.device, *(_build.ptr(t) for t in ts),
-                  W, T, L, B, Fp.n32, G._b3_host, Fp.p_c, Fp.one_c, Fp.inv32,
-                  d.get_device(), _build.stream_ptr(d))
+    _build.launch(fn, "K6 insert_v1", d.device, _build.ptr(off),
+                  _build.ptr(ent), int(ent.dtype == torch.int32),
+                  _build.ptr(rec), _ptr_array(lane),
+                  *(_build.ptr(t) for t in raw), W, T, L, B, Fp.n32,
+                  G._b3_host, Fp.p_c, Fp.one_c, Fp.inv32, d.get_device(),
+                  _build.stream_ptr(d))
     _build.LAUNCHES["K6 g1"] += 1
-    return ProjectivePoint(*ts[5:])
+    return ProjectivePoint(*raw)
 
 
-def _kernel_tensors(G, d, pts, B) -> list[torch.Tensor]:
-    """What both entry points read and write, in their order: the
-    digits, the point coordinates and flags, and the three raw bucket
-    arrays.  The caller holds the list until the launch is queued."""
+def _kernel_tensors(G, d, pts, B, k, merge):
+    """What the chain kernel reads and writes: the sort's lists (launched
+    here), the point records, the lane-major scratch (W, L, B, *el) that
+    the chain kernel writes the raw buckets to, a bucket's limbs
+    contiguous so that each thread's stores fill whole sectors (None for
+    the fused merge), and the three raw bucket arrays (*el, W, B, L), all
+    from torch.empty.  The caller holds them until the launch is
+    queued."""
     W, _, L = d.shape
-    px, py, pneg, pinf = (a.contiguous() for a in pts)
-    raw = [torch.empty(G.F.el_shape + (W, B, L), dtype=torch.int32,
-                       device=d.device) for _ in range(3)]
-    return [d.contiguous(), px, py, pneg, pinf.to(torch.int32).contiguous(),
-            *raw]
+    off, ent = _bucket_lists(d, pts[3], B, k)
+
+    def coords(shape):
+        return [torch.empty(shape, dtype=torch.int32, device=d.device)
+                for _ in range(3)]
+
+    lane = None if merge else coords((W, L, B) + G.F.el_shape)
+    return (off, ent, point_records(G, pts), lane,
+            coords(G.F.el_shape + (W, B, L)))
+
+
+def _ptr_array(ts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
 def insert_plain(G, d: torch.Tensor, pts, B: int,
@@ -169,3 +275,68 @@ def insert_plain(G, d: torch.Tensor, pts, B: int,
             b.scatter_(ax + 2, gi,
                        torch.where(valid, nv, cur).unsqueeze(ax + 2))
     return ProjectivePoint(to32(bx, ax), to32(by, ax), to32(bz, ax))
+
+
+def insert_from_lists_plain(G, lists, pts, B: int, entries: int,
+                            kmul: str = "cios") -> ProjectivePoint:
+    """K2's chain walk as plain torch ops: the raw buckets (*el, W, B, L)
+    from the sort's lists (off, ent) and the points, walked as the chain
+    kernel walks them with `entries` (its kEntries) list entries a
+    thread.  Each (window, lane) has S = ceil(T / entries) threads; thread
+    s owns the buckets whose lists start in the s-th of S equal shares of
+    the lane's list, and takes one entry a step: an accumulator that
+    starts at the identity takes the madd of each entry and is stored when
+    the entry's bucket changes.  Vectorised over the threads, one step at
+    a time."""
+    check_kmul(kmul)
+    F = G.F.plain.with_kmul(kmul)
+    ax = G.F.el_ndim - 1                                # the limb axis
+    off, ent = lists
+    W, L, T = ent.shape
+    dev = ent.device
+    S = max(1, -(-T // entries))
+    off = off.long()
+    n = off[..., B:]                                    # (W, L, 1)
+    share = -(-n * torch.arange(S + 1, device=dev) // S)     # (W, L, S + 1)
+    first = torch.searchsorted(off[..., :B].contiguous(), share)
+    first[..., S] = B
+    lo, hi = first[..., :-1], first[..., 1:]            # buckets [lo, hi)
+    start, end = off.gather(-1, lo), off.gather(-1, hi)
+    ends = off[..., 1:].contiguous()                    # (W, L, B)
+
+    def identity(m):
+        one = to16(G.F.one((W, L, m), dev), ax)
+        return [torch.zeros_like(one), one, torch.zeros_like(one)]
+
+    # bucket B is a slot where threads that store nothing write
+    buckets = identity(B + 1)
+    ident = acc = identity(S)                           # (0, 1, 0) a thread
+    el16 = tuple(ident[1].shape[:ax + 1])
+    lead = (None,) * len(el16)
+    cur = lo                                            # the bucket held
+    px, py, pneg = (to16(a, ax).reshape(el16 + (T * L,)) for a in pts[:3])
+    lane = torch.arange(L, device=dev)[:, None]
+    ent = ent.long()
+
+    def store(mask):
+        idx = torch.where(mask, cur, B).expand(el16 + (W, L, S))
+        for b, a in zip(buckets, acc):
+            b.scatter_(-1, idx, a)
+
+    steps = int((end - start).max()) if start.numel() else 0
+    for s in range(steps):
+        i = start + s
+        live = i < end
+        b = torch.searchsorted(ends, i, right=True)    # the bucket of i
+        new_bucket = live & (b != cur)
+        store(new_bucket)
+        acc = [torch.where(new_bucket[lead], z, a) for z, a in zip(ident, acc)]
+        cur = torch.where(live, b, cur)
+        e = ent.gather(-1, i.clamp(max=T - 1))
+        p = (e >> 1) * L + lane
+        qy = torch.where((e & 1).bool()[lead], pneg[..., p], py[..., p])
+        new = fml.rcb_madd_a0(F, *acc, px[..., p], qy, G._b3_host)
+        acc = [torch.where(live[lead], v, a) for v, a in zip(new, acc)]
+    store(lo < hi)
+    return ProjectivePoint(*(to32(b[..., :B].transpose(-1, -2), ax)
+                             for b in buckets))

@@ -62,15 +62,15 @@ class MsmConfig(NamedTuple):
 def default_config(n: int, device) -> MsmConfig:
     """Window and lane choice by device and size.
 
-    CUDA: lanes * windows threads run the insert, each walking n / lanes
-    points, so the lanes trade parallelism against the size of the bucket
-    array and of the reduce tree.  At 2^20 points a sweep on an H100 over
-    c in 7..12 and lanes in 256..4096 found the insert near 60-75 ms
-    everywhere and the whole MSM within a few per cent from 256 to 1024
-    lanes at c = 7..9; c = 8 with 1024 lanes is among the fastest.  On G2
-    at 2^18 points a sweep over c in 6..10 and lanes in 256..2048
-    (``python3 -m libff_tpu_torch.sweep``) found c = 8 with 1024 lanes the
-    fastest too, so both groups share the setting (PERF.md).
+    CUDA: the insert sorts each (window, lane)'s steps by bucket and
+    walks the bucket chains, so its time follows the number of mixed adds
+    more than the lanes; the lanes set the size of the bucket array and
+    of the lane merge in the reduce.  A sweep on an H100 (``python3 -m
+    libff_tpu_torch.sweep``, c in 7..9, lanes in 256..2048) found c = 8
+    the fastest on both paths, G1 at 2^20 points and G2 at 2^18; 256
+    lanes beat 1024 by 21% on G2 (a shorter lane merge) but not clearly on
+    G1, whose host-bound Horner scan varies more between runs than the
+    two settings differ, so both groups keep 1024 lanes (PERF.md).
     Smaller sizes were not swept; ``_prepare`` cuts the lanes to the
     largest power of two <= n.
     CPU (the plain versions, tests): small windows keep the plain insert's

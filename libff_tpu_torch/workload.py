@@ -24,7 +24,8 @@ import torch
 
 from . import convert
 from .host import mont as hm
-from .msm.pippenger import msm_pippenger
+from .msm import digits as dig
+from .msm.pippenger import _prepare, msm_pippenger
 
 PERIOD = {"g1": 32, "g2": 16}
 SEED = 2024
@@ -158,3 +159,12 @@ def run_msm(G, scalars, points, config=None, phases: bool = True):
         times["to_affine"] = total - sum(times.values())
     got = None if bool(A.inf) else (G.F.to_host(A.x), G.F.to_host(A.y))
     return got, total, times or {}
+
+
+def insert_inputs(G, scalars, points, cfg):
+    """The insert's inputs on the MSM path under cfg: (d, pts, B), the
+    signed digits (W, T, L), the prepared points and the bucket count."""
+    W = dig.num_signed_digits(G.order, 254, cfg.c)
+    s, pts, T, L = _prepare(G, scalars, points, cfg)
+    d = dig.signed_digits(s, cfg.c, W).reshape(W, T, L)
+    return d, pts, 1 << (cfg.c - 1)

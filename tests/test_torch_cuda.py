@@ -22,10 +22,12 @@ from libff_tpu_torch.curves.group_ops import OPS, group_op, group_op_plain
 from libff_tpu_torch.fields.fp import fp_op, fp_op_plain, to16, to32
 from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
 from libff_tpu_torch.host import field as hf
-from libff_tpu_torch.msm.insert import insert, insert_plain, insert_v1
+from libff_tpu_torch.msm.insert import (bucket_lists, bucket_lists_plain,
+                                       insert, insert_plain, insert_v1)
 from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
-from libff_tpu_torch.msm.pippenger import MsmConfig
-from libff_tpu_torch import affine_experiment, issue_rates, roofline
+from libff_tpu_torch.msm.pippenger import MsmConfig, default_config
+from libff_tpu_torch import (affine_experiment, issue_rates, roofline,
+                             tune_insert)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,6 +188,113 @@ def test_k6_matches_plain(dev, k2_case):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         insert_v1(k2_case["g2"][0], *k2_case["g2"][1:4])
+
+
+@pytest.fixture(scope="module")
+def skew_case(dev, dc):
+    """Per group: distinct points through the path's digits at c = 8, 128
+    lanes (T = 1024, so that the chain kernel runs 2 threads a lane on G1
+    and 4 on G2), cut to 4 windows, with chip_smoke.skewed's lanes: one
+    bucket takes a whole lane, zero digits, the last bucket, a lane at
+    infinity."""
+    out = {}
+    for group in ("g1", "g2"):
+        d, pts, B = chip_smoke.k2_inputs(dc, group, 1 << 17,
+                                         MsmConfig(c=8, lanes=128),
+                                         np.random.default_rng(5), dev)
+        out[group] = (getattr(dc, group), *chip_smoke.skewed(d[:4], pts, B),
+                      B)
+    return out
+
+
+SKEW_CUTS = ["skewed", "zero digits", "B=1", "T=1", "T=3", "T=600"]
+# the plain insert's time grows with T, so the inserts' cases other than
+# "skewed" (whose lane of one bucket needs T = 1024) run short: B = 1 at
+# 600 steps (still 2 chain threads a lane on G1, 3 on G2), zero digits at
+# 3 ("skewed" holds lanes of zero digits with several threads a lane)
+INSERT_T = {"zero digits": 3, "B=1": 600}
+
+
+def _cut(case, cut, steps=None):
+    G, d, pts, B = case
+    if cut == "zero digits":
+        d = torch.zeros_like(d)
+    elif cut == "B=1":
+        d, B = d.clamp(-1, 1), 1
+    elif cut.startswith("T="):
+        steps = int(cut[2:])
+    if steps is not None:
+        d = d[:, :steps].contiguous()
+        pts = tuple(a[..., :steps, :].contiguous() for a in pts)
+    return G, d, pts, B
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("cut", SKEW_CUTS)
+def test_k2_sort_matches_plain(dev, skew_case, group, cut):
+    G, d, pts, B = _cut(skew_case[group], cut)
+    before = _build.LAUNCHES[f"K2 sort {group}"]
+    got = bucket_lists(G, d, pts[3], B)
+    assert _build.LAUNCHES[f"K2 sort {group}"] == before + 1
+    for g, w in zip(got, bucket_lists_plain(d, pts[3], B)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_k2_sort_int32_entries_match_plain(dev, dc):
+    """T > 16384 steps: the entries 2t + sign no longer fit int16."""
+    rng = np.random.default_rng(12)
+    W, T, L, B = 2, 16385, 32, 16
+    d = torch.from_numpy(rng.integers(-B, B + 1, (W, T, L),
+                                      dtype=np.int32)).to(dev)
+    pinf = torch.from_numpy(rng.random((T, L)) < 0.05).to(dev)
+    got = bucket_lists(dc.g1, d, pinf, B)
+    assert got[1].dtype == torch.int32
+    for g, w in zip(got, bucket_lists_plain(d, pinf, B)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group,log2n", [("g1", 20), ("g2", 18)])
+def test_k2_matches_plain_on_even_digits_at_path_shape(dev, dc, group,
+                                                       log2n):
+    """The MSM path's (W, T, L) with tune_insert's even digits, on
+    distinct points: the sort at all W windows and K2 at 4 of them (its
+    plain insert takes tens of seconds at all 32), against their plain
+    versions."""
+    G = getattr(dc, group)
+    d, pts, B = chip_smoke.k2_inputs(dc, group, 1 << log2n,
+                                     default_config(1 << log2n, dev),
+                                     np.random.default_rng(9), dev)
+    d = tune_insert.even_digits(d, B)
+    for g, w in zip(bucket_lists(G, d, pts[3], B),
+                    bucket_lists_plain(d, pts[3], B)):
+        assert torch.equal(g, w)
+    d = d[:4].contiguous()
+    for g, w in zip(insert(G, d, pts, B), insert_plain(G, d, pts, B)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("cut", SKEW_CUTS)
+def test_k2_k2m_k6_match_plain_on_skewed_digits(dev, skew_case, group, cut):
+    """K2 under each kmul, K2m and (G1) K6 against insert_plain and
+    merge_lanes_plain: chains of every length from 0 to T, zero digits,
+    B = 1, T too short for one step per bucket, and T = 600, which the
+    chain kernel's threads of a lane share unevenly."""
+    G, d, pts, B = _cut(skew_case[group], cut, INSERT_T.get(cut))
+    raw = insert_plain(G, d, pts, B)
+    runs = [(_build.kmul_name(f"K2 {group}", k),
+             lambda k=k: insert(G, d, pts, B, kmul=k), raw)
+            for k in ("cios", "sos", "sos2")]
+    runs.append((f"K2m {group}", lambda: insert(G, d, pts, B, merge=True),
+                 merge_lanes_plain(G, raw)))
+    if group == "g1":
+        runs.append(("K6 g1", lambda: insert_v1(G, d, pts, B), raw))
+    for name, fn, want in runs:
+        before = _build.LAUNCHES[name]
+        got = fn()
+        assert _build.LAUNCHES[name] == before + 1, name
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("group,fields,kernel", [
