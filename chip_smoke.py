@@ -6,13 +6,15 @@ against its plain PyTorch version.
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its sort
-launch and its fused merge K2m, K3, K4e, K5, K6, each of K2, K2m and K5
-over the three Montgomery products of ``MsmConfig.kmul``, the field-mul
-benches K7a, K7b, K7c, K7d and the batched-affine experiment K7e), checks
-each bit for bit against its plain version on the card at the shapes its
-path gives it (K2, K2m, K5 and K6 on distinct points, some at infinity;
-K2's sort against ``bucket_lists_plain``; K2 also on skewed digits, at 4
-windows of the path's steps and lanes), and runs these paths through
+launch and its fused merge K2m, K3 with its scan entry, K4e, K5, K6, each
+of K2, K2m and K5 over the three Montgomery products of
+``MsmConfig.kmul``, the field-mul benches K7a, K7b, K7c, K7d and the
+batched-affine experiment K7e), checks each bit for bit against its plain
+version on the card at the shapes its path gives it (K2, K2m, K5 and K6
+on distinct points, some at infinity; K2's sort against
+``bucket_lists_plain``; K2 also on skewed digits, at 4 windows of the
+path's steps and lanes; K3's scan at the path's W = 32 totals and c = 8,
+with identities and repeated points), and runs these paths through
 ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
@@ -60,8 +62,9 @@ import torch
 from libff_tpu_torch import _build
 from libff_tpu_torch.fields.fp import to16, to32
 from libff_tpu_torch.issue_rates import bound, check_imad, imad_rates, imads
-from libff_tpu_torch.timing import event_ms
-from libff_tpu_torch.workload import edge_values, rand_elements
+from libff_tpu_torch.timing import event_ms, timed_output
+from libff_tpu_torch.workload import (edge_values, k3_inputs,
+                                     rand_elements, scan_inputs)
 
 LOG2N = 20
 LOG2N_G2 = 18
@@ -201,46 +204,17 @@ def phase_k4e(F2, rng, dev) -> dict:
     return res
 
 
-def k3_inputs(F, n: int, rng, dev):
-    """Six coordinate arrays and a mask, random elements with edge lanes:
-    P = 0, Q = 0, Q = P, Q = -P and Q = P in another Jacobian scaling."""
-    c = [rand_elements(F, n, rng, dev) for _ in range(6)]
-    x1, y1, z1, x2, y2, z2 = c
-    w = rand_elements(F, 64, rng, dev)
-    z1[..., 0:64] = 0                                 # P = 0
-    z2[..., 64:128] = 0                               # Q = 0
-    for k in range(3):                                # Q = P
-        c[3 + k][..., 128:192] = c[k][..., 128:192]
-    x2[..., 192:256], z2[..., 192:256] = x1[..., 192:256], z1[..., 192:256]
-    y2[..., 192:256] = F.neg(y1[..., 192:256])        # Q = -P
-    s = slice(256, 320)                               # Q = P scaled by w
-    w2 = F.sqr(w)
-    x2[..., s] = F.mul(x1[..., s], w2)
-    y2[..., s] = F.mul(y1[..., s], F.mul(w2, w))
-    z2[..., s] = F.mul(z1[..., s], w)
-    q_inf = torch.zeros(n, dtype=torch.bool, device=dev)
-    q_inf[64:128] = True
-    q_inf[1024:1100] = True
-    # mixed adds: P = (x w^2, y w^3, w) against the affine Q = (x, y) on
-    # [256, 320) and Q = (x, -y) on [320, 384)
-    ax, ay = x2.clone(), y2.clone()
-    x1m, y1m, z1m = x1.clone(), y1.clone(), z1.clone()
-    for sl, sign in ((s, 1), (slice(320, 384), -1)):
-        ax[..., sl] = x1[..., sl]
-        ay[..., sl] = y1[..., sl] if sign > 0 else F.neg(y1[..., sl])
-        x1m[..., sl] = F.mul(x1[..., sl], w2)
-        y1m[..., sl] = F.mul(y1[..., sl], F.mul(w2, w))
-        z1m[..., sl] = w
-    return c, (x1m, y1m, z1m, ax, ay), q_inf
-
-
-def phase_k3(G, group: str, rng, dev) -> dict:
+def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int) -> dict:
     """All six ops at 2^21 points, each path's largest padd (the first
     lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512 for G1
     at 2^20 and for G2 at 2^18), timed there; padd also at 1 point and
-    padd and pdbl at 32 (the Horner scan's and the last sum tree's
-    sizes), timed there too."""
-    from libff_tpu_torch.curves.group_ops import group_op, group_op_plain
+    padd and pdbl at 32 (the reduce's last sum tree and the old Horner
+    step's size), timed there too.  Then the scan entry at the path's
+    (W, c) = (scan_w, scan_c) on scan_inputs' totals (identities and
+    repeated points), its timed output held against horner_scan_plain."""
+    from libff_tpu_torch.curves.group_ops import (group_op, group_op_plain,
+                                                  horner_scan,
+                                                  horner_scan_plain)
 
     n = 1 << 21
     c, cm, q_inf = k3_inputs(G.F, n, rng, dev)
@@ -266,8 +240,15 @@ def phase_k3(G, group: str, rng, dev) -> dict:
         res["ops"][f"{op}_{m}"] = {
             "max_abs_err": e,
             "ms": event_ms(lambda: group_op(G, op, coords), 200)}
-    res["max_abs_err"] = err
-    if err:
+    del c, cm, q_inf, args
+    tot = scan_inputs(G.F, scan_w, rng, dev)
+    ms, got = timed_output(lambda: horner_scan(G, tot, scan_c), 20)
+    want, plain_ms = host_timed(lambda: horner_scan_plain(G, tot, scan_c))
+    e = max_abs_err(got, want)
+    res["scan"] = {"W": scan_w, "c": scan_c, "max_abs_err": e, "ms": ms,
+                   "plain_ms": plain_ms}
+    res["max_abs_err"] = max(err, e)
+    if res["max_abs_err"]:
         fail(f"K3 disagrees with its plain version on {group}: {res}")
     return res
 
@@ -648,6 +629,16 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
             r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"],
             [2, 8, n] if k == 2 else [8, n], r["max_abs_err"], ob["padd"])
         out[-1]["op_bounds"] = ob
+        # the scan: its launch replaces the per-step K3 launches of
+        # pippenger.py:419-433
+        q = r["scan"]
+        sc = scan_counts(q["W"], q["c"], k)
+        add(f"K3 scan {g}", g, "horner.cu", "curves/pallas_ops.py:66",
+            q["ms"], q["plain_ms"], [q["W"], q["c"]], q["max_abs_err"],
+            bound(3 * 4 * WORDS[k] * (q["W"] + 1),
+                  imads(sc["base_products"]), rates))
+        out[-1].update(sc, chain_ns_per_product=q["ms"] * 1e6
+                       / sc["chain_products"])
         r = k2[g]
         W, T, L, B = r["shape"]
         # K2: digits, flags (bool bytes) and points read once, raw buckets
@@ -740,6 +731,37 @@ K3_IO = {"padd": (9, 0), "add": (9, 0), "pmadd": (8, 1), "madd": (8, 1),
          "pdbl": (6, 0), "dbl": (6, 0)}
 
 
+# dependent base products of a scan doubling and a scan add, by branch:
+# horner.cu runs the independent products of a level on separate lanes (G1
+# two levels each; G2 three, its b3 products a level of their own)
+K3_SCAN_LEVELS = {1: {"pdbl": 2, "padd": 2}, 2: {"pdbl": 3, "padd": 3}}
+
+
+def k3_base_products(op: str, k: int) -> int:
+    """Base-field products of one K3 op on branch k (K3_PRODUCTS)."""
+    mul, sqr, b3 = K3_PRODUCTS[op]
+    return mul + sqr if k == 1 else 3 * mul + 2 * sqr + 3 * b3
+
+
+def scan_counts(W: int, c: int, k: int) -> dict:
+    """The scan's work at (W, c) on branch k: window w's c*w doublings, the
+    tree's adds whose lower slot holds a total (min(h, W) at half h; pairs
+    of padding are the identity and are not added), their base products,
+    and the dependent chain: c*(W-1) doublings then log2 of the tree's
+    width adds, times each one's dependent products."""
+    from libff_tpu_torch.curves.group_ops import tree_width
+
+    M = tree_width(W)
+    dbls = c * W * (W - 1) // 2
+    adds = sum(min(M >> i, W) for i in range(1, M.bit_length()))
+    lv = K3_SCAN_LEVELS[k]
+    return {"doublings": dbls, "adds": adds,
+            "base_products": dbls * k3_base_products("pdbl", k)
+            + adds * k3_base_products("padd", k),
+            "chain_products": c * (W - 1) * lv["pdbl"]
+            + (M.bit_length() - 1) * lv["padd"]}
+
+
 def k3_op_bounds(r: dict, k: int, rates: dict) -> dict:
     """K3's bound for each op it times at r["n"] elements."""
     n = r["n"]
@@ -747,8 +769,7 @@ def k3_op_bounds(r: dict, k: int, rates: dict) -> dict:
     for op in r["ops"]:
         if op not in K3_PRODUCTS:
             continue
-        mul, sqr, b3 = K3_PRODUCTS[op]
-        base = mul + sqr if k == 1 else 3 * mul + 2 * sqr + 3 * b3
+        base = k3_base_products(op, k)
         coords, mask = K3_IO[op]
         out[op] = bound(coords * 4 * WORDS[k] * n + 4 * mask * n,
                         imads(base * n), rates)
@@ -772,6 +793,7 @@ def main() -> int:
         return 2
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
+    from libff_tpu_torch.msm.digits import num_signed_digits
     from libff_tpu_torch.msm.pippenger import default_config
 
     t_start = time.perf_counter()
@@ -794,10 +816,13 @@ def main() -> int:
     def group_path(group: str, log2n: int):
         """K3, K2, the merge kernels and every MSM configuration of one
         group's path."""
-        k3[group] = phase_k3(getattr(dc, group), group, rng, dev)
-        emit({"phase": f"K3 {group}", **k3[group]})
         n = 1 << log2n
         cfg = default_config(n, dev)
+        G = getattr(dc, group)
+        # the scan's (W, c) on the path: W window totals, c doublings a step
+        W = num_signed_digits(G.order, 254, cfg.c)
+        k3[group] = phase_k3(G, group, rng, dev, W, cfg.c)
+        emit({"phase": f"K3 {group}", **k3[group]})
         k2[group], inputs = phase_k2(dc, group, n, cfg, rng, dev)
         emit({"phase": f"K2 {group}", **k2[group]})
         merge[group] = phase_merge(dc, group, k2[group], inputs)
@@ -806,6 +831,8 @@ def main() -> int:
         case = workload.msm_case(dc, group, log2n, dev, SEED)
         msm[group] = phase_msm(dc, group, log2n, case, cfg)
         emit({"phase": f"msm {group}", **msm[group]})
+        if msm[group]["launches"].get(f"K3 scan {group}", 0) != 1:
+            fail(f"Horner was not one K3 scan launch on the {group} path")
         for key, fields, kernel in MSM_VARIANTS[group]:
             r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
             if r["launches"].get(kernel, 0) < 1:

@@ -14,7 +14,8 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``LAUNCHES`` counts kernel launches by kernel and branch: "K1e", "K4e";
 "K2 sort g1", "K2 sort g2" (the insert's sort by bucket), "K2 g1", "K2
 g2" (the insert's chains), "K2m g1", "K2m g2" (the insert with its fused
-lane merge), "K3 g1", "K3 g2", "K5 g1", "K5 g2" (the lane merge)
+lane merge), "K3 g1", "K3 g2" (the batched group ops), "K3 scan g1",
+"K3 scan g2" (K3's Horner scan), "K5 g1", "K5 g2" (the lane merge)
 for the G1 and G2 branches; "K6 g1" (the v1 insert, G1 only).  K2, K2m
 and K5 over the SOS products (``MsmConfig.kmul``) count under the same
 names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
@@ -124,15 +125,20 @@ def build() -> dict[str, float]:
         return dict(f.result() for f in futs)
 
 
-def build_variant(stem: str, defines: dict[str, int]) -> Path:
-    """Compile csrc/<stem>.cu with each macro of `defines` set by -D, into
-    a directory of its own under the build; returns the library's path
-    (its ptxas log beside it, as <stem>.log).  Load it with
+def build_variant(stem: str, defines: dict[str, int],
+                  src: Path | None = None) -> Path:
+    """Compile csrc/<stem>.cu, or `src` (another checkout's copy of it,
+    which includes its own headers), with each macro of `defines` set by
+    -D, into a directory of its own under the build; returns the
+    library's path (its ptxas log beside it, as <stem>.log).  Load it with
     :func:`use_library`."""
     tag = "-".join(f"{k}={v}" for k, v in sorted(defines.items()))
+    if src is not None:
+        tag = "src-" + hashlib.sha256(src.read_bytes()).hexdigest()[:12] + (
+            "-" + tag if tag else "")
     out = build_dir() / "variants" / (tag or "none") / f"{stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    _compile(_nvcc(), CSRC / f"{stem}.cu", out,
+    _compile(_nvcc(), src or CSRC / f"{stem}.cu", out,
              tuple(f"-D{k}={v}" for k, v in sorted(defines.items())))
     return out
 

@@ -1,5 +1,5 @@
 // group_ops.cu -- kernel K3: one batched group formula, one thread per
-// element.
+// element on G1, two per element on G2.
 //
 // Replaces libff_tpu/curves/pallas_ops.py:66 _op_kernel (entry point
 // group_op_pallas, :160), both branches: k = 1 (G1 over Fp, b3 = 9) and
@@ -12,11 +12,32 @@
 //
 // Bound on an H100: integer multiply issue (a G1 padd is 12 Montgomery
 // products, 3,168 IMADs, against 6 x 32 bytes in and 3 x 32 bytes out; a
-// G2 padd 42 base products, 11,088 IMADs, against twice the bytes).  The design keeps
-// the whole formula in registers: each coordinate is read once and
-// written once, limb-major ((8, n) for Fp, (2, 8, n) for Fq2), so every
-// limb load of a warp is one 128-byte transaction.
+// G2 padd 42 base products, 11,088 IMADs, against twice the bytes).  The
+// design keeps the whole formula in registers: each coordinate is read
+// once and written once, limb-major ((8, n) for Fp, (2, 8, n) for Fq2), so
+// every limb load of a warp is one 128-byte transaction.
+//
+// G2 runs its formulas over fp2_pair.cuh's Fp2Pair: the two threads of a
+// pair each hold one coefficient of every Fq2 value and swap operands by
+// shuffle, so a thread keeps half of a G2 formula's values.  With one
+// thread a G2 element (fp2.cuh's Fp2Field, as K2 and K5 run) rcb_add
+// needs 255 registers and spills, which leaves 8 warps an SM to hide the
+// products' carry chains.  A pair's lanes are adjacent, so a warp's limb
+// loads are two 64-byte runs, one a coefficient.
+#include <type_traits>
+
 #include "formulas.cuh"
+#include "fp2_pair.cuh"
+
+// __launch_bounds__'s blocks an SM for the G2 kernels (128 threads a
+// block): the projective ops (padd, pmadd, pdbl) and the Jacobian ones
+// (add, madd, dbl), chosen with tune_group_ops
+#ifndef LFF_K3_MIN_BLOCKS_G2_PROJ
+#define LFF_K3_MIN_BLOCKS_G2_PROJ 4
+#endif
+#ifndef LFF_K3_MIN_BLOCKS_G2_JAC
+#define LFF_K3_MIN_BLOCKS_G2_JAC 3
+#endif
 
 using namespace lff;
 
@@ -31,11 +52,11 @@ struct OpArgs {
   long long n;
 };
 
+// op OP on element e, over field context f
 template <class F, int OP>
-__global__ void __launch_bounds__(128) group_op_kernel(OpArgs A, F f) {
+__device__ __forceinline__ void group_op_body(const OpArgs& A, const F& f,
+                                              long long e) {
   using E = typename F::E;
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= A.n) return;
   const long long n = A.n;
   const Pt<F> p{F::load(A.in[0], n, e), F::load(A.in[1], n, e),
                 F::load(A.in[2], n, e)};
@@ -83,16 +104,46 @@ __global__ void __launch_bounds__(128) group_op_kernel(OpArgs A, F f) {
   F::store(A.out[2], n, e, r.z);
 }
 
+// G1: one thread an element
+template <class F, int OP>
+__global__ void __launch_bounds__(128) group_op_kernel(OpArgs A, F f) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= A.n) return;
+  group_op_body<F, OP>(A, f, e);
+}
+
+// G2: two threads an element (a pair leaves together: same e)
+template <class F, int OP>
+__global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_MIN_BLOCKS_G2_PROJ
+                                                    : LFF_K3_MIN_BLOCKS_G2_JAC))
+    group_op_g2_kernel(OpArgs A, F f) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long e = t >> 1;
+  if (e >= A.n) return;
+  group_op_body<F, OP>(A, f, e);
+}
+
+template <class F, int OP>
+void launch_one(const OpArgs& A, const F& f, cudaStream_t s) {
+  constexpr int threads = 128;
+  if constexpr (std::is_same_v<F, FpField<9>>) {
+    const int blocks = (int)((A.n + threads - 1) / threads);
+    group_op_kernel<F, OP><<<blocks, threads, 0, s>>>(A, f);
+  } else {
+    const int blocks = (int)((2 * A.n + threads - 1) / threads);
+    group_op_g2_kernel<F, OP><<<blocks, threads, 0, s>>>(A, f);
+  }
+}
+
 template <class F>
-int launch_op(int op, const OpArgs& A, const F& f, int blocks, int threads,
-              cudaStream_t s) {
+int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
   switch (op) {
-    case kPadd: group_op_kernel<F, kPadd><<<blocks, threads, 0, s>>>(A, f); break;
-    case kPmadd: group_op_kernel<F, kPmadd><<<blocks, threads, 0, s>>>(A, f); break;
-    case kPdbl: group_op_kernel<F, kPdbl><<<blocks, threads, 0, s>>>(A, f); break;
-    case kAdd: group_op_kernel<F, kAdd><<<blocks, threads, 0, s>>>(A, f); break;
-    case kMadd: group_op_kernel<F, kMadd><<<blocks, threads, 0, s>>>(A, f); break;
-    case kDbl: group_op_kernel<F, kDbl><<<blocks, threads, 0, s>>>(A, f); break;
+    case kPadd: launch_one<F, kPadd>(A, f, s); break;
+    case kPmadd: launch_one<F, kPmadd>(A, f, s); break;
+    case kPdbl: launch_one<F, kPdbl>(A, f, s); break;
+    case kAdd: launch_one<F, kAdd>(A, f, s); break;
+    case kMadd: launch_one<F, kMadd>(A, f, s); break;
+    case kDbl: launch_one<F, kDbl>(A, f, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -119,14 +170,12 @@ extern "C" int group_op(int op, void* const* in, const void* mask,
   for (int i = 0; i < 3; i++) A.out[i] = (uint32_t*)out[i];
   A.n = n;
   const FieldParams<8> P = field_params(p, one_mont, inv);
-  const int threads = 128;
-  const int blocks = (int)((n + threads - 1) / threads);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1) return launch_op(op, A, FpField<9>{P}, blocks, threads, s);
-  Fp2Field<> f{P, {}};
+  if (k == 1) return launch_op(op, A, FpField<9>{P}, s);
+  Fe2 b3c;
   for (int i = 0; i < 8; i++) {
-    f.b3.c0.v[i] = b3_mont[i];
-    f.b3.c1.v[i] = b3_mont[8 + i];
+    b3c.c0.v[i] = b3_mont[i];
+    b3c.c1.v[i] = b3_mont[8 + i];
   }
-  return launch_op(op, A, f, blocks, threads, s);
+  return launch_op(op, A, Fp2Pair{P, b3c}, s);
 }

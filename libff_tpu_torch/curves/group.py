@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from .group_ops import group_op
+from .group_ops import group_op, tree_width
 
 
 class JacobianPoint(NamedTuple):
@@ -194,7 +194,7 @@ class Group:
         if axis < el:
             raise ValueError(f"axis {axis} is an element axis")
         n = P.z.shape[axis]
-        m = 1 << max(1, (n - 1).bit_length()) if n > 1 else 1
+        m = tree_width(n)
         if m != n:
             pad = list(P.z.shape[el:])
             pad[axis - el] = m - n

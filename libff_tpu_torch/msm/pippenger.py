@@ -13,7 +13,8 @@ buckets for every window.
            kernel K5 (merge="kernel"), fused into K2 (merge=True)
   reduce : lane halving tree (merge=False), bucket suffix tree, sum tree
                                                                  kernel K3
-  horner : window-parallel masked doubling, then a sum tree      kernel K3
+  horner : window-parallel masked doubling, then a sum tree,
+           one launch                                   kernel K3 (scan)
   finish : projective -> Jacobian                      kernel K1e (K4e on G2)
 
 ``MsmConfig.engine``, ``MsmConfig.merge`` and ``MsmConfig.kmul`` have the
@@ -36,6 +37,7 @@ import torch
 
 from ..curves.group import (AffinePoint, Group, JacobianPoint,
                             ProjectivePoint)
+from ..curves.group_ops import horner_scan
 from ..fields.fp import KMULS
 from . import digits as dig
 from .insert import insert, insert_v1
@@ -153,13 +155,9 @@ def _horner_complete(G: Group, totals: ProjectivePoint, c: int
                      ) -> ProjectivePoint:
     """sum_w 2^(c*w) * totals_w by window-parallel masked doubling: c*(W-1)
     batched doublings in which window w takes part while k < c*w, then a
-    log-depth sum tree (pippenger.py:419-433)."""
-    W = totals.z.shape[-1]
-    thresh = c * torch.arange(W, device=totals.z.device)
-    P = totals
-    for k in range(c * (W - 1)):
-        P = G.select(k < thresh, G.pdbl(P), P)
-    return G.proj_sum_tree(P, axis=-1)
+    log-depth sum tree (pippenger.py:419-433), as one launch of K3's scan
+    entry on the card (group_ops.horner_scan)."""
+    return ProjectivePoint(*horner_scan(G, list(totals), c))
 
 
 def window_totals_v1(G: Group, d: torch.Tensor, pts, B: int

@@ -13,6 +13,8 @@ the whole case, and ``run_msm`` runs it, for ``chip_smoke.py``, the sweep
 and the profile.  Those points repeat with period 32 or 16, so a kernel
 that reads the wrong point of a residue class gives the same result on
 them; the kernel checks use distinct points (``progression``) instead.
+K3's checks take random elements with edge lanes: ``k3_inputs`` for the
+batched ops, ``scan_inputs`` for the Horner scan.
 """
 
 from __future__ import annotations
@@ -47,6 +49,57 @@ def edge_values(B) -> list[int]:
     p, R = B.p, B.mp.R
     return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, p - R % p,
                    (1 << 32) - 1, (1 << 224) % p, p - (1 << 128)})
+
+
+def k3_inputs(F, n: int, rng, dev):
+    """Six coordinate arrays and a mask, random elements with edge lanes:
+    P = 0, Q = 0, Q = P, Q = -P and Q = P in another Jacobian scaling."""
+    c = [rand_elements(F, n, rng, dev) for _ in range(6)]
+    x1, y1, z1, x2, y2, z2 = c
+    w = rand_elements(F, 64, rng, dev)
+    z1[..., 0:64] = 0                                 # P = 0
+    z2[..., 64:128] = 0                               # Q = 0
+    for k in range(3):                                # Q = P
+        c[3 + k][..., 128:192] = c[k][..., 128:192]
+    x2[..., 192:256], z2[..., 192:256] = x1[..., 192:256], z1[..., 192:256]
+    y2[..., 192:256] = F.neg(y1[..., 192:256])        # Q = -P
+    s = slice(256, 320)                               # Q = P scaled by w
+    w2 = F.sqr(w)
+    x2[..., s] = F.mul(x1[..., s], w2)
+    y2[..., s] = F.mul(y1[..., s], F.mul(w2, w))
+    z2[..., s] = F.mul(z1[..., s], w)
+    q_inf = torch.zeros(n, dtype=torch.bool, device=dev)
+    q_inf[64:128] = True
+    q_inf[1024:1100] = True
+    # mixed adds: P = (x w^2, y w^3, w) against the affine Q = (x, y) on
+    # [256, 320) and Q = (x, -y) on [320, 384)
+    ax, ay = x2.clone(), y2.clone()
+    x1m, y1m, z1m = x1.clone(), y1.clone(), z1.clone()
+    for sl, sign in ((s, 1), (slice(320, 384), -1)):
+        ax[..., sl] = x1[..., sl]
+        ay[..., sl] = y1[..., sl] if sign > 0 else F.neg(y1[..., sl])
+        x1m[..., sl] = F.mul(x1[..., sl], w2)
+        y1m[..., sl] = F.mul(y1[..., sl], F.mul(w2, w))
+        z1m[..., sl] = w
+    return c, (x1m, y1m, z1m, ax, ay), q_inf
+
+
+def scan_inputs(F, W: int, rng, dev):
+    """W window totals [X, Y, Z] for K3's scan, random elements with the
+    identity (0, 1, 0) at windows 1 and W - 1 and repeated points: window
+    5 repeats window 4, and window W - 2 repeats window 3 (where W
+    allows)."""
+    t = [rand_elements(F, W, rng, dev) for _ in range(3)]
+    one = F.one((1,), dev)
+    for w in {1 % W, W - 1}:
+        t[0][..., w] = 0
+        t[1][..., w:w + 1] = one
+        t[2][..., w] = 0
+    for w, src in ((5, 4), (W - 2, 3)):
+        if src < w < W:
+            for a in t:
+                a[..., w] = a[..., src]
+    return t
 
 
 def random_scalars(cd, n: int, rng) -> np.ndarray:

@@ -18,7 +18,9 @@ import torch
 import chip_smoke
 from libff_tpu_torch import _build, workload
 from libff_tpu_torch.curves.device import device_curve
-from libff_tpu_torch.curves.group_ops import OPS, group_op, group_op_plain
+from libff_tpu_torch.curves.group_ops import (
+    OPS, group_op, group_op_pair_plain, group_op_plain, horner_scan,
+    horner_scan_plain)
 from libff_tpu_torch.fields.fp import fp_op, fp_op_plain, to16, to32
 from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
 from libff_tpu_torch.host import field as hf
@@ -116,6 +118,43 @@ def test_k3_matches_plain(dev, dc, op, group):
     got = group_op(G, op, coords, masks)
     assert _build.LAUNCHES[f"K3 {group}"] == before + 1
     for g, w in zip(got, group_op_plain(G, op, coords, masks)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [4099, 1 << 21])
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_k3_g2_pairs_match_plain(dev, dc, op, n):
+    """The G2 branch runs two threads an element: an odd N leaves the last
+    block ragged (its pairs must leave together), and 2^21 is the G2
+    path's first lane-halving padd.  The CPU emulation of the pair
+    schedule (group_op_pair_plain) gives the same bits here too."""
+    G = dc.g2
+    c, cm, q_inf = chip_smoke.k3_inputs(G.F, n, np.random.default_rng(9),
+                                        dev)
+    coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
+                     "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
+                     "madd": (list(cm), (q_inf,))}[op]
+    got = group_op(G, op, coords, masks)
+    for g, w in zip(got, group_op_plain(G, op, coords, masks)):
+        assert torch.equal(g, w)
+    if n < 1 << 21:
+        for g, w in zip(got, group_op_pair_plain(G, op, coords, masks)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("W,c", [(32, 8), (5, 3), (2, 2), (1, 4)])
+def test_k3_scan_matches_plain(dev, dc, group, W, c):
+    """K3's scan entry in one launch against horner_scan_plain: the path's
+    W = 32 totals at c = 8, and W = 5 (the tree pads to 8 with the
+    identity), 2 and 1; the totals hold identities and repeated points."""
+    G = getattr(dc, group)
+    tot = chip_smoke.scan_inputs(G.F, W, np.random.default_rng(10 + W), dev)
+    before = _build.LAUNCHES[f"K3 scan {group}"]
+    got = horner_scan(G, tot, c)
+    assert _build.LAUNCHES[f"K3 scan {group}"] == before + 1
+    for g, w in zip(got, horner_scan_plain(G, tot, c)):
+        assert g.shape == G.F.el_shape
         assert torch.equal(g, w)
 
 
