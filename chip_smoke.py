@@ -5,27 +5,29 @@ against its plain PyTorch version.
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e, K2 with its sort
-launch and its fused merge K2m, K3 with its scan entry, K4e, K5, K6, each
-of K2, K2m and K5 over the three Montgomery products of
-``MsmConfig.kmul``, the field-mul benches K7a, K7b, K7c, K7d and the
-batched-affine experiment K7e), checks each bit for bit against its plain
-version on the card at the shapes its path gives it (K2, K2m, K5 and K6
-on distinct points, some at infinity; K2's sort against
-``bucket_lists_plain``; K2 also on skewed digits, at 4 windows of the
-path's steps and lanes; K3's scan at the path's W = 32 totals and c = 8,
-with identities and repeated points), and runs these paths through
-``msm_pippenger``:
+It builds the kernels of ``libff_tpu_torch/csrc/`` (K1e with its inverse
+entry K1e inv, K2 with its sort launch and its fused merge K2m, K3 with
+its scan entry, K4e with its inverse entry K4e inv, K5, K6, each of K2,
+K2m and K5 over the three Montgomery products of ``MsmConfig.kmul``, the
+field-mul benches K7a, K7b (with its one-chain mode K7b lone, the
+latency of a lone product), K7c, K7d and the batched-affine experiment
+K7e), checks each bit for bit against its plain version on the card at
+the shapes its path gives it (K2, K2m, K5 and K6 on distinct points,
+some at infinity; K2's sort against ``bucket_lists_plain``; K2 also on
+skewed digits, at 4 windows of the path's steps and lanes; K3's scan at
+the path's W = 32 totals and c = 8, with identities and repeated points;
+the inverses at one element, 0, 1 and p - 1 among the inputs, and at
+2^20), and runs these paths through ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
   exact oracle of bench.py:113-137, with the default configuration (K1e,
-  K2 and K3's G1 branches), with merge="kernel" (K5 after K2), with
-  merge=True (K2m), with engine="pallas" (K6), and with kmul="sos" and
-  "sos2", each alone, with merge="kernel" and with merge=True;
+  K1e inv, K2 and K3's G1 branches), with merge="kernel" (K5 after K2),
+  with merge=True (K2m), with engine="pallas" (K6), and with kmul="sos"
+  and "sos2", each alone, with merge="kernel" and with merge=True;
 - the alt_bn128 G2 MSM over Fq2 at 2^18 points, held against the oracle
   of profile/bench_g2.py:76-80, with the default configuration (K1e, K4e,
-  K2 and K3's G2 branches), with merge="kernel", with merge=True, and
-  with the same six kmul configurations.
+  K4e inv, K2 and K3's G2 branches), with merge="kernel", with
+  merge=True, and with the same six kmul configurations.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
@@ -43,11 +45,12 @@ instances as ``plain_ms`` beside ``plain_ms_measured``), and each body's
 time at T must be twice its time at T/2 within 10%.  The harness's JSON line comes before the phase's.
 
 The launch counts are set to 0 just before each path's first run and read
-just after it.  Each phase prints one JSON line; then a line listing the
-kernels with their times, bounds and launch counts, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failed
-check raises and the exit code is not 0.  Without a card it exits 2 and
-prints no result.
+just after it; each default path must make one inverse launch and at most
+8 (G1) or 2 (G2) K1e launches.  Each phase prints one JSON line; then a
+line listing the kernels with their times, bounds and launch counts, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Any failed check raises and the exit code is not 0.  Without a card it
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -73,6 +76,21 @@ MSM_STEADY_RUNS = 10
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 K7E_CHECKED = 4                 # lane_inv instances held against the plain
 SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
+INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
+# each default path's inverse kernel and the most K1e launches it may make
+INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
+
+
+def inv_edges(F) -> dict[str, tuple]:
+    """The one-element inputs of the inverse checks beside a random one,
+    by name, as plain limb values of each coefficient: 0, 1, p - 1 and R
+    mod p (the Montgomery one) in Fp; in Fq2 also 1 in the second
+    coefficient."""
+    p, one = F.prime_field.p, F.prime_field.mp.R % F.prime_field.p
+    if F.el_ndim == 1:
+        return {"0": (0,), "1": (1,), "p-1": (p - 1,), "R": (one,)}
+    return {"0": (0, 0), "1": (1, 0), "u": (0, 1),
+            "p-1": (p - 1, p - 1), "R": (one, 0)}
 # The bounds: the card's memory rate, and each multiply kind at its peak
 # a clock per SM (issue_rates.IMAD_PER_CLOCK_PER_SM: mul.lo and mad.lo at
 # the Programming Guide's 64, mul.hi and mad.hi at half of it) times the
@@ -133,7 +151,7 @@ def max_abs_err(got, want) -> int:
 
 def phase_k1e(F, rng, dev) -> dict:
     """add, sub, mul and neg (sub from 0) at the main path's shapes: one
-    element (the Fermat inverse of to_affine) and 2^20 (the negation of
+    element (to_affine's products) and 2^20 (the negation of
     every y in _prepare), timed at both."""
     from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
 
@@ -168,7 +186,7 @@ def phase_k1e(F, rng, dev) -> dict:
 def phase_k4e(F2, rng, dev) -> dict:
     """Fq2 mul and sqr (K4e), and add, sub and neg (sub from 0; K1e's Fq2
     branch, on the (2*n32, N) view) at the G2 path's shapes: one element
-    (the inverse and the products of to_affine) and 2^18 (the negation of
+    (the products of to_affine) and 2^18 (the negation of
     every y in _prepare, the batch inversion of the K2 check's points),
     with every pair of edge coefficients; timed at 2^18."""
     from libff_tpu_torch.fields.tower import fq2_op, fq2_op_plain
@@ -201,6 +219,63 @@ def phase_k4e(F2, rng, dev) -> dict:
     res["max_abs_err"], res["k1e_max_abs_err"] = err["ops"], err["k1e_ops"]
     if err["ops"] or err["k1e_ops"]:
         fail(f"K4e or K1e on Fq2 disagrees with its plain version: {res}")
+    return res
+
+
+def phase_inv(F, rng, dev) -> dict:
+    """K1e inv (F the prime field) or K4e inv (F the Fq2 field) at the
+    main path's shape, one element (to_affine's z), on each of
+    inv_edges' inputs and a random element, timed there; then at INV_N
+    elements with the edge values (on Fq2 every pair of them) first, timed
+    there.  Each timed output is held against its plain version.  The
+    products are those of the kernel's ladder and, for the bounds, of the
+    shortest sliding-window chain for p - 2 (window_products)."""
+    from libff_tpu_torch.fields.fp import (fp_inv, fp_inv_plain,
+                                           ladder_products, window_products)
+    from libff_tpu_torch.fields.tower import fq2_inv, fq2_inv_plain
+
+    B = F.prime_field
+    fq2 = F.el_ndim == 2
+    inv, plain = (fq2_inv, fq2_inv_plain) if fq2 else (fp_inv, fp_inv_plain)
+    name = "K4e inv" if fq2 else "K1e inv"
+    # the norm's two squarings and the last two products run side by side
+    def counts(steps):
+        return (steps + 4, steps + 2) if fq2 else (steps, steps)
+
+    products, chain = counts(ladder_products(B.p - 2))
+    bound_products, bound_chain = counts(window_products(B.p - 2))
+    singles = {}
+    for key, v in [*inv_edges(F).items(), ("random", None)]:
+        x = rand_elements(F, 1, rng, dev)
+        if v is not None:
+            x = B.plain_from_ints(list(v), dev).T.reshape(F.el_shape + (1,))
+        ms, got = timed_output(lambda: inv(F, x), 50)
+        want, plain_ms = host_timed(lambda: plain(F, x))
+        singles[key] = {"max_abs_err": max_abs_err([got], [want]), "ms": ms,
+                        "plain_ms": plain_ms}
+    n = INV_N
+    a = rand_elements(F, n, rng, dev)
+    ev = edge_values(B)
+    if fq2:
+        pairs = [(x, y) for x in ev for y in ev]
+        for i in (0, 1):
+            a[i, :, :len(pairs)] = B.plain_from_ints([q[i] for q in pairs],
+                                                     dev)
+    else:
+        a[:, :len(ev)] = B.plain_from_ints(ev, dev)
+    ms, got = timed_output(lambda: inv(F, a), 5)
+    want, plain_ms = host_timed(lambda: plain(F, a))
+    res = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": max_abs_err([got], [want]),
+           "products": products, "chain_products": chain,
+           "bound_products": bound_products,
+           "bound_chain_products": bound_chain, "at_1": singles,
+           "ms_at_1": max(r["ms"] for r in singles.values()),
+           "plain_ms_at_1": max(r["plain_ms"] for r in singles.values())}
+    res["max_abs_err"] = max([res["max_abs_err"]] + [
+        r["max_abs_err"] for r in singles.values()])
+    if res["max_abs_err"]:
+        fail(f"{name} disagrees with its plain version: {res}")
     return res
 
 
@@ -471,6 +546,20 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
                                                 reps),
                   n, reps * rl.CHAINS[F.el_ndim])
         del a, b
+    # K7b lone: one element's chain, timed at LONE_REPS and half of it
+    x, y = (rand_elements(dc.fq, 1, rng, dev) for _ in range(2))
+    ns, ms, outs = rl.lone_product_ns(dc.fq, x, y)
+    err, plain_ms = 0, {}
+    for reps, got in outs.items():
+        want, plain_ms[reps] = host_timed(
+            lambda: rl.lone_chain_plain(dc.fq, x, y, reps))
+        err = max(err, max_abs_err([got], [want]))
+    res["kernels"]["K7b lone"] = {
+        "max_abs_err": err, "plain_ms": plain_ms[rl.LONE_REPS], "n": 1,
+        "products_per_element": rl.LONE_REPS, "ns_per_product": ns,
+        "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
+        "plain_ms_by_reps": plain_ms}
+    res["lone_product_ns"] = ns
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K7a, K7b or K7d disagrees with its plain version: {res}")
     products = {"k1e": rl.k1e_mul_ns(dc.fq, 1 << LOG2N, rng, dev)}
@@ -587,13 +676,17 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
             "points_per_sec": n / med, "launches": launches}
 
 
-def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
+def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                 k7_launches, rates) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
     (the K7 benches: in the issue-rate and roofline phases, k7_launches).
-    No single PyTorch call computes a Montgomery or group operation, so
-    library_ms is null."""
+    The inverses and the scans are latency chains on the path: their rows
+    also give own_latency_ms, the chain's dependent products times K7b
+    lone's latency, which is that of the port's own one-thread product and
+    not a bound of the card (a shorter product would lower it).
+    No single PyTorch call computes a Montgomery product, an inverse or a
+    group operation, so library_ms is null."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
@@ -621,6 +714,24 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
         k4e["ops"]["mul"]["ms"], k4e["ops"]["mul"]["plain_ms"], [2, 8, n],
         k4e["max_abs_err"], ob["mul"])
     out[-1]["op_bounds"] = ob
+    lone_ns = roof["lone_product_ns"]
+    for key, g, k, replaces, computes in (
+            ("fp", "g1", 1, "msm/pallas_insert.py:87", "fields/fp.py:465"),
+            ("fq2", "g2", 2, "msm/pallas_insert.py:133",
+             "fields/tower.py:301")):
+        r = inv[key]
+        n = r["n"]
+        add(r["name"], g, "fp_ops.cu", replaces, r["ms"], r["plain_ms"],
+            [2, 8, n] if k == 2 else [8, n], r["max_abs_err"],
+            bound(2 * 4 * WORDS[k] * n, imads(r["bound_products"] * n),
+                  rates))
+        out[-1].update(
+            computes=ref + computes, products=r["products"],
+            chain_products=r["chain_products"],
+            bound_products=r["bound_products"],
+            bound_chain_products=r["bound_chain_products"],
+            ms_at_1=r["ms_at_1"], plain_ms_at_1=r["plain_ms_at_1"],
+            own_latency_ms_at_1=r["bound_chain_products"] * lone_ns * 1e-6)
     for g, k in (("g1", 1), ("g2", 2)):
         r = k3[g]
         n = r["n"]
@@ -638,7 +749,8 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
             bound(3 * 4 * WORDS[k] * (q["W"] + 1),
                   imads(sc["base_products"]), rates))
         out[-1].update(sc, chain_ns_per_product=q["ms"] * 1e6
-                       / sc["chain_products"])
+                       / sc["chain_products"],
+                       own_latency_ms=sc["chain_products"] * lone_ns * 1e-6)
         r = k2[g]
         W, T, L, B = r["shape"]
         # K2: digits, flags (bool bytes) and points read once, raw buckets
@@ -698,6 +810,11 @@ def kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                 r["plain_ms"], el + [r["n"]], r["max_abs_err"],
                 bound(3 * 4 * words * r["n"], imads(
                     base * r["n"] * r["products_per_element"], kmul), rates))
+    r = rk["K7b lone"]
+    add("K7b lone", None, "roofline.cu", "profile/roofline.py:193", r["ms"],
+        r["plain_ms"], [8, 1], r["max_abs_err"],
+        bound(3 * 4 * 8, imads(r["products_per_element"]), rates))
+    out[-1].update(latency_ns=r["ns_per_product"], ms_by_reps=r["ms_by_reps"])
     # K7c's row: the carry-chain body (fp.cuh's rows) at full occupancy
     body = k7c["bodies"]["carry full"]
     n, R = k7c["elements"], k7c["op_groups"]
@@ -833,6 +950,14 @@ def main() -> int:
         emit({"phase": f"msm {group}", **msm[group]})
         if msm[group]["launches"].get(f"K3 scan {group}", 0) != 1:
             fail(f"Horner was not one K3 scan launch on the {group} path")
+        # to_affine's inverse is one launch; K1e is left the negation of y
+        # in _prepare and on G1 proj_to_jacobian's 3 and to_affine's 4
+        name, most = INV_LAUNCHES[group]
+        got = msm[group]["launches"]
+        if got.get(name, 0) != 1 or got.get("K1e", 0) > most:
+            fail(f"the {group} path made {got.get(name, 0)} {name} and "
+                 f"{got.get('K1e', 0)} K1e launches, not 1 and at most "
+                 f"{most}")
         for key, fields, kernel in MSM_VARIANTS[group]:
             r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
             if r["launches"].get(kernel, 0) < 1:
@@ -843,11 +968,15 @@ def main() -> int:
     # the G1 path: 2^20 points
     k1e = phase_k1e(dc.fq, rng, dev)
     emit({"phase": "K1e", **k1e})
+    inv = {"fp": phase_inv(dc.fq, rng, dev)}
+    emit({"phase": "K1e inv", **inv["fp"]})
     group_path("g1", LOG2N)
 
     # the G2 path: 2^18 points over Fq2
     k4e = phase_k4e(dc.fq2, rng, dev)
     emit({"phase": "K4e", **k4e})
+    inv["fq2"] = phase_inv(dc.fq2, rng, dev)
+    emit({"phase": "K4e inv", **inv["fq2"]})
     group_path("g2", LOG2N_G2)
 
     # the field-mul benches; no MSM runs them, so their launches are
@@ -866,8 +995,8 @@ def main() -> int:
     emit({"phase": "affine experiment", **k7e})
     k7_launches.update(k7e["launches"])
 
-    kernels = kernel_line(k1e, k4e, k3, k2, merge, msm, k7c, roof, k7e_rep,
-                          k7e, k7_launches, imad_rates(dev))
+    kernels = kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof,
+                          k7e_rep, k7e, k7_launches, imad_rates(dev))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

@@ -12,6 +12,7 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on any value other than 0.
 
 ``LAUNCHES`` counts kernel launches by kernel and branch: "K1e", "K4e";
+"K1e inv", "K4e inv" (the one-launch Fp and Fq2 inverses of fp_ops.cu);
 "K2 sort g1", "K2 sort g2" (the insert's sort by bucket), "K2 g1", "K2
 g2" (the insert's chains), "K2m g1", "K2m g2" (the insert with its fused
 lane merge), "K3 g1", "K3 g2" (the batched group ops), "K3 scan g1",
@@ -21,8 +22,9 @@ and K5 over the SOS products (``MsmConfig.kmul``) count under the same
 names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
 and so on; the CIOS names carry no suffix.  The field-mul benches count
 as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
-of products), "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos",
-"K7d sos2" (chains of Fq2 products), and the batched-affine experiment as
+of products), "K7b lone" (one chain a thread: a product's latency),
+"K7c" (the issue-rate bodies) and "K7d cios", "K7d sos", "K7d sos2"
+(chains of Fq2 products), and the batched-affine experiment as
 "K7e madd", "K7e affine" and "K7e inv".  A wrapper adds one where it
 launches its kernel and nowhere else.
 """

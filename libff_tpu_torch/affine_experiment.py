@@ -58,7 +58,7 @@ import torch
 from . import _build
 from .curves import formulas as fml
 from .curves.device import device_curve
-from .fields.fp import kernel_device, to16, to32
+from .fields.fp import kernel_device, ladder, to16, to32, window_products
 from .issue_rates import bound, imad_rates, imads
 from .timing import event_ms
 
@@ -189,11 +189,7 @@ def _lane_inv_steps(F, d: torch.Tensor) -> torch.Tensor:
     one (affine_experiment.py:183-186)."""
     P = F.plain
     pre, suf = lane_scans(P, d)
-    acc = pre
-    for bit in bin(F.p - 2)[3:]:
-        acc = P.mul(acc, acc)
-        if bit == "1":
-            acc = P.mul(acc, pre)
+    acc = ladder(P.sqr, P.mul, pre, F.p - 2)
     return P.mul(P.mul(pre, suf), acc)
 
 
@@ -331,12 +327,11 @@ def random_inputs(F, I: int, T: int, L: int, seed: int, dev):
 def lane_inv_products(Ls: int, p: int) -> float:
     """Products per element that a lane_inv step needs, whatever the scan
     schedule: the 2-D prefix (127 in each row, then 128 for each row
-    after the first), the row suffix (127 in each row), the ladder
-    (squarings and products by p - 2's bits) and the two of o."""
+    after the first), the row suffix (127 in each row), the inverse (the
+    shortest sliding-window chain for p - 2, fewer than the ladder's
+    squarings and products by p - 2's bits) and the two of o."""
     L = Ls * ROW
-    e = p - 2
-    ladder = e.bit_length() - 1 + bin(e).count("1") - 1
-    return (2 * (L - Ls) + (Ls - 1) * ROW) / L + ladder + 2
+    return (2 * (L - Ls) + (Ls - 1) * ROW) / L + window_products(p - 2) + 2
 
 
 def bounds(T: int, Ls: int, instances: dict, p: int, rates: dict) -> dict:

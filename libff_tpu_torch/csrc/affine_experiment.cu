@@ -69,19 +69,6 @@ __device__ __forceinline__ Fe<8> xor8(const Fe<8>& a, const Fe<8>& b) {
   return r;
 }
 
-// x^(p-2): square always, multiply by x on a set bit, from the bit below
-// the leading one down (affine_experiment.py:183-186)
-__device__ __forceinline__ Fe<8> fermat(const Fe<8>& x,
-                                        const FieldParams<8>& P) {
-  Fe<8> acc = x;
-#pragma unroll 1
-  for (int i = kExpTop - 1; i >= 0; i--) {
-    acc = mul(acc, acc, P);
-    if ((kExp[i >> 5] >> (i & 31)) & 1u) acc = mul(acc, x, P);
-  }
-  return acc;
-}
-
 __global__ void __launch_bounds__(kThreads)
     madd_kernel(uint32_t* out, const uint32_t* a, const uint32_t* b, int T,
                 int L, long long inst_stride, FieldParams<8> P) {
@@ -222,7 +209,8 @@ __global__ void __launch_bounds__(kMaxRows * kRow, 1)
       __syncthreads();
       if (r >= s) pre = mul(pre, v, P);
     }
-    const Fe<8> acc = fermat(pre, P);
+    // x^(p-2) by fp.cuh's ladder (affine_experiment.py:183-186)
+    const Fe<8> acc = pow_ladder(pre, kExp, kExpTop, P);
     o = mul(mul(pre, suf, P), acc, P);
     chk = xor8(chk, o);
   }

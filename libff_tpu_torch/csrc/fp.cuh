@@ -482,4 +482,22 @@ __device__ __forceinline__ Fe<N> mul_small(const Fe<N>& a,
   }
 }
 
+// x^e by the left-to-right binary ladder of fp.py:447-463 (pow_static):
+// from the bit below e's leading one, bit `top`, down to bit 0, square
+// always and multiply by x on a set bit.  e is 32-bit words,
+// little-endian.  With e = p - 2 it is the Fermat inverse (fp.py:465-468),
+// 0 to 0.  Every product depends on the one before, so one element's
+// ladder is a latency chain of top + popcount(e) - 1 CIOS products (362
+// for alt_bn128's Fq), kept in registers.
+__device__ __forceinline__ Fe<8> pow_ladder(const Fe<8>& x, const uint32_t* e,
+                                            int top, const FieldParams<8>& P) {
+  Fe<8> acc = x;
+#pragma unroll 1
+  for (int i = top - 1; i >= 0; i--) {
+    acc = mul(acc, acc, P);
+    if ((e[i >> 5] >> (i & 31)) & 1u) acc = mul(acc, x, P);
+  }
+  return acc;
+}
+
 }  // namespace lff

@@ -23,6 +23,13 @@
 // each of fp.cuh's three products.  Bound: operations (32 products of 264
 // or 272 IMADs against 96 bytes).
 //
+// K7b lone: one serial chain x <- mul(x, b) of `reps` CIOS products an
+// element, from x = a, with nothing else in the thread.  At one element
+// its time over reps is the latency of one lone dependent product, the
+// step of every latency chain of the port (the Fermat ladder of K1e inv
+// and K4e inv, the Horner scan of K3): a chain of k such products cannot
+// take less than k times it.  Bound: latency, not the card's rates.
+//
 // K7d replaces profile/g2_phases.py:62 fq2_mul_ns (call :95): K7b over
 // Fq2 (fp2.cuh's Karatsuba product, nr = p - 1), 4 chains, over each base
 // product.  Bound: operations (8 Fq2 products of 3 base products against
@@ -123,6 +130,18 @@ __global__ void __launch_bounds__(kThreads)
   store<8>(out, n, e, acc);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    lone_chain_kernel(uint32_t* out, const uint32_t* a, const uint32_t* b,
+                      long long n, int reps, FieldParams<8> P) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  Fe<8> x = load<8>(a, n, e);
+  const Fe<8> y = load<8>(b, n, e);
+#pragma unroll 1
+  for (int r = 0; r < reps; r++) x = mul(x, y, P);
+  store<8>(out, n, e, x);
+}
+
 template <Mul M>
 __global__ void __launch_bounds__(kThreads)
     chain2_kernel(uint32_t* out, const uint32_t* a, const uint32_t* b,
@@ -211,6 +230,21 @@ int fq2_mul_chain(int kmul, void* out, const void* a, const void* b,
                   long long n, int reps, int n32, const uint32_t* p,
                   uint32_t inv, int device, void* stream) {
   return chains(true, kmul, out, a, b, n, reps, n32, p, inv, device, stream);
+}
+
+// K7b lone: out, a, b (8, n) canonical Montgomery limbs; one chain of
+// `reps` CIOS products an element
+int mul_lone_chain(void* out, const void* a, const void* b, long long n,
+                   int reps, int n32, const uint32_t* p, uint32_t inv,
+                   int device, void* stream) {
+  if (n32 != 8 || n < 0 || reps < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  lone_chain_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, reps,
+      field_params(p, nullptr, inv));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

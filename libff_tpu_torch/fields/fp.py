@@ -9,7 +9,9 @@ limbs are the JAX package's 16-bit limbs repacked in pairs
 (``convert.py``).
 
 On a CUDA tensor, ``add``/``sub``/``mul`` launch kernel K1e
-(``csrc/fp_ops.cu``, built on ``csrc/fp.cuh``).  On a CPU tensor they run
+(``csrc/fp_ops.cu``, built on ``csrc/fp.cuh``), and ``inv`` launches its
+inverse entry K1e inv once, whatever the batch: the whole ladder of
+``pow_static`` runs in each thread's registers.  On a CPU tensor they run
 the plain version, :class:`PlainField`, which follows the JAX package's
 16-bit CIOS (fp.py:246-276) in int64 tensors: this torch build has no CPU
 right shift for uint32, and a 32x32-bit product wraps int64.  The plain
@@ -20,9 +22,11 @@ products, SOS and SOS with block-2 reduction (fp.py:278-375), which
 
 :class:`FieldBase` holds what the prime field and the Fq2 tower
 (``tower.py``) share: predicates, select, pow_static and the batch
-inverse, written over the element dims ``el_ndim``.  The host-conversion
-entry points (``const``, ``from_ints``, ``plain_from_ints``) put their
-tensors on the card unless the caller names another device.
+inverse, written over the element dims ``el_ndim``; :func:`ladder` is
+pow_static's chain, which the plain versions of the inverses share.  The
+host-conversion entry points (``const``, ``from_ints``,
+``plain_from_ints``) put their tensors on the card unless the caller
+names another device.
 """
 
 from __future__ import annotations
@@ -340,6 +344,90 @@ def fp_op_plain(F: "PrimeField", op: str, a: torch.Tensor,
     return to32(getattr(F.plain, op)(to16(a), to16(b)))
 
 
+# -- kernel K1e inv, the Fermat inverse --------------------------------------
+
+_INV_ARGS = [_build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
+             _build.U32P, ctypes.c_uint32, _build.U32P, ctypes.c_int,
+             ctypes.c_int, _build.VP]
+
+
+def ladder(sqr, mul, a, e: int):
+    """a^e for a host exponent e >= 1, square-and-multiply msb first
+    (fp.py:447-463; squarings of the leading one are skipped) with the
+    given squaring and product: the chain that fp.cuh's pow_ladder runs
+    in K1e inv and K4e inv."""
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = sqr(acc)
+        if bit == "1":
+            acc = mul(acc, a)
+    return acc
+
+
+def ladder_products(e: int) -> int:
+    """The products of :func:`ladder` for exponent e, each dependent on
+    the one before: a squaring for every bit below the leading one, a
+    product for every set bit among them (362 for alt_bn128's p - 2)."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def window_products(e: int, widths=range(1, 9)) -> int:
+    """The products of the shortest left-to-right sliding-window chain for
+    a^e over the given window widths: for width w, a^2 and the odd powers
+    a^3 .. a^(2^w - 1) first, then a squaring a bit and a product a
+    window.  Width 1 is :func:`ladder`'s chain.  The bounds of K1e inv,
+    K4e inv and K7e's lane_inv count these, not the ladder's products."""
+    bits = bin(e)[2:]
+    best = None
+    for w in widths:
+        n = 1 << (w - 1) if w > 1 else 0
+        i, first = 0, True
+        while i < len(bits):
+            if bits[i] == "0":
+                n, i = n + 1, i + 1
+                continue
+            j = min(i + w, len(bits)) - 1
+            while bits[j] == "0":
+                j -= 1
+            n += 0 if first else j - i + 2
+            first, i = False, j + 1
+        best = n if best is None else min(best, n)
+    return best
+
+
+def launch_inv(B: "PrimeField", entry: str, name: str,
+               a: torch.Tensor) -> torch.Tensor:
+    """One launch of K1e inv (entry "fp_inv", a an Fp array) or K4e inv
+    ("fq2_inv", a an Fq2 array) over the CUDA array a, with B's p - 2 as
+    the exponent; counted as `name`."""
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    per_element = B.n32 * (2 if entry == "fq2_inv" else 1)
+    fn = _build.function("fp_ops", entry, _INV_ARGS)
+    _build.launch(fn, name, a.device, _build.ptr(out), _build.ptr(a),
+                  a.numel() // per_element, B.n32, B.p_c, B.inv32,
+                  B.inv_exp_c, B.inv_exp_top, a.get_device(),
+                  _build.stream_ptr(a))
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def fp_inv(F: "PrimeField", a: torch.Tensor) -> torch.Tensor:
+    """a^(p-2) of every element of the (n32, *batch) int32 array a; 0 maps
+    to 0.  A CPU tensor takes pow_static, the plain version; a CUDA tensor
+    launches kernel K1e inv once."""
+    check_operands(F, a, a)
+    if not kernel_device(a, F.n32, "K1e inv"):
+        return F.pow_static(a, F.p - 2)
+    return launch_inv(F, "fp_inv", "K1e inv", a)
+
+
+def fp_inv_plain(F: "PrimeField", a: torch.Tensor) -> torch.Tensor:
+    """The plain version of K1e inv, on any device: pow_static's ladder on
+    the plain field."""
+    return to32(ladder(F.plain.sqr, F.plain.mul, to16(a), F.p - 2))
+
+
 def align(a, b):
     """Broadcast two element arrays whose batch dims trail: pad the
     lower-rank one with trailing singleton dims first (fp.py:43-50)."""
@@ -402,13 +490,7 @@ class FieldBase:
         if e == 0:
             return self.one(tuple(a.shape[self.el_ndim:]),
                             a.device).contiguous()
-        acc = None
-        for bit in bin(e)[2:]:
-            if acc is not None:
-                acc = self.sqr(acc)
-            if bit == "1":
-                acc = a if acc is None else self.mul(acc, a)
-        return acc
+        return ladder(self.sqr, self.mul, a, e)
 
     def _prefix_products(self, x, axis: int):
         """Inclusive prefix products along `axis` in log2(n) rounds."""
@@ -463,6 +545,9 @@ class PrimeField(FieldBase):
         # host copies handed to the kernels' C entry points
         self.p_c = _build.u32_array(self.p_limbs)
         self.one_c = _build.u32_array(self.one_limbs)
+        # the inverses' exponent p - 2 and the index of its leading bit
+        self.inv_exp_c = _build.u32_array(self._limbs(p - 2))
+        self.inv_exp_top = (p - 2).bit_length() - 1
 
     @property
     def prime_field(self) -> "PrimeField":
@@ -545,5 +630,6 @@ class PrimeField(FieldBase):
                         .expand_as(a))
 
     def inv(self, a):
-        """Fermat inverse a^(p-2); maps 0 to 0 (fp.py:465-468)."""
-        return self.pow_static(a, self.p - 2)
+        """Fermat inverse a^(p-2); maps 0 to 0 (fp.py:465-468).  One K1e
+        inv launch on the card (:func:`fp_inv`)."""
+        return fp_inv(self, a)

@@ -9,10 +9,11 @@ int32 layout, so the port's array is the JAX package's ``(2, n16,
 On a CUDA tensor ``add`` and ``sub`` launch kernel K1e on the ``(2*n32,
 N)`` view, because they act coefficient-wise, and ``mul`` and ``sqr``
 launch kernel K4e (``csrc/fp_ops.cu`` over the Fq2 layer ``csrc/fp2.cuh``,
-kernel K4), built for alt_bn128's nr = p - 1.  On a CPU tensor they run
-the plain version, :class:`PlainField2`, the JAX formulas over the prime
-field's plain version in 16-bit limbs.  Every result is a canonical
-residue, so the bits equal the JAX package's.
+kernel K4), built for alt_bn128's nr = p - 1; ``inv`` launches K4e inv,
+the norm, its Fermat inverse and the two products in one launch.  On a
+CPU tensor they run the plain version, :class:`PlainField2`, the JAX
+formulas over the prime field's plain version in 16-bit limbs.  Every
+result is a canonical residue, so the bits equal the JAX package's.
 
 Degree 3, Frobenius and sqrt wait for a later slice (ROADMAP Queue 1
 item 11).
@@ -27,7 +28,7 @@ import torch
 
 from .. import _build
 from .fp import (FieldBase, PlainField, PrimeField, align, check_operands,
-                 kernel_device, launch_k1e, to16, to32)
+                 kernel_device, ladder, launch_inv, launch_k1e, to16, to32)
 
 
 class PlainField2:
@@ -119,6 +120,14 @@ _K4E_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
              _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
 
 
+def check_nr(F: "ExtField", what: str) -> None:
+    """Raise unless F's non-residue is p - 1, the one K4 is built for."""
+    if F.nr != F.B.p - 1:
+        raise NotImplementedError(
+            f"{what} is built for the non-residue p - 1 (alt_bn128), not "
+            f"{F.nr}")
+
+
 def fq2_op(F: "ExtField", op: str, a: torch.Tensor,
            b: torch.Tensor) -> torch.Tensor:
     """Elementwise Fq2 a+b, a-b (ops "add", "sub"), a*b ("mul") or a^2
@@ -134,9 +143,7 @@ def fq2_op(F: "ExtField", op: str, a: torch.Tensor,
         return fq2_op_plain(F, op, a, b)
     if lin:
         return launch_k1e(F.B, op, a, b, groups=2)
-    if F.nr != F.B.p - 1:
-        raise NotImplementedError(
-            f"K4 is built for the non-residue p - 1 (alt_bn128), not {F.nr}")
+    check_nr(F, "K4")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     fn = _build.function("fp_ops", f"fq2_{op}", _K4E_ARGS)
@@ -154,6 +161,37 @@ def fq2_op_plain(F: "ExtField", op: str, a: torch.Tensor,
     if op == "sqr":
         return to32(F.plain.sqr(to16(a, 1)), 1)
     return to32(getattr(F.plain, op)(to16(a, 1), to16(b, 1)), 1)
+
+
+def inv2(B, mul_by_nr, inv, a):
+    """(a0 - a1 u) / (a0^2 - nr a1^2) with one inverse in the base field B
+    (tower.py:301-307): B is the port's prime field or its plain version,
+    `inv` that field's inverse.  Maps 0 to 0."""
+    t = B.sub(B.sqr(a[0]), mul_by_nr(B.sqr(a[1])))
+    ti = inv(t)
+    return torch.stack([B.mul(a[0], ti), B.neg(B.mul(a[1], ti))])
+
+
+def fq2_inv(F: "ExtField", a: torch.Tensor) -> torch.Tensor:
+    """The inverse of every element of the (2, n32, *batch) int32 array a;
+    0 maps to 0.  A CPU tensor takes :func:`inv2` over the port's prime
+    field (its inverse pow_static), the plain version; a CUDA tensor
+    launches kernel K4e inv once."""
+    check_operands(F, a, a)
+    if not kernel_device(a, F.n32, "K4e inv"):
+        return inv2(F.B, F.mul_by_nr, F.B.inv, a)
+    check_nr(F, "K4e inv")
+    return launch_inv(F.B, "fq2_inv", "K4e inv", a)
+
+
+def fq2_inv_plain(F: "ExtField", a: torch.Tensor) -> torch.Tensor:
+    """The plain version of K4e inv, on any device: :func:`inv2` over the
+    plain prime field, its inverse pow_static's ladder."""
+    P = F.plain
+    B = P.B
+    return to32(inv2(B, P.mul_by_nr,
+                     lambda t: ladder(B.sqr, B.mul, t, F.B.p - 2),
+                     to16(a, 1)), 1)
 
 
 class ExtField(FieldBase):
@@ -228,8 +266,6 @@ class ExtField(FieldBase):
 
     def inv(self, a):
         """(a0 - a1 u) / (a0^2 - nr a1^2) with one base-field Fermat
-        inverse (tower.py:301-307); maps 0 to 0."""
-        B = self.B
-        t = B.sub(B.sqr(a[0]), self.mul_by_nr(B.sqr(a[1])))
-        ti = B.inv(t)
-        return torch.stack([B.mul(a[0], ti), B.neg(B.mul(a[1], ti))])
+        inverse (tower.py:301-307); maps 0 to 0.  One K4e inv launch on
+        the card (:func:`fq2_inv`)."""
+        return fq2_inv(self, a)

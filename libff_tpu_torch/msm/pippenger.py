@@ -69,10 +69,13 @@ def default_config(n: int, device) -> MsmConfig:
     more than the lanes; the lanes set the size of the bucket array and
     of the lane merge in the reduce.  A sweep on an H100 (``python3 -m
     libff_tpu_torch.sweep``, c in 7..9, lanes in 256..2048) found c = 8
-    the fastest on both paths, G1 at 2^20 points and G2 at 2^18; 256
-    lanes beat 1024 by 21% on G2 (a shorter lane merge) but not clearly on
-    G1, whose host-bound Horner scan varies more between runs than the
-    two settings differ, so both groups keep 1024 lanes (PERF.md).
+    the fastest on both paths, G1 at 2^20 points and G2 at 2^18.  With
+    Horner and to_affine's inverse one launch each, no longer host time
+    that varied more between runs than two settings differ, a sweep of
+    256 against 1024 lanes found G2 faster at 256 (a shorter lane merge
+    in the reduce) and left G1 unresolved, 256 ahead in one of three
+    pairs (PERF.md §6-§7).  This choice does not know
+    the group, so both groups keep 1024 lanes.
     Smaller sizes were not swept; ``_prepare`` cuts the lanes to the
     largest power of two <= n.
     CPU (the plain versions, tests): small windows keep the plain insert's

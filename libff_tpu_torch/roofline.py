@@ -18,6 +18,12 @@ with the JAX package's keys where they mean the same thing
 - ``field_mul_insert_kernel_ns``: one K2 G1 pass under the port's
   default configuration at 2^min(log2n, 18) points over its mixed adds
   times 11 products (roofline.py:207-242);
+- ``lone_product_ns``: K7b lone, ns of one lone dependent CIOS product:
+  one element's serial chain timed at LONE_REPS and LONE_REPS / 2
+  products, the difference over LONE_REPS / 2 (the launch cancels); the
+  latency of the port's own one-thread product, which a chain of
+  dependent products pays at each link (not a bound of the card: a
+  shorter product would lower it);
 - ``fq2_mul_<impl>_ns``: K7d, ns per Fq2 product in 4 chains at 2^21
   elements, 8 products each (g2_phases.py:62-103);
 - ``ratio`` (best product over the bound), ``production_ratio`` (the
@@ -46,6 +52,7 @@ from . import _build, workload
 from .curves.device import device_curve
 from .fields.fp import (KMULS, MASK32, as_int32, as_u32, check_kmul,
                         kernel_device, mul_hi32, mul_lo32, to16, to32)
+from .fields.tower import check_nr
 from .msm import digits as dig
 from .msm.insert import insert
 from .msm.pippenger import _prepare, default_config
@@ -56,6 +63,7 @@ SOL_N, SOL_REPS = 1 << 22, 16          # K7a: T = 8192, Ls = 4; 16 products
 CHAIN_N, CHAIN_REPS = 1 << 23, 4       # K7b: T = 8192, Ls = 8; 4 x 8 = 32
 FQ2_N, FQ2_REPS = 1 << 21, 2           # K7d: T = 4096, Ls = 4; 2 x 4 = 8
 CHAINS = {1: 8, 2: 4}                  # chains an element, by el_ndim
+LONE_REPS = 2048                       # K7b lone: products of the long run
 MADDS_MULS = 11                        # products in K2's G1 mixed add
 TARGET = 1.3
 
@@ -64,6 +72,7 @@ _SOL_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
 _CHAIN_ARGS = [ctypes.c_int, _build.VP, _build.VP, _build.VP,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _build.U32P,
                ctypes.c_uint32, ctypes.c_int, _build.VP]
+_LONE_ARGS = _CHAIN_ARGS[1:]
 
 
 def _check_pair(a: torch.Tensor, b: torch.Tensor, shape: tuple) -> None:
@@ -133,9 +142,8 @@ def mul_chain(F, a: torch.Tensor, b: torch.Tensor, kmul: str,
     k7 = "K7b" if F.el_ndim == 1 else "K7d"
     if not kernel_device(a, F.n32, k7):
         return mul_chain_plain(F, a, b, kmul, reps)
-    if F.el_ndim == 2 and F.nr != F.B.p - 1:
-        raise NotImplementedError(
-            f"K7d is built for the non-residue p - 1 (alt_bn128), not {F.nr}")
+    if F.el_ndim == 2:
+        check_nr(F, "K7d")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     entry = "mul_chain" if F.el_ndim == 1 else "fq2_mul_chain"
@@ -168,6 +176,34 @@ def mul_chain_plain(F, a: torch.Tensor, b: torch.Tensor, kmul: str,
     for k in range(1, chains):
         acc = P.add(acc, xs[..., k])
     return to32(acc, ax)
+
+
+def lone_chain(F, a: torch.Tensor, b: torch.Tensor,
+               reps: int) -> torch.Tensor:
+    """Kernel K7b lone (F a prime field): per element one serial chain x
+    <- mul(x, b) of `reps` CIOS products from x = a; a, b canonical (n32,
+    N) arrays."""
+    _check_pair(a, b, F.el_shape)
+    if not kernel_device(a, F.n32, "K7b lone"):
+        return lone_chain_plain(F, a, b, reps)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    fn = _build.function("roofline", "mul_lone_chain", _LONE_ARGS)
+    _build.launch(fn, "K7b lone", a.device, _build.ptr(out), _build.ptr(a),
+                  _build.ptr(b), a.shape[-1], reps, F.n32, F.p_c, F.inv32,
+                  a.get_device(), _build.stream_ptr(a))
+    _build.LAUNCHES["K7b lone"] += 1
+    return out
+
+
+def lone_chain_plain(F, a: torch.Tensor, b: torch.Tensor,
+                     reps: int) -> torch.Tensor:
+    """The plain version of K7b lone on any device."""
+    _check_pair(a, b, F.el_shape)
+    x, y = to16(a), to16(b)
+    for _ in range(reps):
+        x = F.plain.mul(x, y)
+    return to32(x)
 
 
 # -- timing on the card -------------------------------------------------------
@@ -216,6 +252,17 @@ def k1e_mul_ns(F, n: int, rng, dev) -> float:
         return x
 
     return event_ms(chain, 10) * 1e6 / (8 * n)
+
+
+def lone_product_ns(F, a: torch.Tensor, b: torch.Tensor,
+                    reps: int = LONE_REPS):
+    """K7b lone's ns per product on the one-element arrays a, b: the time
+    at reps products less the time at reps / 2, over reps / 2.  Returns
+    (ns, {reps: ms}, {reps: output of the timed calls})."""
+    ms, outs = {}, {}
+    for r in (reps, reps // 2):
+        ms[r], outs[r] = timed_output(lambda: lone_chain(F, a, b, r), 20)
+    return (ms[reps] - ms[reps // 2]) * 1e6 / (reps // 2), ms, outs
 
 
 def insert_mul_ns(dc, log2n: int, dev) -> tuple[float, int]:
@@ -303,7 +350,10 @@ def measure(log2n: int = 20, impls: tuple = KMULS) -> dict:
     out = {"platform": "gpu", "device": torch.cuda.get_device_name(0),
            "card": _build.card_name_power(), "sm_clock_mhz": mhz,
            "limbs": dc.fq.n32, "elements": 1 << log2n,
-           "field_mul_k1e_ns": k1e_mul_ns(dc.fq, 1 << log2n, rng, dev)}
+           "field_mul_k1e_ns": k1e_mul_ns(dc.fq, 1 << log2n, rng, dev),
+           "lone_product_ns": lone_product_ns(
+               dc.fq, *(workload.rand_elements(dc.fq, 1, rng, dev)
+                        for _ in range(2)))[0]}
     products = {"k1e": out["field_mul_k1e_ns"]}
     for F, key in ((dc.fq, "field_mul"), (dc.fq2, "fq2_mul")):
         n = chain_shape(F)[0]

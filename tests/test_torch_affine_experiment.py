@@ -253,19 +253,20 @@ def test_report_keys_and_accept_rule():
     assert ae.report(ms, half, T, Ls, inst, rates, p)["accept"] is False
     assert "(1 - traffic_credit)" in rep["note"]
     assert rep["madd_t_over_half_t"] == pytest.approx(2.0)
-    # a product is 136 lo and 128 hi: 23.4 ps; madd 11, lane_inv 366.73
+    # a product is 136 lo and 128 hi: 23.4 ps; madd 11, lane_inv 310.73
     assert rep["madd_bound_ns_per_el"] == pytest.approx(0.2578, rel=1e-3)
-    assert rep["lane_inv_bound_ns_per_el"] == pytest.approx(8.594, rel=1e-3)
+    assert rep["lane_inv_bound_ns_per_el"] == pytest.approx(7.283, rel=1e-3)
     assert rep["madd_share_of_bound"] == pytest.approx(0.2578, rel=1e-3)
 
 
 def test_lane_inv_products():
     p = device_curve("alt_bn128").q
     # prefix 4 * 127 + 3 * 128, suffix 4 * 127, over 512 lanes; the
-    # ladder's 253 squarings and 109 products; the two of o
-    assert ae.lane_inv_products(4, p) == (892 + 508) / 512 + 253 + 109 + 2
-    assert ae.lane_inv_products(4, p) == 366.734375
-    assert ae.lane_inv_products(1, p) == 2 * 127 / 128 + 364
+    # inverse's 306 products (a 5-bit sliding window: 16 for its table,
+    # 252 squarings, 38 windows; the ladder makes 253 + 109); the two of o
+    assert ae.lane_inv_products(4, p) == (892 + 508) / 512 + 306 + 2
+    assert ae.lane_inv_products(4, p) == 310.734375
+    assert ae.lane_inv_products(1, p) == 2 * 127 / 128 + 308
 
 
 def test_random_inputs_are_canonical_and_nonzero(curves):

@@ -21,8 +21,11 @@ from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group_ops import (
     OPS, group_op, group_op_pair_plain, group_op_plain, horner_scan,
     horner_scan_plain)
-from libff_tpu_torch.fields.fp import fp_op, fp_op_plain, to16, to32
-from libff_tpu_torch.fields.tower import ExtField, fq2_op, fq2_op_plain
+from libff_tpu_torch.curves.group import JacobianPoint
+from libff_tpu_torch.fields.fp import (PrimeField, fp_inv_plain, fp_op,
+                                       fp_op_plain, to16, to32)
+from libff_tpu_torch.fields.tower import (ExtField, fq2_inv_plain, fq2_op,
+                                          fq2_op_plain)
 from libff_tpu_torch.host import field as hf
 from libff_tpu_torch.msm.insert import (bucket_lists, bucket_lists_plain,
                                        insert, insert_plain, insert_v1)
@@ -426,6 +429,16 @@ def test_k7b_k7d_match_plain(dev, dc, field, kmul):
     assert torch.equal(got, roofline.mul_chain_plain(F, a, b, kmul, 2))
 
 
+def test_k7b_lone_matches_plain(dev, dc):
+    F = dc.fq
+    rng = np.random.default_rng(13)
+    a, b = (chip_smoke.rand_elements(F, 300, rng, dev) for _ in range(2))
+    before = _build.LAUNCHES["K7b lone"]
+    got = roofline.lone_chain(F, a, b, 9)
+    assert _build.LAUNCHES["K7b lone"] == before + 1
+    assert torch.equal(got, roofline.lone_chain_plain(F, a, b, 9))
+
+
 @pytest.mark.parametrize("warps", [None, 4])
 @pytest.mark.parametrize("body", sorted(issue_rates.BODIES))
 def test_k7c_matches_plain(dev, body, warps):
@@ -446,6 +459,85 @@ def test_k1e_matches_plain_on_non_canonical_values(dev, dc, op):
     b = roofline.random_words((8, 4099), rng, dev)
     a[:, 0], b[:, 0] = -1, -1                        # 2^256 - 1
     assert torch.equal(fp_op(dc.fq, op, a, b), fp_op_plain(dc.fq, op, a, b))
+
+
+def _inv_inputs(F, n: int, seed: int, dev):
+    """Arrays of n random elements of F (Fp or Fq2) on dev with edge
+    values of chip_smoke.inv_edges first: at n = 1 one array for each
+    edge, else one with all of them."""
+    edges = list(chip_smoke.inv_edges(F).values())
+    rng = np.random.default_rng(seed)
+    xs = []
+    for rows in ([[v] for v in edges] if n == 1 else [edges]):
+        a = chip_smoke.rand_elements(F, n, rng, dev)
+        for i in range(len(rows[0])):
+            limbs = F.prime_field.plain_from_ints([r[i] for r in rows], dev)
+            if F.el_ndim == 1:
+                a[:, :len(rows)] = limbs
+            else:
+                a[i, :, :len(rows)] = limbs
+        xs.append(a)
+    return xs
+
+
+@pytest.mark.parametrize("n", [1, 4099])
+def test_k1e_inv_matches_plain(dev, dc, n):
+    """K1e inv, one launch whatever n, against pow_static's ladder on the
+    plain field: at one element (to_affine's shape) on 0, 1, p - 1 and R
+    mod p, and at 4099 with those first."""
+    F = dc.fq
+    for a in _inv_inputs(F, n, 40, dev):
+        before = dict(_build.LAUNCHES)
+        got = F.inv(a)
+        assert _build.LAUNCHES["K1e inv"] == before.get("K1e inv", 0) + 1
+        assert _build.LAUNCHES["K1e"] == before.get("K1e", 0)
+        assert torch.equal(got, fp_inv_plain(F, a))
+
+
+@pytest.mark.parametrize("n", [1, 4099])
+def test_k4e_inv_matches_plain(dev, dc, n):
+    """K4e inv, one launch whatever n, against the norm, the plain ladder
+    and the two products on the plain field, with the edge values."""
+    F2 = dc.fq2
+    for a in _inv_inputs(F2, n, 50, dev):
+        before = dict(_build.LAUNCHES)
+        got = F2.inv(a)
+        assert _build.LAUNCHES["K4e inv"] == before.get("K4e inv", 0) + 1
+        assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(got, fq2_inv_plain(F2, a))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_to_affine_makes_one_inverse_launch(dev, dc, group):
+    """to_affine of one point: its z's inverse is one K1e inv (G1) or K4e
+    inv (G2) launch, and the point equals the CPU's to_affine."""
+    G = getattr(dc, group)
+    rng = np.random.default_rng(60)
+    P = JacobianPoint(*(chip_smoke.rand_elements(G.F, 1, rng, dev)[..., 0]
+                        for _ in range(3)))
+    name = "K1e inv" if group == "g1" else "K4e inv"
+    before = dict(_build.LAUNCHES)
+    A = G.to_affine(P)
+    launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched[name] == 1
+    assert not any(k.endswith(" inv") for k in launched if k != name)
+    W = G.to_affine(JacobianPoint(*(x.cpu() for x in P)))
+    for g, w in zip(A, W):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_inverses_refuse_what_the_kernels_do_not_take(dev, dc):
+    """The kernels are built for 8 limbs and, on Fq2, nr = p - 1: a CUDA
+    tensor of another field raises, never falls back."""
+    from tests.test_pallas_interpret import P_TOY
+
+    T = PrimeField(P_TOY, name="toy_Fp")
+    with pytest.raises(NotImplementedError):
+        T.inv(T.from_ints([1, 2], dev))
+    F2 = ExtField(dc.fq, hf.Ext(dc.cd.fq, 2, 2))
+    with pytest.raises(NotImplementedError):
+        F2.inv(F2.from_host_batch([(1, 2), (3, 4)], dev))
 
 
 @pytest.fixture(scope="module")

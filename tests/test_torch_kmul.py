@@ -15,7 +15,8 @@ benches K7a-K7d on the CPU, through their plain versions.
 - the configuration checks;
 - K7b's and K7d's plain chains against the same chains of the JAX
   package's multipliers (roofline.py:170-182, g2_phases.py:65-84) at 64
-  elements, and against host integers;
+  elements, and against host integers; K7b lone's chain against host
+  integers;
 - K7a's and K7c's plain bodies against a numpy uint32 rendition of the
   same op sequences.  The JAX K7 pallas_calls run only on a TPU (the
   Pallas interpreter stalls on this CPU), so nothing here compares with
@@ -42,7 +43,8 @@ from libff_tpu_torch.fields.tower import ExtField
 from libff_tpu_torch.issue_rates import BODIES, issue_body, issue_body_plain
 from libff_tpu_torch.msm.insert import insert, insert_plain
 from libff_tpu_torch.msm.pippenger import MsmConfig, msm_pippenger
-from libff_tpu_torch.roofline import CHAINS, mul_chain, sol_mix, sol_mix_plain
+from libff_tpu_torch.roofline import (CHAINS, lone_chain, lone_chain_plain,
+                                      mul_chain, sol_mix, sol_mix_plain)
 from tests.test_pallas_interpret import (NR_TOY, NUM_BITS, P_TOY,  # noqa: F401
                                          g1ctx)
 from tests.test_torch_merge import _port_group, _toy_msm_inputs
@@ -248,6 +250,23 @@ def test_k7d_plain_matches_jax_chains_and_host(kmul):
             acc = H.add(acc, H.mul(H.mul(v, y), y))
         host.append(acc)
     assert F2.to_host_batch(got) == host
+
+
+def test_k7b_lone_plain_matches_host():
+    """K7b lone's plain chain: x <- x * b, reps times from x = a, one chain
+    an element; on the CPU the wrapper runs it; what it does not take
+    raises."""
+    F = device_curve("alt_bn128").fq
+    va, vb = _values(F.p, 5, 9), _values(F.p, 5, 10)[::-1]
+    a, b = F.from_ints(va, "cpu"), F.from_ints(vb, "cpu")
+    got = lone_chain(F, a, b, 7)
+    assert torch.equal(got, lone_chain_plain(F, a, b, 7))
+    assert F.to_ints(got) == [x * pow(y, 7, F.p) % F.p
+                              for x, y in zip(va, vb)]
+    with pytest.raises(ValueError):
+        lone_chain(F, a, b[:, :1], 1)
+    with pytest.raises(ValueError):
+        lone_chain(F, a.to("meta"), b.to("meta"), 1)
 
 
 def test_k7_wrappers_check_operands():
