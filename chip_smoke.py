@@ -17,7 +17,10 @@ some at infinity; K2's sort against ``bucket_lists_plain``; K2 also on
 skewed digits, at 4 windows of the path's steps and lanes; K3's scan at
 the path's W = 32 totals and c = 8, with identities and repeated points;
 the inverses at one element, 0, 1 and p - 1 among the inputs, and at
-2^20), and runs these paths through ``msm_pippenger``:
+2^20; K2m's tail as its time less K2's on the same inputs, beside K5's,
+and phase merge's line sets each K5 and K2m beside its time under the
+lane tree's previous design, ``BEFORE_MS``, which is not measured
+here), and runs these paths through ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
   exact oracle of bench.py:113-137, with the default configuration (K1e,
@@ -79,6 +82,15 @@ SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
 INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
 # each default path's inverse kernel and the most K1e launches it may make
 INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
+# K5's and K2m's times under the lane tree's previous design (one warp a
+# row through a device scratch array; K2m's tail on each window's last
+# block), as this script measured them on an NVIDIA H100 80GB HBM3 at
+# 700 W.  They are not measured here: phase merge's line sets them beside
+# this run's times as before_ms, and the kernels line leaves them out.
+BEFORE_MS = {"K5 g1": 2.344, "K5 g1 sos": 2.536, "K5 g1 sos2": 2.572,
+             "K5 g2": 14.15, "K5 g2 sos": 14.96, "K5 g2 sos2": 15.28,
+             "K2m g1": 40.57, "K2m g1 sos": 46.88, "K2m g1 sos2": 45.87,
+             "K2m g2": 145.82, "K2m g2 sos": 159.97, "K2m g2 sos2": 160.99}
 
 
 def inv_edges(F) -> dict[str, tuple]:
@@ -428,7 +440,10 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
     gives the same buckets, so the CIOS plain versions serve all of them
     (a plain insert takes tens of seconds at this shape).  K2m's plain
     version is insert_plain then merge_lanes_plain, and K6's is
-    insert_plain, so their plain times add up phase_k2's."""
+    insert_plain, so their plain times add up phase_k2's.  Each K2m's
+    tail is its time less K2's over the same product on the same inputs,
+    set beside K5's; "ptxas" gives the registers and spills of the lane
+    tree in every merge and insert build."""
     from libff_tpu_torch.msm.insert import insert, insert_v1
     from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 
@@ -452,11 +467,25 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
             fused_ms, 3)
         runs[f"K5 {group} {k}"] = (lambda k=k: merge_lanes(G, raw, k), want,
                                    merge_ms, 20)
-    res = {"name": f"merge {group}", "shape": k2["shape"], "kernels": {}}
+    res = {"name": f"merge {group}", "shape": k2["shape"], "kernels": {},
+           "ptxas": {stem: _build.tree_kernels(
+                         _build.build_dir() / f"{stem}.log")
+                     for kind in ("merge", "insert")
+                     for stem in [_build.kmul_stem(kind, k)
+                                  for k in ("cios",) + SOS_KMULS]}}
     for name, (fn, ref, plain_ms, reps) in runs.items():
-        res["kernels"][name] = {"max_abs_err": max_abs_err(fn(), ref),
-                                "plain_ms": plain_ms,
-                                "ms": event_ms(fn, reps)}
+        ms, got = timed_output(fn, reps)
+        res["kernels"][name] = {"max_abs_err": max_abs_err(got, ref),
+                                "plain_ms": plain_ms, "ms": ms,
+                                "before_ms": BEFORE_MS.get(name)}
+    q = res["kernels"]
+    for k in ("cios",) + SOS_KMULS:
+        name = _build.kmul_name(f"K2m {group}", k)
+        k2_ms = k2["ms"] if k == "cios" else q[f"K2 {group} {k}"]["ms"]
+        k5_ms = q[_build.kmul_name(f"K5 {group}", k)]["ms"]
+        q[name].update(k2_ms=k2_ms, tail_ms=q[name]["ms"] - k2_ms,
+                       k5_ms=k5_ms,
+                       over_k2_plus_k5=q[name]["ms"] / (k2_ms + k5_ms))
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K5, K2m, K6 or a kmul branch disagrees with its plain version "
              f"on {group}: {res}")
@@ -793,6 +822,10 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                     [W, B, L] if name.startswith("K5") else [W, T, L, B],
                     q["max_abs_err"],
                     bound(nbytes, imads(muls, kmul), rates))
+                # K2m's tail, measured in this run
+                out[-1].update({k: q[k] for k in (
+                    "k2_ms", "tail_ms", "k5_ms",
+                    "over_k2_plus_k5") if q.get(k) is not None})
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]

@@ -176,6 +176,43 @@ def ptxas_lines(log: Path) -> list[str]:
             or "spill" in ln]
 
 
+def ptxas_kernels(log: Path) -> list[dict]:
+    """Each kernel of a build log with its ptxas -v figures: {"function"
+    (the mangled name), "registers", "stack", "spill_stores",
+    "spill_loads"} (bytes but registers)."""
+    out, cur = [], None
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def tree_kernels(log: Path) -> dict:
+    """Registers, stack and spills of each lane-tree kernel (merge.cuh's
+    merge_kernel) in a build log, by branch: "g1" (FpField), "g2 pairs"
+    (Fp2Pair, CIOS), "g2" (the one-thread Fp2Field, SOS and SOS2)."""
+    out = {}
+    for k in ptxas_kernels(log):
+        f = k.pop("function")
+        if "merge_kernel" in f:
+            out["g2 pairs" if "Fp2Pair" in f
+                else "g2" if "Fp2Field" in f else "g1"] = k
+    return out
+
+
 def sass_opcodes(stem: str) -> dict[str, collections.Counter] | None:
     """{kernel symbol: Counter of its SASS opcodes} of the library built
     from csrc/<stem>.cu, read with the toolkit's cuobjdump; None where the

@@ -4,8 +4,9 @@
 // for bit.
 //
 // The formulas are templated on a field context F that supplies the
-// element type F::E and add/sub/dbl/mul/sqr/mul_b3/zero/one/is_zero/
-// select, plus load/store of one element of a limb-major array:
+// element type F::E, kThreads (the threads that hold an element: 1 here,
+// 2 for fp2_pair.cuh's Fp2Pair) and add/sub/dbl/mul/sqr/mul_b3/zero/one/
+// is_zero/select, plus load/store of one element of a limb-major array:
 //
 //   FpField<B3, M>  Fp over fp.cuh; b3 = 3b is a compile-time constant
 //                multiplied in by mul_small's addition chain (9 for
@@ -29,6 +30,7 @@ namespace lff {
 template <int B3, Mul M = Mul::Cios>
 struct FpField {
   using E = Fe<8>;
+  static constexpr int kThreads = 1;  // threads an element
   FieldParams<8> P;
 
   __device__ __forceinline__ E add(const E& a, const E& b) const {
@@ -68,6 +70,7 @@ struct FpField {
 template <Mul M = Mul::Cios>
 struct Fp2Field {
   using E = Fe2;
+  static constexpr int kThreads = 1;
   FieldParams<8> P;
   Fe2 b3;  // 3b' in Montgomery form
 

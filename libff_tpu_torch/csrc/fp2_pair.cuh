@@ -1,5 +1,6 @@
 // fp2_pair.cuh -- Fq2 with two threads per element, the field context of
-// K3's G2 branch (group_ops.cu).
+// K3's G2 branch (group_ops.cu) and of the CIOS G2 branch of the lane tree
+// (merge.cuh: K5 and K2m's tail).
 //
 // Thread c of a pair (lanes 2i, 2i + 1 of a warp) holds coefficient c of
 // every Fq2 value of one element, so a G2 formula keeps half of its values
@@ -19,8 +20,12 @@
 // values of fp2.cuh's complex square.  Per thread: 400 of a product's 784
 // multiply-adds; per pair the same count as Karatsuba's three products.
 //
-// Only K3's G2 branch includes this header: K2 and K5 keep fp2.cuh's
-// one-thread layer through formulas.cuh.
+// K3's G2 branch and the lane tree's CIOS G2 branch run on it.  K2's
+// chains keep fp2.cuh's one-thread layer through formulas.cuh, and so do
+// the lane tree's SOS and SOS2 G2 branches: this layer has CIOS rows only.
+// The lane tree shuffles whole partials between pairs (kThreads * h lanes
+// down, so each thread meets its own coefficient) with the full warp's
+// mask; every product here shuffles within its pair alone.
 #pragma once
 
 #include "fp2.cuh"
@@ -73,6 +78,7 @@ __device__ __forceinline__ Fe<8> redc_pair(const Fe<8>& a, const Fe<8>& u,
 // select, never a branch, which would split the warp.
 struct Fp2Pair {
   using E = Fe<8>;
+  static constexpr int kThreads = 2;  // threads an element
   FieldParams<8> P;
   Fe2 b3;        // 3b' in Montgomery form
 

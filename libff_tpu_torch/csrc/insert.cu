@@ -37,8 +37,9 @@ extern "C" int insert_v1(const void* off, const void* ent, int wide,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)W * L == 0) return 0;
+  if (bx == nullptr || by == nullptr || bz == nullptr)
+    return (int)cudaErrorInvalidValue;
   return lff::chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                           nullptr, lff::Rows{},
                            lff::FpField<9>{lff::field_params(p, one_mont,
                                                              inv)},
                            (cudaStream_t)stream);

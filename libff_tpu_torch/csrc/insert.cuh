@@ -83,17 +83,25 @@
 // Karatsuba temporaries in 255 registers with a few spills; asking for 3
 // blocks an SM (168 registers) spills a kilobyte and runs slower.
 //
-// The fused merge (merge=True, pallas_insert3.py:172-201): after the
-// chains the lane axis is tree-summed in the same launch, in merge.cuh's
-// order, and the totals go to (K, W, B, 1).  The chain kernel then writes
-// the raw buckets in (K, W, B, L), which the tail reads, and no repack
-// follows.  The blocks are ordered window-major and L % 128 == 0, as
-// insert_pallas3 requires, puts every block in one window.  Each block
-// fences its stores and counts itself in a per-window counter (zeroed by
-// the wrapper); the block that arrives last of the window's S * L / 128
-// merges that window's buckets in place, one warp per bucket (CUDA's
-// threadFenceReduction pattern).  No second launch and no host round
-// trip; but only W blocks run the merge.
+// The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
+// totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
+// raw buckets lane-major as for K2, and merge.cuh's tree runs on them as
+// a second launch on the same stream, reading that layout directly (an
+// element's K words are one or two whole sectors), so neither the repack
+// nor limb-major stores from threads that finish apart are paid.  The
+// TPU kernel fuses the merge to keep the buckets in VMEM; here fusing
+// saves only the bucket bytes (0.24 ms at 3.35 TB/s on G2) and costs the
+// tail its parallelism: a tail inside the chain kernel can start a
+// window's merge only once every block of that window has stored, which
+// leaves it to the window's last block (CUDA's threadFenceReduction
+// pattern: W = 32 blocks of 4 warps after everything else), or to blocks
+// that wait on others, which CUDA does not promise to make progress.  A
+// finer split of the tail into (window, bucket chunk) tasks has the same
+// limit: a chunk is ready only when the whole window is.  The second
+// launch gives the tree every SM: on an H100 K2m takes 0.95-1.0x of K2 +
+// K5 on the same inputs, where the last-block tail took 2.1x (G1) and
+// 4.0x (G2) (chip_smoke.py's tail_ms; PERF.md).  The C entry is still
+// one call and the wrapper counts it once, as K2m.
 //
 // MsmConfig.kmul (pallas_insert3.py:302, :339, :343) picks the product:
 // each of insert.cu (CIOS, with the sort and K6), insert_sos.cu and
@@ -240,18 +248,8 @@ inline int bucket_lists_entry(const void* d, const void* pinf, void* off,
   return (int)cudaGetLastError();
 }
 
-// One coordinate of a point record or a bucket as 16-byte loads and
-// stores.
-__device__ __forceinline__ void load_words(const uint32_t* p, Fe<8>& r) {
-  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
-  r = Fe<8>{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
-}
-
-__device__ __forceinline__ void load_words(const uint32_t* p, Fe2& r) {
-  load_words(p, r.c0);
-  load_words(p + 8, r.c1);
-}
-
+// One coordinate of a bucket as 16-byte stores (merge.cuh's load_words
+// reads a point record's or a bucket's the same way).
 __device__ __forceinline__ void store_words(uint32_t* p, const Fe<8>& a) {
   ((uint4*)p)[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   ((uint4*)p)[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
@@ -292,12 +290,12 @@ __device__ __forceinline__ int first_bucket_from(const int32_t* o, int B,
   return lo;
 }
 
-template <class F, bool MERGE>
+template <class F>
 __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
     chain_kernel(const int32_t* __restrict__ off, const void* __restrict__ ent,
                  int wide, const uint32_t* __restrict__ rec, uint32_t* bx,
                  uint32_t* by, uint32_t* bz, int W, int T, int L, int B,
-                 int* counter, Rows merged, F f) {
+                 F f) {
   using E = typename F::E;
   constexpr int K = sizeof(E) / sizeof(uint32_t);
   const int S = chain_threads<F>(T);
@@ -310,8 +308,6 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
   const int32_t* o = off + row * (B + 1);
   const int16_t* e16 = (const int16_t*)ent + row * T;
   const int32_t* e32 = (const int32_t*)ent + row * T;
-  const size_t bstride = (size_t)W * B * L;  // limb stride of the buckets
-  const size_t base = (size_t)w * B * L + l;  // bucket b at base + b * L
 
   // this thread's buckets: those whose lists start in [n s / S, n (s+1) / S)
   const long long n = o[B];
@@ -326,17 +322,10 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
     Pt<F> acc{z, one, z};
     for (;;) {
       while (i == next) {  // bucket b's list has ended: store it once
-        if constexpr (MERGE) {  // (K, W, B, L), as the tail reads them
-          const size_t e = base + (size_t)b * L;
-          F::store(bx, bstride, e, acc.x);
-          F::store(by, bstride, e, acc.y);
-          F::store(bz, bstride, e, acc.z);
-        } else {  // (W, L, B, K): whole 32-byte sectors
-          const size_t e = (row * B + b) * K;
-          store_words(bx + e, acc.x);
-          store_words(by + e, acc.y);
-          store_words(bz + e, acc.z);
-        }
+        const size_t e = (row * B + b) * K;  // (W, L, B, K): whole sectors
+        store_words(bx + e, acc.x);
+        store_words(by + e, acc.y);
+        store_words(bz + e, acc.z);
         if (++b == b1) break;
         next = o[b + 1];
         acc = Pt<F>{z, one, z};
@@ -349,28 +338,6 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
       load_words(q, qx);
       load_words(q + (1 + (en & 1)) * K, qy);
       acc = rcb_madd(f, acc, qx, qy);
-    }
-  }
-  if constexpr (MERGE) {
-    // every thread of the block is live (L % kChainThreads == 0) and in
-    // window w.  Release: the block's bucket stores, then the count.
-    __shared__ bool last;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      last = atomicAdd(&counter[w], 1) == S * (L / kChainThreads) - 1;
-      __threadfence();  // acquire: the other blocks' stores, then reads
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    const Rows rows{{bx, by, bz}, bstride, 0};
-    for (int bb = threadIdx.x / 32; bb < B; bb += kChainThreads / 32) {
-      Rows in = rows, out = merged;
-      in.row = ((size_t)w * B + bb) * L;
-      out.row = (size_t)w * B + bb;
-      warp_tree(f, threadIdx.x % 32, L, in, in, out);
     }
   }
 }
@@ -402,29 +369,21 @@ __global__ void __launch_bounds__(kLayoutThreads)
   }
 }
 
-// The chain kernel, then for the raw buckets the repack from the
-// lane-major scratch `lane` into bx, by, bz; the fused merge writes bx,
-// by, bz in the contract's layout itself and leaves `lane` unused.
+// The chain kernel into the lane-major scratch `lane`, then, unless the
+// caller merges (bx null), the repack from it into bx, by, bz.
 template <class F>
 int chain_launch(const void* off, const void* ent, int wide, const void* rec,
                  void* const* lane, void* bx, void* by, void* bz, int W,
-                 int T, int L, int B, int* counter, const Rows& merged,
-                 const F& f, cudaStream_t s) {
+                 int T, int L, int B, const F& f, cudaStream_t s) {
   constexpr int K = sizeof(typename F::E) / sizeof(uint32_t);
   const long long threads = (long long)W * chain_threads<F>(T) * L;
   const long long blocks = (threads + kChainThreads - 1) / kChainThreads;
-  if (counter != nullptr) {
-    chain_kernel<F, true><<<(unsigned)blocks, kChainThreads, 0, s>>>(
-        (const int32_t*)off, ent, wide, (const uint32_t*)rec, (uint32_t*)bx,
-        (uint32_t*)by, (uint32_t*)bz, W, T, L, B, counter, merged, f);
-    return (int)cudaGetLastError();
-  }
-  chain_kernel<F, false><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+  chain_kernel<F><<<(unsigned)blocks, kChainThreads, 0, s>>>(
       (const int32_t*)off, ent, wide, (const uint32_t*)rec,
       (uint32_t*)lane[0], (uint32_t*)lane[1], (uint32_t*)lane[2], W, T, L, B,
-      counter, merged, f);
+      f);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || bx == nullptr) return (int)err;
   const dim3 grid((unsigned)((long long)W * B), (unsigned)((L + 31) / 32), 3);
   limb_major_kernel<K><<<grid, kLayoutThreads, 0, s>>>(
       (const uint32_t*)lane[0], (const uint32_t*)lane[1],
@@ -434,64 +393,73 @@ int chain_launch(const void* off, const void* ent, int wide, const void* rec,
 }
 
 // K2 after the sort: off and ent from bucket_lists (wide as there), rec
-// the point records (T * L, 3, K) words; out: bx, by, bz (K, W, B, L).
-// lane: three (W, L, B, K) scratch arrays for the raw buckets.  kmul: the
-// product this library was built for ((int)M), checked; k = 1: b3 must
-// be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3_mont holds the 16
-// Montgomery limbs of the Fq2 constant b3 (c0 then c1).  counter null:
-// the raw buckets; else the fused merge, with counter W zeroed ints and m
-// three (K, W, B, 1) outputs, bx, by, bz its scratch, and L % 128 == 0.
+// the point records (T * L, 3, K) words, lane three (W, L, B, K) scratch
+// arrays for the raw buckets.  kmul: the product this library was built
+// for ((int)M), checked; k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont
+// is unused; k = 2: b3_mont holds the 16 Montgomery limbs of the Fq2
+// constant b3 (c0 then c1).  m null: the raw buckets into bx, by, bz (K,
+// W, B, L); else K2m, the lane totals into the three (K, W, B, 1) arrays
+// of m, merge.cuh's tree over `lane` (bx, by, bz unused) with `far`, W *
+// B * merge_far_words(k, L) words of scratch (null when that is 0).
 template <Mul M>
 int insert_entry(int kmul, const void* off, const void* ent, int wide,
                  const void* rec, void* const* lane, void* bx, void* by,
                  void* bz, int W, int T, int L, int B, int n32, int k, int b3,
                  const uint32_t* b3_mont, const uint32_t* p,
-                 const uint32_t* one_mont, uint32_t inv, int* counter,
-                 void* const* m, int device, void* stream) {
+                 const uint32_t* one_mont, uint32_t inv, void* const* m,
+                 void* far, int device, void* stream) {
   if (kmul != (int)M || n32 != 8 || W < 0 || T < 0 || L < 0 || B <= 0 ||
-      (wide != 0 && wide != 1))
+      (wide != 0 && wide != 1) || lane == nullptr)
     return (int)cudaErrorInvalidValue;
   if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (counter != nullptr && (L % kChainThreads != 0 || m == nullptr))
+  if (m == nullptr && (bx == nullptr || by == nullptr || bz == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (counter == nullptr && lane == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (m != nullptr && (L & (L - 1)) != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)W * L == 0) return 0;
-  Rows merged{};
-  if (counter != nullptr) {
-    for (int i = 0; i < 3; i++) merged.c[i] = (uint32_t*)m[i];
-    merged.stride = (size_t)W * B;
-  }
   const FieldParams<8> P = field_params(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                        counter, merged, FpField<9, M>{P}, s);
-  Fp2Field<M> f{P, {}};
-  for (int i = 0; i < 8; i++) {
-    f.b3.c0.v[i] = b3_mont[i];
-    f.b3.c1.v[i] = b3_mont[8 + i];
+  void* const rx = m == nullptr ? bx : nullptr;  // null: no repack
+  int rc;
+  if (k == 1) {
+    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
+                      FpField<9, M>{P}, s);
+  } else {
+    Fp2Field<M> f{P, {}};
+    for (int i = 0; i < 8; i++) {
+      f.b3.c0.v[i] = b3_mont[i];
+      f.b3.c1.v[i] = b3_mont[8 + i];
+    }
+    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B, f,
+                      s);
   }
-  return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                      counter, merged, f, s);
+  if (rc != 0 || m == nullptr) return rc;
+  const long long n = (long long)W * B;
+  const LaneRows in{{(const uint32_t*)lane[0], (const uint32_t*)lane[1],
+                     (const uint32_t*)lane[2]},
+                    0, n, L, B, 8 * k};
+  const Rows out{{(uint32_t*)m[0], (uint32_t*)m[1], (uint32_t*)m[2]},
+                 (size_t)n, 0};
+  return merge_rows<M, true>(k, in, out, (uint32_t*)far, P, b3_mont, s);
 }
 
 }  // namespace lff
 
-// The C entry point `insert` of one library, over the product M.
+// The C entry points `insert` and `merge_far_words` (merge.cuh) of one
+// library, over the product M.
 #define LFF_INSERT_ENTRY(M)                                                  \
+  LFF_MERGE_FAR_WORDS(M)                                                     \
   extern "C" int insert(int kmul, const void* off, const void* ent,          \
                         int wide, const void* rec, void* const* lane,        \
                         void* bx, void* by, void* bz, int W, int T, int L,   \
                         int B, int n32, int k, int b3,                       \
                         const uint32_t* b3_mont, const uint32_t* p,          \
                         const uint32_t* one_mont, uint32_t inv,              \
-                        int* counter, void* const* m, int device,            \
+                        void* const* m, void* far, int device,               \
                         void* stream) {                                      \
     return lff::insert_entry<M>(kmul, off, ent, wide, rec, lane, bx, by, bz, \
                                 W, T, L, B, n32, k, b3, b3_mont, p,          \
-                                one_mont, inv, counter, m, device, stream);  \
+                                one_mont, inv, m, far, device, stream);      \
   }

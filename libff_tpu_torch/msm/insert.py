@@ -20,9 +20,11 @@ On the card K2 is the sort :func:`bucket_lists`, which lists each
 (window, lane)'s steps by bucket in t order, then the chain kernel, which
 walks each bucket's list in registers over the points repacked by
 :func:`point_records`, and for the raw buckets a repack into the
-contract's layout (``csrc/insert.cuh``).  A CUDA tensor launches the
-kernels; a CPU tensor runs the plain versions, :func:`insert_plain` (and
-``merge_lanes_plain``) over the same product and
+contract's layout (``csrc/insert.cuh``).  With merge=True (K2m) the
+repack gives way to K5's lane tree (``csrc/merge.cuh``), launched by the
+same C call on the chain kernel's lane-major buckets.  A CUDA tensor
+launches the kernels; a CPU tensor runs the plain versions,
+:func:`insert_plain` (and ``merge_lanes_plain``) over the same product and
 :func:`bucket_lists_plain`.  :func:`insert_from_lists_plain` walks the
 lists as the chain kernel does, for the tests.
 """
@@ -39,19 +41,19 @@ from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
 from ..curves.group_ops import kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
-from .merge import merge_lanes_plain
+from .merge import far_scratch, merge_lanes_plain
 
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _ARGS = [ctypes.c_int, _build.VP, _build.VP, ctypes.c_int, _build.VP,
          _PTRS] + [_build.VP] * 3 + [ctypes.c_int] * 7 + [
-    _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, _build.VP,
-    _PTRS, ctypes.c_int, _build.VP]
+    _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, _PTRS,
+    _build.VP, ctypes.c_int, _build.VP]
 _ARGS_V1 = [_build.VP, _build.VP, ctypes.c_int, _build.VP, _PTRS] + [
     _build.VP] * 3 + [ctypes.c_int] * 6 + [
     _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
 _ARGS_SORT = [_build.VP] * 4 + [ctypes.c_int] * 6 + [_build.VP]
-# L % 128 == 0 puts every block of the fused merge in one window, as
-# insert_pallas3 requires it of every L (pallas_insert3.py:333)
+# the fused merge's lanes: insert_pallas3 requires L % 128 == 0
+# (pallas_insert3.py:333), and so does the port, for the same contract
 MERGE_LANE_MULTIPLE = 128
 # a list entry is 2t + (digit < 0): int16 holds it while T <= 16384
 INT16_ENTRIES_MAX_T = 1 << 14
@@ -154,9 +156,10 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
            kmul: str = "cios") -> ProjectivePoint:
     """Bucket accumulation: bucket |d|-1 of (window, lane) += +-P in t
     order; zero digits and points at infinity leave it unchanged.  With
-    merge, the lane axis is then tree-summed in the same launch (K2's
-    fused branch, pallas_insert3.py:172-201) and (*el, W, B, 1) returned;
-    it needs L % 128 == 0.  kmul: the Montgomery product (KMULS)."""
+    merge, the lane axis is then tree-summed in K5's order by the same C
+    call (K2's fused branch, pallas_insert3.py:172-201; counted once, as
+    "K2m") and (*el, W, B, 1) returned; it needs L % 128 == 0.  kmul: the
+    Montgomery product (KMULS)."""
     _check(G, d, pts, B, kmul)
     W, T, L = d.shape
     if merge and L % MERGE_LANE_MULTIPLE:
@@ -168,25 +171,23 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     k, b3, b3_mont = kernel_branch(G, "K2")
-    off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, k, merge)
-    out, counter, m = raw, None, None
-    if merge:
-        out = [torch.empty(G.F.el_shape + (W, B, 1), dtype=torch.int32,
-                           device=d.device) for _ in range(3)]
-        # the arrivals per window of the last-block merge
-        counter = torch.zeros(W, dtype=torch.int32, device=d.device)
-        m = _ptr_array(out)
+    off, ent, rec, lane, out = _kernel_tensors(
+        G, d, pts, B, k, (W, B, 1) if merge else (W, B, L))
+    raw = [None] * 3 if merge else out
     Fp = G.F.prime_field
-    fn = _build.function(_build.kmul_stem("insert", kmul), "insert", _ARGS)
+    stem = _build.kmul_stem("insert", kmul)
+    fn = _build.function(stem, "insert", _ARGS)
+    far = far_scratch(stem, kmul, k, W * B, L, d.device) if merge else None
     name = _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul)
     _build.launch(fn, f"{name} insert", d.device, KMULS.index(kmul),
                   _build.ptr(off), _build.ptr(ent),
                   int(ent.dtype == torch.int32), _build.ptr(rec),
-                  None if lane is None else _ptr_array(lane),
-                  *(_build.ptr(t) for t in raw),
+                  _ptr_array(lane),
+                  *(None if t is None else _build.ptr(t) for t in raw),
                   W, T, L, B, Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c,
-                  Fp.inv32, None if counter is None else _build.ptr(counter),
-                  m, d.get_device(), _build.stream_ptr(d))
+                  Fp.inv32, _ptr_array(out) if merge else None,
+                  None if far is None else _build.ptr(far), d.get_device(),
+                  _build.stream_ptr(d))
     _build.LAUNCHES[name] += 1
     return ProjectivePoint(*out)
 
@@ -206,7 +207,7 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
         raise ValueError(f"no kernel for device {d.device}")
     kernel_branch(G, "K6")
     W, T, L = d.shape
-    off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, False)
+    off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, (W, B, L))
     Fp = G.F.prime_field
     fn = _build.function("insert", "insert_v1", _ARGS_V1)
     _build.launch(fn, "K6 insert_v1", d.device, _build.ptr(off),
@@ -219,14 +220,14 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     return ProjectivePoint(*raw)
 
 
-def _kernel_tensors(G, d, pts, B, k, merge):
+def _kernel_tensors(G, d, pts, B, k, out_shape):
     """What the chain kernel reads and writes: the sort's lists (launched
     here), the point records, the lane-major scratch (W, L, B, *el) that
     the chain kernel writes the raw buckets to, a bucket's limbs
-    contiguous so that each thread's stores fill whole sectors (None for
-    the fused merge), and the three raw bucket arrays (*el, W, B, L), all
-    from torch.empty.  The caller holds them until the launch is
-    queued."""
+    contiguous so that each thread's stores fill whole sectors, and the
+    three outputs (*el, *out_shape): the raw buckets (W, B, L) or the lane
+    totals (W, B, 1), all from torch.empty.  The caller holds them until
+    the launch is queued."""
     W, _, L = d.shape
     off, ent = _bucket_lists(d, pts[3], B, k)
 
@@ -234,9 +235,9 @@ def _kernel_tensors(G, d, pts, B, k, merge):
         return [torch.empty(shape, dtype=torch.int32, device=d.device)
                 for _ in range(3)]
 
-    lane = None if merge else coords((W, L, B) + G.F.el_shape)
-    return (off, ent, point_records(G, pts), lane,
-            coords(G.F.el_shape + (W, B, L)))
+    return (off, ent, point_records(G, pts),
+            coords((W, L, B) + G.F.el_shape),
+            coords(G.F.el_shape + out_shape))
 
 
 def _ptr_array(ts) -> ctypes.Array:

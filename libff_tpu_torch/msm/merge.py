@@ -18,6 +18,14 @@ Montgomery product (``MsmConfig.kmul``, pallas_insert3.py:251-256): "cios"
 builds from ``csrc/merge.cu``, "sos" and "sos2" from ``csrc/merge_sos.cu``
 and ``csrc/merge_sos2.cu``.  A CUDA tensor launches the kernel; a CPU
 tensor runs :func:`merge_lanes_plain` over the same product.
+
+On the card (``csrc/merge.cuh``) one warp takes a row: each of its
+elements (a thread on G1, a pair of threads on G2 over CIOS) walks the
+levels h >= 32 (16 on G2 pairs) over its own lanes depth first, the
+waiting partials in shared memory, and a butterfly of warp shuffles runs
+the last levels.  Partials past a thread's fourth wait in a scratch array
+(:func:`far_scratch`), which only rows of more than 32 lanes a thread
+need (L > 1024 on G1, 512 on G2 over pairs).
 """
 
 from __future__ import annotations
@@ -32,10 +40,11 @@ from ..curves.group import ProjectivePoint
 from ..curves.group_ops import kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 
-_ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+_ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
+    _build.VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32,
     ctypes.c_int, _build.VP]
+_ARGS_FAR = [ctypes.c_int] * 3
 
 
 def _check(G, buckets: ProjectivePoint, kmul: str):
@@ -68,30 +77,40 @@ def merge_lanes(G, buckets: ProjectivePoint,
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     k, b3, b3_mont = kernel_branch(G, "K5")
-    el = G.F.el_shape
     W, B, L = buckets.z.shape[-3:]
-    n = W * B
     ins = [c.contiguous() for c in buckets]
-    outs = [torch.empty(el + (W, B, 1), dtype=torch.int32, device=dev)
-            for _ in range(3)]
-    # the tree's levels after the first; none for L <= 2
-    tmp = [torch.empty(el + (n * (L // 2),), dtype=torch.int32, device=dev)
-           for _ in range(3 if L > 2 else 0)]
+    outs = [torch.empty(G.F.el_shape + (W, B, 1), dtype=torch.int32,
+                        device=dev) for _ in range(3)]
 
     def ptrs(ts):
-        return (ctypes.c_void_p * 3)(*([t.data_ptr() for t in ts]
-                                       + [None] * (3 - len(ts))))
+        return (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
 
     Fp = G.F.prime_field
-    fn = _build.function(_build.kmul_stem("merge", kmul), "merge_lanes",
-                         _ARGS)
+    stem = _build.kmul_stem("merge", kmul)
+    fn = _build.function(stem, "merge_lanes", _ARGS)
+    far = far_scratch(stem, kmul, k, W * B, L, dev)
     name = _build.kmul_name(f"K5 g{k}", kmul)
     _build.launch(fn, f"{name} merge_lanes", dev, KMULS.index(kmul),
-                  ptrs(ins), ptrs(tmp), ptrs(outs), n, L, Fp.n32, k, b3,
-                  b3_mont, Fp.p_c, Fp.one_c, Fp.inv32, ins[0].get_device(),
-                  _build.stream_ptr(ins[0]))
+                  ptrs(ins), ptrs(outs),
+                  None if far is None else _build.ptr(far), W * B, L,
+                  Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c, Fp.inv32,
+                  ins[0].get_device(), _build.stream_ptr(ins[0]))
     _build.LAUNCHES[name] += 1
     return ProjectivePoint(*outs)
+
+
+def far_scratch(stem: str, kmul: str, k: int, n: int, L: int, dev):
+    """The lane tree's scratch for n rows of L lanes on branch k, as the
+    library built from csrc/<stem>.cu sizes it (its merge_far_words): an
+    int32 tensor from torch.empty, or None where the rows need none."""
+    words = _build.function(stem, "merge_far_words", _ARGS_FAR)(
+        KMULS.index(kmul), k, L)
+    if words < 0:
+        raise ValueError(f"{stem} takes no lane tree of {L} lanes on G{k} "
+                         f"over {kmul}")
+    if words == 0:
+        return None
+    return torch.empty(n * words, dtype=torch.int32, device=dev)
 
 
 def merge_lanes_plain(G, buckets: ProjectivePoint,

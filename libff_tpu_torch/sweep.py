@@ -1,8 +1,11 @@
 """Sweep the MSM configuration on the card.
 
     python3 -m libff_tpu_torch.sweep [g1|g2] [log2n] [c,c,...] [lanes,...]
+        [merge,...]
 
-For each window width c and lane count it runs the alt_bn128 MSM of the
+For each window width c, lane count and lane merge (``MsmConfig.merge``:
+False, the default, leaves the lane tree to the reduce; "kernel" runs
+K5; True K2m; default False alone) it runs the alt_bn128 MSM of the
 given group (default G2 at 2^18 points, the G2 path of chip_smoke.py) on
 the workload of ``workload.py``: one run to warm up, then ``RUNS`` timed
 runs, each held against the structured oracle.  It prints one JSON line
@@ -13,6 +16,7 @@ without one.
 
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 
@@ -24,27 +28,28 @@ from .curves.device import device_curve
 from .msm.pippenger import MsmConfig
 
 RUNS = 3
+MERGES = {"False": False, "kernel": "kernel", "True": True}
 
 
-def run(group: str, log2n: int, cs, lanes) -> None:
+def run(group: str, log2n: int, cs, lanes, merges=(False,)) -> None:
     dc = device_curve("alt_bn128")
     G = getattr(dc, group)
     scalars, points, want = workload.msm_case(dc, group, log2n)
-    for c in cs:
-        for L in lanes:
-            cfg = MsmConfig(c=c, lanes=L)
-            rows = []
-            for i in range(1 + RUNS):
-                got, total, times = workload.run_msm(G, scalars, points, cfg)
-                if got != want:
-                    raise RuntimeError(f"{cfg} disagrees with the oracle")
-                if i:
-                    rows.append({"seconds": total, **times})
-            print(json.dumps({
-                "group": group, "log2n": log2n, "c": c, "lanes": L,
-                **{k: float(np.median([r[k] for r in rows]))
-                   for k in rows[0]}}), flush=True)
-            torch.cuda.empty_cache()
+    for c, L, merge in itertools.product(cs, lanes, merges):
+        cfg = MsmConfig(c=c, lanes=L, merge=merge)
+        rows = []
+        for i in range(1 + RUNS):
+            got, total, times = workload.run_msm(G, scalars, points, cfg)
+            if got != want:
+                raise RuntimeError(f"{cfg} disagrees with the oracle")
+            if i:
+                rows.append({"seconds": total, **times})
+        print(json.dumps({
+            "group": group, "log2n": log2n, "c": c, "lanes": L,
+            "lane_merge": merge,
+            **{k: float(np.median([r[k] for r in rows])) for k in rows[0]}}),
+            flush=True)
+        torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
@@ -57,7 +62,9 @@ def main(argv) -> int:
         [6, 7, 8, 9, 10]
     lanes = [int(v) for v in argv[3].split(",")] if len(argv) > 3 else \
         [256, 512, 1024, 2048]
-    run(group, log2n, cs, lanes)
+    merges = [MERGES[v] for v in argv[4].split(",")] if len(argv) > 4 else \
+        [False]
+    run(group, log2n, cs, lanes, merges)
     print(_build.card_name_power(), flush=True)
     return 0
 

@@ -14,7 +14,8 @@ and the profile.  Those points repeat with period 32 or 16, so a kernel
 that reads the wrong point of a residue class gives the same result on
 them; the kernel checks use distinct points (``progression``) instead.
 K3's checks take random elements with edge lanes: ``k3_inputs`` for the
-batched ops, ``scan_inputs`` for the Horner scan.
+batched ops, ``scan_inputs`` for the Horner scan; the lane merge's take
+``merge_inputs``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from . import convert
+from .curves.group import ProjectivePoint
 from .host import mont as hm
 from .msm import digits as dig
 from .msm.pippenger import _prepare, msm_pippenger
@@ -42,6 +44,25 @@ def rand_elements(F, n: int, rng, dev) -> torch.Tensor:
     limbs[:, -1] = rng.integers(0, B.p_limbs[-1], size=(k, n), dtype=np.uint64)
     t = torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
     return t.reshape(F.el_shape + (n,))
+
+
+def merge_inputs(G, W: int, B: int, L: int, rng, dev):
+    """Raw buckets (*el, W, B, L) for the lane merge: random canonical
+    coordinates (the complete add needs no point on the curve), bucket 0
+    of every window the identity (0, 1, 0) in every lane, and of the other
+    lanes about one in eight the identity and one in eight at infinity
+    with other coordinates, (X, Y, 0)."""
+    F = G.F
+    x, y, z = (rand_elements(F, W * B * L, rng, dev).reshape(
+        F.el_shape + (W, B, L)) for _ in range(3))
+    u = torch.from_numpy(rng.random((W, B, L))).to(dev)
+    ident = u < 1 / 8
+    ident[:, 0] = True
+    inf = ~ident & (u < 1 / 4)
+    zero, one = torch.zeros_like(x), F.one((W, B, L), dev)
+    return ProjectivePoint(F.select(ident | inf, zero, x),
+                           F.select(ident, one, y),
+                           F.select(ident | inf, zero, z))
 
 
 def edge_values(B) -> list[int]:

@@ -221,6 +221,65 @@ def test_k2m_matches_plain(dev, k2_case, group):
         assert torch.equal(g, w)
 
 
+MERGE_LANES = [1, 2, 4, 16, 32, 64, 128, 256, 1024, 2048]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("L", MERGE_LANES)
+def test_k5_matches_plain_at_every_lane_count(dev, dc, group, L):
+    """K5 under each kmul against merge_lanes_plain at lane counts from 1
+    to 2048 (the in-thread walk alone, the butterfly alone, both), on 3
+    windows of 7 buckets: 21 rows, so the last block holds one; identity
+    buckets and lanes at infinity among them (workload.merge_inputs)."""
+    G = getattr(dc, group)
+    raw = workload.merge_inputs(G, 3, 7, L, np.random.default_rng(L), dev)
+    want = merge_lanes_plain(G, raw)
+    for kmul in ("cios", "sos", "sos2"):
+        name = _build.kmul_name(f"K5 {group}", kmul)
+        before = _build.LAUNCHES[name]
+        got = merge_lanes(G, raw, kmul)
+        assert _build.LAUNCHES[name] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kmul
+
+
+# steps of each path's K2m checks: above insert.cuh's kEntries (512 on
+# G1, 256 on G2), so the chain kernel runs 2 threads a lane
+K2M_STEPS = {"g1": 520, "g2": 260}
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("L", [128, 256, 1024])
+def test_k2m_matches_plain_with_two_chain_threads(dev, dc, group, L):
+    """K2m under each kmul against insert_plain then merge_lanes_plain, on
+    distinct points through the path's digits (c = 8, 32 windows) with
+    windows 3 and 17 all zero digits, at W = 32 and at W = 1; counted once
+    as K2m and never as K5; and twice in a row, each call equal."""
+    G = getattr(dc, group)
+    T = K2M_STEPS[group]
+    d, pts, B = chip_smoke.k2_inputs(dc, group, T * L,
+                                     MsmConfig(c=8, lanes=L),
+                                     np.random.default_rng(L + 1), dev)
+    assert d.shape == (32, T, L)
+    d[3], d[17] = 0, 0
+    want = merge_lanes_plain(G, insert_plain(G, d, pts, B))
+    k5 = {k: v for k, v in _build.LAUNCHES.items() if k.startswith("K5")}
+    for kmul in ("cios", "sos", "sos2"):
+        name = _build.kmul_name(f"K2m {group}", kmul)
+        for W in (32, 1):
+            before = _build.LAUNCHES[name]
+            got = insert(G, d[:W], pts, B, merge=True, kmul=kmul)
+            assert _build.LAUNCHES[name] == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w[..., :W, :, :]), (kmul, W)
+    assert k5 == {k: v for k, v in _build.LAUNCHES.items()
+                  if k.startswith("K5")}
+    first = insert(G, d, pts, B, merge=True)
+    second = insert(G, d, pts, B, merge=True)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, w) and torch.equal(b, w)
+
+
 def test_k6_matches_plain(dev, k2_case):
     G, d, pts, B, raw, _ = k2_case["g1"]
     before = _build.LAUNCHES["K6 g1"]

@@ -20,7 +20,7 @@ import torch
 
 from libff_tpu.msm.pallas_insert import insert_pallas
 from libff_tpu.msm.pallas_insert3 import insert_pallas3
-from libff_tpu_torch import convert
+from libff_tpu_torch import _build, convert, tune_merge
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group import AffinePoint, Group, ProjectivePoint
 from libff_tpu_torch.fields.fp import PrimeField
@@ -258,3 +258,82 @@ def test_k5_wrapper_rejects(case):
         P = ProjectivePoint(*(a.to("meta") for a in P))
     with pytest.raises(ValueError):
         merge_lanes(G, P)
+
+
+# -- the kernel's schedule ------------------------------------------------
+
+def _levels_tree(L: int):
+    """Lane 0's total as nested pairs (P_l, P_(l+h)) over the levels h =
+    L/2 .. 1 of merge_lanes_plain; leaves are lane numbers."""
+    lanes = list(range(L))
+    h = L // 2
+    while h >= 1:
+        lanes[:h] = [(lanes[l], lanes[l + h]) for l in range(h)]
+        h //= 2
+    return lanes[0]
+
+
+def _kernel_tree(L: int, row: int):
+    """csrc/merge.cuh's merge_kernel on one warp of `row` elements (32 on
+    G1 and the one-thread G2 body, 16 pairs on G2 over CIOS), step for
+    step, with an add that records its operands: the depth-first walk over
+    each element's lanes t + r j with its slots, then the butterfly of
+    __shfl_down_sync (a source past the warp returns the caller's own
+    value).  Returns element 0's total and the most slots an element
+    held."""
+    r = min(row, L)
+    t = [u if u < r else 0 for u in range(row)]
+    m = L // r
+    half = m // 2
+    bits = half.bit_length() - 1 if half > 1 else 0
+    in_steps = m - 1
+    steps = in_steps + r.bit_length() - 1
+    c = [t[u] for u in range(row)] if m == 1 else [None] * row
+    slots = [{} for _ in range(row)]
+    i = k = 0
+    fresh = True
+    for step in range(steps):
+        if step < in_steps:
+            if fresh:
+                j = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+                a = [t[u] + r * j for u in range(row)]
+                b = [t[u] + r * (j + half) for u in range(row)]
+                k = 0
+            else:
+                a = [slots[u][k] for u in range(row)]
+                b = c
+                k += 1
+        else:
+            h = r >> (step - in_steps + 1)
+            a = c
+            b = [c[u + h] if u + h < row else c[u] for u in range(row)]
+        c = [(a[u], b[u]) for u in range(row)]
+        if step < in_steps:
+            fresh = (i >> k) & 1 == 0
+            if fresh:
+                if i + 1 < half:
+                    for u in range(row):
+                        slots[u][k] = c[u]
+                i += 1
+    return c[0], max(len(s) for s in slots)
+
+
+@pytest.mark.parametrize("row", [32, 16])
+@pytest.mark.parametrize("L", [1 << e for e in range(12)])
+def test_kernel_schedule_forms_the_levels_pairs(L, row):
+    """The kernel's schedule pairs the same lanes in the same operand
+    order as the levels, at every lane count from 1 to 2048, and holds at
+    most log2(m) - 1 partials a thread (m = L / min(row, L) lanes), the
+    slots its launch sizes shared memory for."""
+    got, held = _kernel_tree(L, row)
+    assert got == _levels_tree(L)
+    m = L // min(row, L)
+    assert held == (m.bit_length() - 2 if m > 2 else 0)
+
+
+@pytest.mark.parametrize("name", tune_merge.TUNABLES)
+def test_tune_merge_macros_are_open_in_the_header(name):
+    """Each macro tune_merge sets by -D is one that merge.cuh defines
+    under #ifndef, so a variant build really changes it."""
+    head = (_build.CSRC / "merge.cuh").read_text()
+    assert f"#ifndef {name}\n#define {name} " in head
