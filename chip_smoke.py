@@ -30,7 +30,19 @@ here), and runs these paths through ``msm_pippenger``:
 - the alt_bn128 G2 MSM over Fq2 at 2^18 points, held against the oracle
   of profile/bench_g2.py:76-80, with the default configuration (K1e, K4e,
   K4e inv, K2 and K3's G2 branches), with merge="kernel", with
-  merge=True, and with the same six kmul configurations.
+  merge=True, and with the same six kmul configurations;
+- the G1 MSMs of BLS12-381 and BLS12-377 at 2^20 points over 12-limb Fp,
+  their scalars of 255 and 253 bits, held against the same structured
+  oracle with each curve's generator, with default_config(n, G) (the
+  12-limb K1e, K1e inv, K2 and K3 with its scan).  Before them the
+  12-limb kernels are held bit for bit against their plain versions on
+  the inputs they are timed on: K1e and K1e inv on BLS12-381's Fq at one
+  element and 2^20, K3's six ops at 2^21 and its scan at the path's
+  (W, c) on BLS12-381, the same at 2^14 and a small scan on BLS12-377
+  (its b3 = 3 instantiation), and K2 on BLS12-381 timed at the path's
+  shape, the first K2_N12_WINDOWS windows of its timed output held
+  against the plain insert on those windows (at 12 limbs the plain
+  insert takes minutes at all 32).
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
@@ -48,8 +60,11 @@ instances as ``plain_ms`` beside ``plain_ms_measured``), and each body's
 time at T must be twice its time at T/2 within 10%.  The harness's JSON line comes before the phase's.
 
 The launch counts are set to 0 just before each path's first run and read
-just after it; each default path must make one inverse launch and at most
-8 (G1) or 2 (G2) K1e launches.  Each phase prints one JSON line; then a
+just after it; each default path must make one scan launch, one inverse
+launch and at most 8 (G1) or 2 (G2) K1e launches.  K2's sort rows give
+``torch.sort(keys, stable=True)`` on the same keys as their library
+time, the one PyTorch call that computes their permutation.  Each phase
+prints one JSON line; then a
 line listing the kernels with their times, bounds and launch counts, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is not 0.  Without a card it
@@ -70,7 +85,7 @@ from libff_tpu_torch.fields.fp import to16, to32
 from libff_tpu_torch.issue_rates import bound, check_imad, imad_rates, imads
 from libff_tpu_torch.timing import event_ms, timed_output
 from libff_tpu_torch.workload import (edge_values, k3_inputs,
-                                     rand_elements, scan_inputs)
+                                     rand_elements, scalar_bits, scan_inputs)
 
 LOG2N = 20
 LOG2N_G2 = 18
@@ -82,6 +97,11 @@ SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
 INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
 # each default path's inverse kernel and the most K1e launches it may make
 INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
+# the 12-limb G1 paths, at 2^20 points like alt_bn128's G1
+CURVES12 = ("bls12_381", "bls12_377")
+K2_N12_WINDOWS = 8              # windows of the 12-limb K2 check
+K3_SMALL = 1 << 14              # BLS12-377's K3 check: its b3 = 3 branch
+SCAN_SMALL = (5, 3)             # and its scan's (W, c)
 # K5's and K2m's times under the lane tree's previous design (one warp a
 # row through a device scratch array; K2m's tail on each window's last
 # block), as this script measured them on an NVIDIA H100 80GB HBM3 at
@@ -115,6 +135,7 @@ def inv_edges(F) -> dict[str, tuple]:
 # mixed add (11; 39)
 FP_MULS = {"padd": {1: 12, 2: 42}, "madd": {1: 11, 2: 39}}
 WORDS = {1: 8, 2: 16}           # 32-bit words of an Fp, an Fq2 element
+WORDS12 = 12                    # of a 12-limb Fp element
 # the Montgomery products of MsmConfig.kmul beside the default CIOS
 SOS_KMULS = ("sos", "sos2")
 # the MSM configurations of each path beside the default: (phase key,
@@ -167,8 +188,8 @@ def phase_k1e(F, rng, dev) -> dict:
     every y in _prepare), timed at both."""
     from libff_tpu_torch.fields.fp import fp_op, fp_op_plain
 
-    res = {"name": "K1e", "n": 1 << 20, "checked_n": [1, 1 << 20], "ops": {},
-           "ms_at_1": {}}
+    res = {"name": _build.width_name("K1e", F.n32), "n": 1 << 20,
+           "checked_n": [1, 1 << 20], "ops": {}, "ms_at_1": {}}
     err = 0
     for n in res["checked_n"]:
         a, b = rand_elements(F, n, rng, dev), rand_elements(F, n, rng, dev)
@@ -191,7 +212,7 @@ def phase_k1e(F, rng, dev) -> dict:
                 res["ms_at_1"][name] = ms
     res["max_abs_err"] = err
     if err:
-        fail(f"K1e disagrees with its plain version: {res}")
+        fail(f"{res['name']} disagrees with its plain version: {res}")
     return res
 
 
@@ -249,7 +270,7 @@ def phase_inv(F, rng, dev) -> dict:
     B = F.prime_field
     fq2 = F.el_ndim == 2
     inv, plain = (fq2_inv, fq2_inv_plain) if fq2 else (fp_inv, fp_inv_plain)
-    name = "K4e inv" if fq2 else "K1e inv"
+    name = "K4e inv" if fq2 else _build.width_name("K1e inv", B.n32)
     # the norm's two squarings and the last two products run side by side
     def counts(steps):
         return (steps + 4, steps + 2) if fq2 else (steps, steps)
@@ -291,24 +312,27 @@ def phase_inv(F, rng, dev) -> dict:
     return res
 
 
-def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int) -> dict:
-    """All six ops at 2^21 points, each path's largest padd (the first
-    lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512 for G1
-    at 2^20 and for G2 at 2^18), timed there; padd also at 1 point and
-    padd and pdbl at 32 (the reduce's last sum tree and the old Horner
-    step's size), timed there too.  Then the scan entry at the path's
-    (W, c) = (scan_w, scan_c) on scan_inputs' totals (identities and
-    repeated points), its timed output held against horner_scan_plain."""
+def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int,
+             n: int = 1 << 21) -> dict:
+    """All six ops at n = 2^21 points, each path's largest padd (the
+    first lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512
+    for G1 at 2^20 and for G2 at 2^18), timed there; padd also at 1 point
+    and padd and pdbl at 32 (the reduce's last sum tree and the old
+    Horner step's size), timed there too.  Then the scan entry at the
+    path's (W, c) = (scan_w, scan_c) on scan_inputs' totals (identities
+    and repeated points), its timed output held against
+    horner_scan_plain.  The name is K3's launch count's (with " n12" at
+    12 limbs)."""
     from libff_tpu_torch.curves.group_ops import (group_op, group_op_plain,
                                                   horner_scan,
                                                   horner_scan_plain)
 
-    n = 1 << 21
     c, cm, q_inf = k3_inputs(G.F, n, rng, dev)
     args = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
             "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
             "madd": (list(cm), (q_inf,))}
-    res = {"name": f"K3 {group}", "n": n, "ops": {}}
+    res = {"name": _build.width_name(f"K3 {group}", G.F.prime_field.n32),
+           "n": n, "ops": {}}
     err = 0
     for op, (coords, masks) in args.items():
         want, plain_ms = host_timed(
@@ -336,7 +360,8 @@ def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int) -> dict:
                    "plain_ms": plain_ms}
     res["max_abs_err"] = max(err, e)
     if res["max_abs_err"]:
-        fail(f"K3 disagrees with its plain version on {group}: {res}")
+        fail(f"{res['name']} disagrees with its plain version on {G.name}: "
+             f"{res}")
     return res
 
 
@@ -392,43 +417,64 @@ def skewed(d, pts, B: int):
     return d, (*pts[:3], pinf)
 
 
-def phase_k2(dc, group: str, n: int, cfg, rng, dev):
+def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     """K2 against its plain version at the path's shape, on points that do
     not repeat and some at infinity; its sort launch against
-    bucket_lists_plain there; and K2 on skewed digits (``skewed``) at
-    SKEW_WINDOWS windows of the same (T, L).  Returns the result and, for
-    phase_merge, the inputs and the plain buckets."""
-    from libff_tpu_torch.msm.insert import (bucket_lists, bucket_lists_plain,
-                                            insert, insert_plain)
+    bucket_lists_plain there, and the sort's keys through torch.sort
+    (stable) for its library time; and, without `windows`, K2 on skewed
+    digits (``skewed``) at SKEW_WINDOWS windows of the same (T, L).  With
+    `windows`, K2 is timed at the path's shape and the first `windows`
+    windows of its timed output are held against the plain version on
+    those windows (a bucket depends on its own window's digits only; the
+    plain insert at 12 limbs takes minutes at all of them, and the 12-limb
+    skewed check runs in tests/test_torch_cuda.py at a small shape).
+    Returns the result and, for phase_merge, the inputs and the plain
+    buckets (of the checked windows)."""
+    from libff_tpu_torch.msm.insert import (bucket_keys, bucket_lists,
+                                            bucket_lists_plain, insert,
+                                            insert_plain)
 
     G = getattr(dc, group)
     d, pts, B = k2_inputs(dc, group, n, cfg, rng, dev)
-    want, plain_ms = host_timed(lambda: insert_plain(G, d, pts, B))
-    err = max_abs_err(insert(G, d, pts, B), want)
+    checked = d.shape[0] if windows is None else windows
+    dw = d[:checked].contiguous()
+    want, plain_ms = host_timed(lambda: insert_plain(G, dw, pts, B))
+    if windows is None:
+        err = max_abs_err(insert(G, d, pts, B), want)
+        ms = event_ms(lambda: insert(G, d, pts, B), 3)
+    else:
+        ms, got = timed_output(lambda: insert(G, d, pts, B), 3)
+        err = max_abs_err([c[..., :checked, :, :] for c in got], want)
+        del got
     madds = int(((d != 0) & ~pts[3][None]).sum())
     lists = bucket_lists(G, d, pts[3], B)
     want_lists, sort_plain_ms = host_timed(
         lambda: bucket_lists_plain(d, pts[3], B))
+    keys = bucket_keys(d, pts[3], B).reshape(-1, d.shape[1])   # (W*L, T)
     sort = {"max_abs_err": max_abs_err(lists, want_lists),
             "plain_ms": sort_plain_ms,
             "entry_bytes": lists[1].element_size(),
-            "ms": event_ms(lambda: bucket_lists(G, d, pts[3], B), 20)}
-    del lists, want_lists
-    ds, ps = skewed(d[:SKEW_WINDOWS], pts, B)
-    skew = {"shape": list(ds.shape) + [B],
-            "max_abs_err": max_abs_err(insert(G, ds, ps, B),
-                                       insert_plain(G, ds, ps, B))}
-    del ds, ps
-    res = {"name": f"K2 {group}", "shape": list(d.shape) + [B],
+            "ms": event_ms(lambda: bucket_lists(G, d, pts[3], B), 20),
+            "library": "torch.sort(keys (W*L, T), stable=True)",
+            "library_ms": event_ms(
+                lambda: torch.sort(keys, dim=-1, stable=True), 20)}
+    del lists, want_lists, keys
+    skew = None                                 # not run with `windows`
+    if windows is None:
+        ds, ps = skewed(d[:SKEW_WINDOWS], pts, B)
+        skew = {"shape": list(ds.shape) + [B],
+                "max_abs_err": max_abs_err(insert(G, ds, ps, B),
+                                           insert_plain(G, ds, ps, B))}
+        del ds, ps
+    res = {"name": _build.width_name(f"K2 {group}", G.F.prime_field.n32),
+           "shape": list(d.shape) + [B], "checked_windows": checked,
            "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
            "zero_digits": int((d == 0).sum()), "madds": madds,
-           "plain_ms": plain_ms,
-           "ms": event_ms(lambda: insert(G, d, pts, B), 3),
-           "sort": sort, "skewed": skew}
-    if err or sort["max_abs_err"] or skew["max_abs_err"]:
-        fail(f"K2 or its sort disagrees with its plain version on {group}: "
-             f"{res}")
-    return res, (d, pts, B, want)
+           "plain_ms": plain_ms, "ms": ms, "sort": sort, "skewed": skew}
+    if err or sort["max_abs_err"] or (skew and skew["max_abs_err"]):
+        fail(f"{res['name']} or its sort disagrees with its plain version "
+             f"on {G.name}: {res}")
+    return res, (dw, pts, B, want)
 
 
 def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
@@ -694,7 +740,7 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
     # growth); the steady runs give the median and quartiles
     steady = sorted(r["seconds"] for r in runs[1:])
     q1, med, q3 = np.percentile(steady, [25, 50, 75]).tolist()
-    return {"curve": "alt_bn128", "group": group.upper(), "log2n": log2n,
+    return {"curve": dc.name, "group": group.upper(), "log2n": log2n,
             "config": cfg._asdict(), "equal_to_oracle": True,
             "first_run": runs[0], "steady_runs": len(steady),
             "seconds_median": med, "seconds_q1": q1, "seconds_q3": q3,
@@ -706,7 +752,7 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
 
 
 def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
-                k7_launches, rates) -> list[dict]:
+                k7_launches, rates, n12) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
     (the K7 benches: in the issue-rate and roofline phases, k7_launches).
@@ -715,7 +761,9 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     lone's latency, which is that of the port's own one-thread product and
     not a bound of the card (a shorter product would lower it).
     No single PyTorch call computes a Montgomery product, an inverse or a
-    group operation, so library_ms is null."""
+    group operation, so library_ms is null but on K2's sort rows, whose
+    permutation torch.sort(stable=True) of the same keys computes.  The
+    12-limb rows (n12, from bls_paths) come from the BLS12-381 G1 path."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
@@ -796,6 +844,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
             q["ms"], q["plain_ms"], [W, T, L, B], q["max_abs_err"],
             bound(4 * (W * T * L + W * L * (B + 1)) + T * L
                   + q["entry_bytes"] * W * L * T, imads(0), rates))
+        out[-1].update(library_ms=q["library_ms"], library=q["library"])
         for kmul in ("cios",) + SOS_KMULS:
             k2_muls = FP_MULS["madd"][k] * r["madds"]
             k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
@@ -826,6 +875,46 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                 out[-1].update({k: q[k] for k in (
                     "k2_ms", "tail_ms", "k5_ms",
                     "over_k2_plus_k5") if q.get(k) is not None})
+    # the 12-limb kernels on the BLS12-381 G1 path
+    path, w = "bls12_381 g1", WORDS12
+    r = n12["k1e"]
+    n = r["n"]
+    ob = field_op_bounds(r["ops"], 1, n, rates, n32=12)
+    add("K1e n12", path, "fp_ops_n12.cu", "msm/pallas_insert.py:87",
+        r["ops"]["mul"]["ms"], r["ops"]["mul"]["plain_ms"], [w, n],
+        r["max_abs_err"], ob["mul"])
+    out[-1]["op_bounds"] = ob
+    r = n12["inv"]
+    n = r["n"]
+    add("K1e inv n12", path, "fp_ops_n12.cu", "msm/pallas_insert.py:87",
+        r["ms"], r["plain_ms"], [w, n], r["max_abs_err"],
+        bound(2 * 4 * w * n, imads(r["bound_products"] * n, n32=12), rates))
+    out[-1].update(
+        computes=ref + "fields/fp.py:465", products=r["products"],
+        bound_products=r["bound_products"], ms_at_1=r["ms_at_1"],
+        plain_ms_at_1=r["plain_ms_at_1"])
+    r = n12["k3"]
+    ob = k3_op_bounds(r, 1, rates, n32=12)
+    add("K3 g1 n12", path, "group_ops_n12.cu", "curves/pallas_ops.py:66",
+        r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"], [w, r["n"]],
+        max(r["max_abs_err"], n12["k3 bls12_377"]["max_abs_err"]),
+        ob["padd"])
+    out[-1]["op_bounds"] = ob
+    q = r["scan"]
+    sc = scan_counts(q["W"], q["c"], 1)
+    add("K3 scan g1 n12", path, "horner_n12.cu", "curves/pallas_ops.py:66",
+        q["ms"], q["plain_ms"], [q["W"], q["c"]], q["max_abs_err"],
+        bound(3 * 4 * w * (q["W"] + 1), imads(sc["base_products"], n32=12),
+              rates))
+    out[-1].update(sc)
+    r = n12["k2"]
+    W, T, L, B = r["shape"]
+    add("K2 g1 n12", path, "insert_n12.cu", "msm/pallas_insert3.py:74",
+        r["ms"], r["plain_ms"], [W, T, L, B], r["max_abs_err"],
+        bound(4 * (W * T * L + 3 * w * T * L) + T * L + 3 * 4 * w * W * B * L,
+              imads(FP_MULS["madd"][1] * r["madds"], n32=12), rates))
+    # plain_ms: insert_plain on the checked windows only
+    out[-1]["checked_windows"] = r["checked_windows"]
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -912,28 +1001,84 @@ def scan_counts(W: int, c: int, k: int) -> dict:
             + (M.bit_length() - 1) * lv["padd"]}
 
 
-def k3_op_bounds(r: dict, k: int, rates: dict) -> dict:
-    """K3's bound for each op it times at r["n"] elements."""
+def k3_op_bounds(r: dict, k: int, rates: dict, n32: int = 8) -> dict:
+    """K3's bound for each op it times at r["n"] elements of n32-limb
+    coordinates."""
     n = r["n"]
+    words = WORDS[k] * n32 // 8
     out = {}
     for op in r["ops"]:
         if op not in K3_PRODUCTS:
             continue
         base = k3_base_products(op, k)
         coords, mask = K3_IO[op]
-        out[op] = bound(coords * 4 * WORDS[k] * n + 4 * mask * n,
-                        imads(base * n), rates)
+        out[op] = bound(coords * 4 * words * n + 4 * mask * n,
+                        imads(base * n, n32=n32), rates)
     return out
 
 
-def field_op_bounds(ops: dict, k: int, n: int, rates: dict) -> dict:
-    """The bound of each timed elementwise op at n elements: two inputs
-    and one output (sqr: one input), and its base products (an Fp mul
-    one; an Fq2 mul three, a sqr two; add, sub and neg none)."""
+def field_op_bounds(ops: dict, k: int, n: int, rates: dict,
+                    n32: int = 8) -> dict:
+    """The bound of each timed elementwise op at n elements of n32 limbs
+    a coefficient: two inputs and one output (sqr: one input), and its
+    base products (an Fp mul one; an Fq2 mul three, a sqr two; add, sub
+    and neg none)."""
     products = {"mul": 1 if k == 1 else 3, "sqr": 2}
-    return {op: bound((2 if op == "sqr" else 3) * 4 * WORDS[k] * n,
-                      imads(products.get(op, 0) * n), rates)
+    words = WORDS[k] * n32 // 8
+    return {op: bound((2 if op == "sqr" else 3) * 4 * words * n,
+                      imads(products.get(op, 0) * n, n32=n32), rates)
             for op in ops}
+
+
+def bls_paths(rng, dev) -> dict:
+    """The 12-limb G1 paths: K1e, K1e inv, K3 (with its scan) and K2 on
+    BLS12-381 held against their plain versions, K3 and a small scan on
+    BLS12-377, then each curve's G1 MSM at 2^20 points under
+    default_config(n, G), with the launch checks of the alt_bn128 paths
+    and no 8-limb kernel launched.  Prints each phase's line; returns
+    the results by key."""
+    from libff_tpu_torch import workload
+    from libff_tpu_torch.curves.device import device_curve
+    from libff_tpu_torch.msm.digits import num_signed_digits
+    from libff_tpu_torch.msm.pippenger import default_config
+
+    n = 1 << LOG2N
+    dc = device_curve("bls12_381")
+    G = dc.g1
+    cfg = default_config(n, G, dev)
+    out = {"k1e": phase_k1e(dc.fq, rng, dev)}
+    emit({"phase": "K1e bls12_381", **out["k1e"]})
+    out["inv"] = phase_inv(dc.fq, rng, dev)
+    emit({"phase": "K1e inv bls12_381", **out["inv"]})
+    W = num_signed_digits(G.order, scalar_bits(G), cfg.c)
+    out["k3"] = phase_k3(G, "g1", rng, dev, W, cfg.c)
+    emit({"phase": "K3 bls12_381 g1", **out["k3"]})
+    out["k3 bls12_377"] = phase_k3(device_curve("bls12_377").g1, "g1", rng,
+                                   dev, *SCAN_SMALL, n=K3_SMALL)
+    emit({"phase": "K3 bls12_377 g1", **out["k3 bls12_377"]})
+    out["k2"], inputs = phase_k2(dc, "g1", n, cfg, rng, dev, K2_N12_WINDOWS)
+    del inputs
+    emit({"phase": "K2 bls12_381 g1", **out["k2"]})
+    for curve in CURVES12:
+        dcc = device_curve(curve)
+        cfg = default_config(n, dcc.g1, dev)
+        case = workload.msm_case(dcc, "g1", LOG2N, dev, SEED)
+        r = phase_msm(dcc, "g1", LOG2N, case, cfg)
+        del case
+        emit({"phase": f"msm {curve} g1", **r})
+        got = r["launches"]
+        if got.get("K3 scan g1 n12", 0) != 1 or got.get("K2 g1 n12", 0) != 1:
+            fail(f"the {curve} path made {got.get('K3 scan g1 n12', 0)} K3 "
+                 f"scan and {got.get('K2 g1 n12', 0)} K2 launches, not 1")
+        if got.get("K1e inv n12", 0) != 1 or got.get("K1e n12", 0) > 8:
+            fail(f"the {curve} path made {got.get('K1e inv n12', 0)} K1e inv "
+                 f"and {got.get('K1e n12', 0)} K1e launches, not 1 and at "
+                 "most 8")
+        other = [k for k in got if not k.endswith(" n12") and k != "K2 sort g1"]
+        if other or got.get("K3 g1 n12", 0) < 1:
+            fail(f"the {curve} path launched {got}")
+        out[f"msm {curve} g1"] = r
+    return out
 
 
 def main() -> int:
@@ -967,10 +1112,10 @@ def main() -> int:
         """K3, K2, the merge kernels and every MSM configuration of one
         group's path."""
         n = 1 << log2n
-        cfg = default_config(n, dev)
         G = getattr(dc, group)
+        cfg = default_config(n, G, dev)
         # the scan's (W, c) on the path: W window totals, c doublings a step
-        W = num_signed_digits(G.order, 254, cfg.c)
+        W = num_signed_digits(G.order, scalar_bits(G), cfg.c)
         k3[group] = phase_k3(G, group, rng, dev, W, cfg.c)
         emit({"phase": f"K3 {group}", **k3[group]})
         k2[group], inputs = phase_k2(dc, group, n, cfg, rng, dev)
@@ -1012,6 +1157,10 @@ def main() -> int:
     emit({"phase": "K4e inv", **inv["fq2"]})
     group_path("g2", LOG2N_G2)
 
+    # the 12-limb G1 paths: BLS12-381 and BLS12-377 at 2^20 points
+    n12 = bls_paths(rng, dev)
+    msm.update({k[4:]: v for k, v in n12.items() if k.startswith("msm ")})
+
     # the field-mul benches; no MSM runs them, so their launches are
     # counted over these two phases
     torch.cuda.synchronize()
@@ -1029,7 +1178,7 @@ def main() -> int:
     k7_launches.update(k7e["launches"])
 
     kernels = kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof,
-                          k7e_rep, k7e, k7_launches, imad_rates(dev))
+                          k7e_rep, k7e, k7_launches, imad_rates(dev), n12)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

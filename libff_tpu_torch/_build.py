@@ -25,8 +25,15 @@ as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
 of products), "K7b lone" (one chain a thread: a product's latency),
 "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos", "K7d sos2"
 (chains of Fq2 products), and the batched-affine experiment as
-"K7e madd", "K7e affine" and "K7e inv".  A wrapper adds one where it
-launches its kernel and nowhere else.
+"K7e madd", "K7e affine" and "K7e inv".  The kernels over 12-limb Fp
+(BLS12-381 and BLS12-377 G1) count under the same names with the width
+appended: "K1e n12", "K1e inv n12", "K2 g1 n12", "K3 g1 n12", "K3 scan
+g1 n12" (their sort is the width-free "K2 sort g1").  A wrapper adds one
+where it launches its kernel and nowhere else.
+
+Each width has its own sources: csrc/<stem>.cu builds the 8-limb library
+and csrc/<stem>_n12.cu the 12-limb one (:func:`width_stem`), so nvcc
+compiles them in parallel.
 """
 
 from __future__ import annotations
@@ -71,6 +78,19 @@ def kmul_stem(stem: str, kmul: str) -> str:
     """The source (and library) that holds kernel `stem` over the product
     kmul: csrc/<stem>.cu for CIOS, csrc/<stem>_<kmul>.cu otherwise."""
     return stem if kmul == "cios" else f"{stem}_{kmul}"
+
+
+def width_stem(stem: str, n32: int) -> str:
+    """The source (and library) that holds kernel `stem` for a field of
+    n32 32-bit limbs: csrc/<stem>.cu for 8, csrc/<stem>_n<n32>.cu for
+    another width."""
+    return stem if n32 == 8 else f"{stem}_n{n32}"
+
+
+def width_name(name: str, n32: int) -> str:
+    """The launch-count key of a kernel branch at n32 limbs: the 8-limb
+    branch keeps the bare name."""
+    return name if n32 == 8 else f"{name} n{n32}"
 
 
 def _nvcc() -> str:

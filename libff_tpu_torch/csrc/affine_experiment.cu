@@ -72,7 +72,7 @@ __device__ __forceinline__ Fe<8> xor8(const Fe<8>& a, const Fe<8>& b) {
 __global__ void __launch_bounds__(kThreads)
     madd_kernel(uint32_t* out, const uint32_t* a, const uint32_t* b, int T,
                 int L, long long inst_stride, FieldParams<8> P) {
-  using F = FpField<9>;
+  using F = FpField<8, 9>;
   const F f{P};
   const int l = blockIdx.x * kThreads + threadIdx.x;
   const long long i = blockIdx.y;

@@ -5,12 +5,16 @@
 //
 // The formulas are templated on a field context F that supplies the
 // element type F::E, kThreads (the threads that hold an element: 1 here,
-// 2 for fp2_pair.cuh's Fp2Pair) and add/sub/dbl/mul/sqr/mul_b3/zero/one/
+// 2 for fp2_pair.cuh's Fp2Pair), kG1 (true over Fp, false over Fq2: the
+// kernels pick their G1 or G2 shape by it, not by the element's size,
+// which a 12-limb Fp element shares with no branch of theirs) and
+// add/sub/dbl/mul/sqr/mul_b3/zero/one/
 // is_zero/select, plus load/store of one element of a limb-major array:
 //
-//   FpField<B3, M>  Fp over fp.cuh; b3 = 3b is a compile-time constant
-//                multiplied in by mul_small's addition chain (9 for
-//                alt_bn128 G1).
+//   FpField<N, B3, M>  Fp of N 32-bit limbs over fp.cuh; b3 = 3b is a
+//                compile-time constant multiplied in by mul_small's
+//                addition chain: (8, 9) for alt_bn128 G1, (12, 12) for
+//                BLS12-381 G1 (b = 4), (12, 3) for BLS12-377 G1 (b = 1).
 //   Fp2Field<M>  Fq2 over fp2.cuh (K4); b3 = 3b' of the twist is a general
 //                Fq2 element, a runtime argument in Montgomery form, and
 //                mul_b3 is one Karatsuba product.  The JAX VM multiplies
@@ -27,11 +31,12 @@
 
 namespace lff {
 
-template <int B3, Mul M = Mul::Cios>
+template <int N, int B3, Mul M = Mul::Cios>
 struct FpField {
-  using E = Fe<8>;
+  using E = Fe<N>;
   static constexpr int kThreads = 1;  // threads an element
-  FieldParams<8> P;
+  static constexpr bool kG1 = true;
+  FieldParams<N> P;
 
   __device__ __forceinline__ E add(const E& a, const E& b) const {
     return lff::add(a, b, P);
@@ -47,10 +52,10 @@ struct FpField {
     return lff::mont_mul<M>(a, a, P);
   }
   __device__ __forceinline__ E mul_b3(const E& a) const {
-    return mul_small<B3, 8>(a, P);
+    return mul_small<B3, N>(a, P);
   }
-  __device__ __forceinline__ E zero() const { return lff::zero<8>(); }
-  __device__ __forceinline__ E one() const { return lff::one<8>(P); }
+  __device__ __forceinline__ E zero() const { return lff::zero<N>(); }
+  __device__ __forceinline__ E one() const { return lff::one<N>(P); }
   static __device__ __forceinline__ bool is_zero(const E& a) {
     return lff::is_zero(a);
   }
@@ -59,11 +64,11 @@ struct FpField {
   }
   static __device__ __forceinline__ E load(const uint32_t* base,
                                            size_t stride, size_t e) {
-    return lff::load<8>(base, stride, e);
+    return lff::load<N>(base, stride, e);
   }
   static __device__ __forceinline__ void store(uint32_t* base, size_t stride,
                                                size_t e, const E& a) {
-    lff::store<8>(base, stride, e, a);
+    lff::store<N>(base, stride, e, a);
   }
 };
 
@@ -71,6 +76,7 @@ template <Mul M = Mul::Cios>
 struct Fp2Field {
   using E = Fe2;
   static constexpr int kThreads = 1;
+  static constexpr bool kG1 = false;
   FieldParams<8> P;
   Fe2 b3;  // 3b' in Montgomery form
 

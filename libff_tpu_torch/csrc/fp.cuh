@@ -46,7 +46,16 @@
 // CIOS keeps 10.
 //
 // The PTX chains are written out for N = 8 (254-bit fields: alt_bn128's
-// Fq and Fr).  Wider fields add their own chains in a later slice.
+// Fq and Fr) with all three products, and for N = 12 (377- and 381-bit
+// fields: BLS12-377's and BLS12-381's Fq) with CIOS only.  At N = 12 a
+// CIOS row is still one asm block (27 operands, under the 30 that
+// GCC-style inline asm allows), but an add's or a subtract's 12 + 12
+// inputs and 13 outputs are not: those chains run as two blocks of 6 limbs, the
+// carry (or borrow) handed from the first to the second in a register
+// and set again as the second block's first instruction, so no flag is
+// asked to live between two asm statements.  A 12-limb product is 300
+// mul.lo and 288 mul.hi multiply-adds, 2.24 times the 8-limb one's issue
+// time.
 #pragma once
 
 #include <cstdint>
@@ -65,10 +74,11 @@ struct FieldParams {
 // The field context of the C entry points, from the host's limbs of p and
 // of the Montgomery one (null: zeros) and -p^-1 mod 2^32.  -inv is p^-1
 // mod 2^32; one Newton step y(2 - p y) lifts it to p^-1 mod 2^64.
-inline FieldParams<8> field_params(const uint32_t* p, const uint32_t* one,
+template <int N = 8>
+inline FieldParams<N> field_params(const uint32_t* p, const uint32_t* one,
                                    uint32_t inv) {
-  FieldParams<8> P{};
-  for (int i = 0; i < 8; i++) {
+  FieldParams<N> P{};
+  for (int i = 0; i < N; i++) {
     P.p[i] = p[i];
     P.one[i] = one != nullptr ? one[i] : 0;
   }
@@ -223,13 +233,6 @@ __device__ __forceinline__ Fe<8> sub(const Fe<8>& a, const Fe<8>& b,
   return d;
 }
 
-__device__ __forceinline__ Fe<8> neg(const Fe<8>& a, const FieldParams<8>& P) {
-  return sub(zero<8>(), a, P);
-}
-
-__device__ __forceinline__ Fe<8> dbl(const Fe<8>& a, const FieldParams<8>& P) {
-  return add(a, a, P);
-}
 
 // The canonical residue of r + top * 2^256 < 2p: r - p with its borrow,
 // kept unless the whole value was below p.
@@ -343,7 +346,231 @@ __device__ __forceinline__ Fe<8> mul(const Fe<8>& a, const Fe<8>& b,
   return reduce_once(r, t8, P);
 }
 
-__device__ __forceinline__ Fe<8> sqr(const Fe<8>& a, const FieldParams<8>& P) {
+
+// -- N = 12: the 6-limb halves of the add and subtract chains -------------
+
+// r[0..5] = a[0..5] + b[0..5] + cin (cin 0 or 1); returns the carry out.
+// The first instruction sets the carry flag from cin (cin + 2^32 - 1
+// carries exactly when cin = 1).
+__device__ __forceinline__ uint32_t add6(uint32_t* r, const uint32_t* a,
+                                         const uint32_t* b, uint32_t cin) {
+  uint32_t c;
+  asm volatile(
+      "{\n\t.reg .u32 z;\n\t"
+      "add.cc.u32  z, %19, 0xFFFFFFFF;\n\t"
+      "addc.cc.u32 %0, %7, %13;\n\t"
+      "addc.cc.u32 %1, %8, %14;\n\t"
+      "addc.cc.u32 %2, %9, %15;\n\t"
+      "addc.cc.u32 %3, %10, %16;\n\t"
+      "addc.cc.u32 %4, %11, %17;\n\t"
+      "addc.cc.u32 %5, %12, %18;\n\t"
+      "addc.u32    %6, 0, 0;\n\t"
+      "}"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(cin));
+  return c;
+}
+
+// r[0..5] = a[0..5] - b[0..5] - bin (bin 0 or 1); returns the borrow out,
+// 0 or 1.  The first instruction sets the borrow from bin (0 - bin
+// borrows exactly when bin = 1).
+__device__ __forceinline__ uint32_t sub6(uint32_t* r, const uint32_t* a,
+                                         const uint32_t* b, uint32_t bin) {
+  uint32_t w;
+  asm volatile(
+      "{\n\t.reg .u32 z;\n\t"
+      "sub.cc.u32  z, 0, %19;\n\t"
+      "subc.cc.u32 %0, %7, %13;\n\t"
+      "subc.cc.u32 %1, %8, %14;\n\t"
+      "subc.cc.u32 %2, %9, %15;\n\t"
+      "subc.cc.u32 %3, %10, %16;\n\t"
+      "subc.cc.u32 %4, %11, %17;\n\t"
+      "subc.cc.u32 %5, %12, %18;\n\t"
+      "subc.u32    %6, 0, 0;\n\t"
+      "}"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(w)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(bin));
+  return 0u - w;  // w is 0 or all ones
+}
+
+// a + b mod p at N = 12, as the 8-limb add: the difference s - p is kept
+// unless the sum s (with its carry c) is below p, that is unless c = 0
+// and s - p borrowed.
+__device__ __forceinline__ Fe<12> add(const Fe<12>& a, const Fe<12>& b,
+                                      const FieldParams<12>& P) {
+  Fe<12> s, d;
+  uint32_t c = add6(s.v, a.v, b.v, 0);
+  c = add6(s.v + 6, a.v + 6, b.v + 6, c);
+  uint32_t w = sub6(d.v, s.v, P.p, 0);
+  w = sub6(d.v + 6, s.v + 6, P.p + 6, w);
+  return select(c != 0 || w == 0, d, s);
+}
+
+// a - b mod p at N = 12: the difference with its borrow, then p added
+// back where it borrowed (one block: 12 in-out and 12 inputs).
+__device__ __forceinline__ Fe<12> sub(const Fe<12>& a, const Fe<12>& b,
+                                      const FieldParams<12>& P) {
+  Fe<12> d;
+  uint32_t w = sub6(d.v, a.v, b.v, 0);
+  w = sub6(d.v + 6, a.v + 6, b.v + 6, w);
+  const uint32_t m = 0u - w;
+  asm volatile(
+      "add.cc.u32  %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32    %11, %11, %23;"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]),
+        "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7]),
+        "+r"(d.v[8]), "+r"(d.v[9]), "+r"(d.v[10]), "+r"(d.v[11])
+      : "r"(P.p[0] & m), "r"(P.p[1] & m), "r"(P.p[2] & m), "r"(P.p[3] & m),
+        "r"(P.p[4] & m), "r"(P.p[5] & m), "r"(P.p[6] & m), "r"(P.p[7] & m),
+        "r"(P.p[8] & m), "r"(P.p[9] & m), "r"(P.p[10] & m),
+        "r"(P.p[11] & m));
+  return d;
+}
+
+// The canonical residue of r + top * 2^384 < 2p (top 0 or 1): r - p,
+// kept unless the whole value was below p (top = 0 and r - p borrowed).
+__device__ __forceinline__ Fe<12> reduce_once(const uint32_t* r, uint32_t top,
+                                              const FieldParams<12>& P) {
+  Fe<12> d, v;
+  uint32_t w = sub6(d.v, r, P.p, 0);
+  w = sub6(d.v + 6, r + 6, P.p + 6, w);
+#pragma unroll
+  for (int k = 0; k < 12; k++) v.v[k] = r[k];
+  return select(top == w, d, v);
+}
+
+// The 12-limb CIOS product, the 8-limb mul's rows over a fourteen-word
+// accumulator t0..t13; each row's chain is one asm block.
+__device__ __forceinline__ Fe<12> mul(const Fe<12>& a, const Fe<12>& b,
+                                      const FieldParams<12>& P) {
+  uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0,
+           t8 = 0, t9 = 0, t10 = 0, t11 = 0, t12 = 0, t13 = 0;
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    const uint32_t ai = a.v[i];
+    asm volatile(
+        "mad.lo.cc.u32  %0, %14, %15, %0;\n\t"
+        "madc.lo.cc.u32 %1, %14, %16, %1;\n\t"
+        "madc.lo.cc.u32 %2, %14, %17, %2;\n\t"
+        "madc.lo.cc.u32 %3, %14, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %19, %4;\n\t"
+        "madc.lo.cc.u32 %5, %14, %20, %5;\n\t"
+        "madc.lo.cc.u32 %6, %14, %21, %6;\n\t"
+        "madc.lo.cc.u32 %7, %14, %22, %7;\n\t"
+        "madc.lo.cc.u32 %8, %14, %23, %8;\n\t"
+        "madc.lo.cc.u32 %9, %14, %24, %9;\n\t"
+        "madc.lo.cc.u32 %10, %14, %25, %10;\n\t"
+        "madc.lo.cc.u32 %11, %14, %26, %11;\n\t"
+        "addc.cc.u32    %12, %12, 0;\n\t"
+        "addc.u32       %13, 0, 0;"
+        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5),
+          "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9), "+r"(t10), "+r"(t11),
+          "+r"(t12), "=r"(t13)
+        : "r"(ai), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+          "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(b.v[8]),
+          "r"(b.v[9]), "r"(b.v[10]), "r"(b.v[11]));
+    asm volatile(
+        "mad.hi.cc.u32  %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %15, %1;\n\t"
+        "madc.hi.cc.u32 %2, %13, %16, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %17, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %19, %5;\n\t"
+        "madc.hi.cc.u32 %6, %13, %20, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %21, %7;\n\t"
+        "madc.hi.cc.u32 %8, %13, %22, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %23, %9;\n\t"
+        "madc.hi.cc.u32 %10, %13, %24, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %25, %11;\n\t"
+        "addc.u32       %12, %12, 0;"
+        : "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6),
+          "+r"(t7), "+r"(t8), "+r"(t9), "+r"(t10), "+r"(t11), "+r"(t12),
+          "+r"(t13)
+        : "r"(ai), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+          "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(b.v[8]),
+          "r"(b.v[9]), "r"(b.v[10]), "r"(b.v[11]));
+    const uint32_t m = t0 * P.inv;
+    // t0 + lo(m*p0) is 0 mod 2^32 by the choice of m; only its carry is kept
+    asm volatile(
+        "{\n\t.reg .u32 z;\n\t"
+        "mad.lo.cc.u32  z, %14, %15, %13;\n\t"
+        "madc.lo.cc.u32 %0, %14, %16, %0;\n\t"
+        "madc.lo.cc.u32 %1, %14, %17, %1;\n\t"
+        "madc.lo.cc.u32 %2, %14, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %14, %19, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %20, %4;\n\t"
+        "madc.lo.cc.u32 %5, %14, %21, %5;\n\t"
+        "madc.lo.cc.u32 %6, %14, %22, %6;\n\t"
+        "madc.lo.cc.u32 %7, %14, %23, %7;\n\t"
+        "madc.lo.cc.u32 %8, %14, %24, %8;\n\t"
+        "madc.lo.cc.u32 %9, %14, %25, %9;\n\t"
+        "madc.lo.cc.u32 %10, %14, %26, %10;\n\t"
+        "addc.cc.u32    %11, %11, 0;\n\t"
+        "addc.u32       %12, %12, 0;\n\t"
+        "}"
+        : "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6),
+          "+r"(t7), "+r"(t8), "+r"(t9), "+r"(t10), "+r"(t11), "+r"(t12),
+          "+r"(t13)
+        : "r"(t0), "r"(m), "r"(P.p[0]), "r"(P.p[1]), "r"(P.p[2]),
+          "r"(P.p[3]), "r"(P.p[4]), "r"(P.p[5]), "r"(P.p[6]), "r"(P.p[7]),
+          "r"(P.p[8]), "r"(P.p[9]), "r"(P.p[10]), "r"(P.p[11]));
+    asm volatile(
+        "mad.hi.cc.u32  %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %15, %1;\n\t"
+        "madc.hi.cc.u32 %2, %13, %16, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %17, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %19, %5;\n\t"
+        "madc.hi.cc.u32 %6, %13, %20, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %21, %7;\n\t"
+        "madc.hi.cc.u32 %8, %13, %22, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %23, %9;\n\t"
+        "madc.hi.cc.u32 %10, %13, %24, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %25, %11;\n\t"
+        "addc.u32       %12, %12, 0;"
+        : "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6),
+          "+r"(t7), "+r"(t8), "+r"(t9), "+r"(t10), "+r"(t11), "+r"(t12),
+          "+r"(t13)
+        : "r"(m), "r"(P.p[0]), "r"(P.p[1]), "r"(P.p[2]), "r"(P.p[3]),
+          "r"(P.p[4]), "r"(P.p[5]), "r"(P.p[6]), "r"(P.p[7]), "r"(P.p[8]),
+          "r"(P.p[9]), "r"(P.p[10]), "r"(P.p[11]));
+    t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5; t5 = t6; t6 = t7; t7 = t8;
+    t8 = t9; t9 = t10; t10 = t11; t11 = t12; t12 = t13;
+  }
+  const uint32_t r[12] = {t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, t11};
+  return reduce_once(r, t12, P);
+}
+
+// -- every width ------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ Fe<N> neg(const Fe<N>& a, const FieldParams<N>& P) {
+  return sub(zero<N>(), a, P);
+}
+
+template <int N>
+__device__ __forceinline__ Fe<N> dbl(const Fe<N>& a, const FieldParams<N>& P) {
+  return add(a, a, P);
+}
+
+template <int N>
+__device__ __forceinline__ Fe<N> sqr(const Fe<N>& a, const FieldParams<N>& P) {
   return mul(a, a, P);
 }
 
@@ -463,8 +690,17 @@ __device__ __forceinline__ Fe<8> mont_mul(const Fe<8>& a, const Fe<8>& b,
   }
 }
 
+// At N = 12 CIOS only: the SOS products wait for their 12-limb chains.
+template <Mul M>
+__device__ __forceinline__ Fe<12> mont_mul(const Fe<12>& a, const Fe<12>& b,
+                                           const FieldParams<12>& P) {
+  static_assert(M == Mul::Cios, "the 12-limb product is CIOS only");
+  return mul(a, b, P);
+}
+
 // a * K for a small compile-time constant K >= 1, by the binary addition
-// chain of fp.py:118-141 (b3 = 9 for alt_bn128: 2a, 4a, 8a, 8a + a).
+// chain of fp.py:118-141 (b3 = 9 for alt_bn128: 2a, 4a, 8a, 8a + a; 12 for
+// BLS12-381, 3 for BLS12-377).
 template <int K, int N>
 __device__ __forceinline__ Fe<N> mul_small(const Fe<N>& a,
                                            const FieldParams<N>& P) {
@@ -489,9 +725,10 @@ __device__ __forceinline__ Fe<N> mul_small(const Fe<N>& a,
 // 0 to 0.  Every product depends on the one before, so one element's
 // ladder is a latency chain of top + popcount(e) - 1 CIOS products (362
 // for alt_bn128's Fq), kept in registers.
-__device__ __forceinline__ Fe<8> pow_ladder(const Fe<8>& x, const uint32_t* e,
-                                            int top, const FieldParams<8>& P) {
-  Fe<8> acc = x;
+template <int N>
+__device__ __forceinline__ Fe<N> pow_ladder(const Fe<N>& x, const uint32_t* e,
+                                            int top, const FieldParams<N>& P) {
+  Fe<N> acc = x;
 #pragma unroll 1
   for (int i = top - 1; i >= 0; i--) {
     acc = mul(acc, acc, P);

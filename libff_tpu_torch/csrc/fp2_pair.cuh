@@ -79,6 +79,7 @@ __device__ __forceinline__ Fe<8> redc_pair(const Fe<8>& a, const Fe<8>& u,
 struct Fp2Pair {
   using E = Fe<8>;
   static constexpr int kThreads = 2;  // threads an element
+  static constexpr bool kG1 = false;
   FieldParams<8> P;
   Fe2 b3;        // 3b' in Montgomery form
 

@@ -29,6 +29,13 @@
 // elements the multiplies bound it (362 products an element against 64
 // bytes moved).
 //
+// Widths: this file builds the 8-limb library (alt_bn128's Fq, every
+// entry); fp_ops_n12.cu builds K1e and K1e inv again at LFF_N32 = 12
+// (BLS12-381's and BLS12-377's Fq), its own translation unit.  The Fq2
+// entries are 8-limb only.  At 12 limbs a product is 588 IMADs (about
+// 52 ps of the card) against 144 bytes (43 ps), and the inverse's ladder
+// is 608 (BLS12-381) or 554 (BLS12-377) dependent products.
+//
 // Bound on an H100: memory for Fp add/sub/mul and Fq2 add/sub, multiply
 // issue for the Fq2 products.  At the issue rates K7c measures
 // (issue_rates.cu: mul.lo about 61, mul.hi about 31 a clock per SM), an Fp
@@ -38,24 +45,32 @@
 // layout makes every limb load a coalesced 128-byte warp transaction.
 #include "fp2.cuh"
 
+// the limb count of the library's field (8 unless a width's own source
+// sets it before including this file)
+#ifndef LFF_N32
+#define LFF_N32 8
+#endif
+
 using namespace lff;
 
 namespace {
 
 enum Op { kAdd = 0, kSub = 1, kMul = 2 };
 
-// element e of group g at column e of the (8, n) array at out + g*8*n
+constexpr int N = LFF_N32;
+
+// element e of group g at column e of the (N, n) array at out + g*N*n
 template <int OP>
 __global__ void __launch_bounds__(256)
     fp_elementwise(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                   long long n, long long total, FieldParams<8> P) {
+                   long long n, long long total, FieldParams<N> P) {
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const long long off = (t / n) * 8 * n;
+  const long long off = (t / n) * N * n;
   const long long e = t % n;
-  const Fe<8> x = load<8>(a + off, n, e);
-  const Fe<8> y = load<8>(b + off, n, e);
-  Fe<8> r;
+  const Fe<N> x = load<N>(a + off, n, e);
+  const Fe<N> y = load<N>(b + off, n, e);
+  Fe<N> r;
   if constexpr (OP == kAdd) {
     r = add(x, y, P);
   } else if constexpr (OP == kSub) {
@@ -63,7 +78,7 @@ __global__ void __launch_bounds__(256)
   } else {
     r = mul(x, y, P);
   }
-  store<8>(out + off, n, e, r);
+  store<N>(out + off, n, e, r);
 }
 
 template <bool SQR>
@@ -85,8 +100,8 @@ __global__ void __launch_bounds__(256)
 // the exponent of an inverse: p - 2 as 32-bit words, little-endian, and
 // the index of its leading bit; with the field, one kernel parameter
 struct InvParams {
-  FieldParams<8> P;
-  uint32_t e[8];
+  FieldParams<N> P;
+  uint32_t e[N];
   int top;
 };
 
@@ -99,8 +114,10 @@ __global__ void __launch_bounds__(kInvThreads)
                   const __grid_constant__ InvParams q) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= n) return;
-  store<8>(out, n, e, pow_ladder(load<8>(a, n, e), q.e, q.top, q.P));
+  store<N>(out, n, e, pow_ladder(load<N>(a, n, e), q.e, q.top, q.P));
 }
+
+#if LFF_N32 == 8
 
 // K4e inv with nr = -1: t = a0^2 - nr a1^2 = a0^2 + a1^2, ti = t^(p-2),
 // out = (a0 ti, -a1 ti)
@@ -115,12 +132,13 @@ __global__ void __launch_bounds__(kInvThreads)
   const Fe<8> ti = pow_ladder(t, q.e, q.top, P);
   store2(out, n, e, Fe2{mul(x.c0, ti, P), neg(mul(x.c1, ti, P), P)});
 }
+#endif
 
 template <int OP>
 int launch(void* out, const void* a, const void* b, long long n, int groups,
            int n32, const uint32_t* p, uint32_t inv, int device,
            void* stream) {
-  if (n32 != 8 || n < 0 || groups < 1) return (int)cudaErrorInvalidValue;
+  if (n32 != N || n < 0 || groups < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long total = n * groups;
@@ -129,10 +147,11 @@ int launch(void* out, const void* a, const void* b, long long n, int groups,
   const long long blocks = (total + threads - 1) / threads;
   fp_elementwise<OP><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n, total,
-      field_params(p, nullptr, inv));
+      field_params<N>(p, nullptr, inv));
   return (int)cudaGetLastError();
 }
 
+#if LFF_N32 == 8
 template <bool SQR>
 int launch2(void* out, const void* a, const void* b, long long n, int n32,
             const uint32_t* p, uint32_t inv, int device, void* stream) {
@@ -147,26 +166,29 @@ int launch2(void* out, const void* a, const void* b, long long n, int n32,
       field_params(p, nullptr, inv));
   return (int)cudaGetLastError();
 }
+#endif
 
 template <bool FQ2>
 int launch_inv(void* out, const void* a, long long n, int n32,
                const uint32_t* p, uint32_t inv, const uint32_t* e, int top,
                int device, void* stream) {
-  if (n32 != 8 || n < 0 || top < 1 || top >= 256)
+  if (n32 != N || n < 0 || top < 1 || top >= 32 * N)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   InvParams q;
-  q.P = field_params(p, nullptr, inv);
-  for (int k = 0; k < 8; k++) q.e[k] = e[k];
+  q.P = field_params<N>(p, nullptr, inv);
+  for (int k = 0; k < N; k++) q.e[k] = e[k];
   q.top = top;
   const long long blocks = (n + kInvThreads - 1) / kInvThreads;
   auto* o = (uint32_t*)out;
   auto* x = (const uint32_t*)a;
   const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (FQ2) {
+#if LFF_N32 == 8
     fq2_inv_kernel<<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
+#endif
   } else {
     fp_inv_kernel<<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
   }
@@ -177,7 +199,7 @@ int launch_inv(void* out, const void* a, long long n, int n32,
 
 extern "C" {
 
-// K1e: n elements in each of `groups` (8, n) arrays
+// K1e: n elements in each of `groups` (N, n) arrays; n32 must be N
 int fp_add(void* out, const void* a, const void* b, long long n, int groups,
            int n32, const uint32_t* p, uint32_t inv, int device,
            void* stream) {
@@ -196,6 +218,7 @@ int fp_mul(void* out, const void* a, const void* b, long long n, int groups,
   return launch<kMul>(out, a, b, n, groups, n32, p, inv, device, stream);
 }
 
+#if LFF_N32 == 8
 // K4e: n Fq2 elements, (2, 8, n) arrays; fq2_sqr ignores b
 int fq2_mul(void* out, const void* a, const void* b, long long n, int n32,
             const uint32_t* p, uint32_t inv, int device, void* stream) {
@@ -207,19 +230,23 @@ int fq2_sqr(void* out, const void* a, const void* b, long long n, int n32,
   return launch2<true>(out, a, b, n, n32, p, inv, device, stream);
 }
 
-// K1e inv: the inverses of n Fp elements, (8, n) arrays; e holds p - 2's
-// eight words and top the index of its leading bit
+#endif
+
+// K1e inv: the inverses of n Fp elements, (N, n) arrays; e holds p - 2's
+// N words and top the index of its leading bit
 int fp_inv(void* out, const void* a, long long n, int n32, const uint32_t* p,
            uint32_t inv, const uint32_t* e, int top, int device,
            void* stream) {
   return launch_inv<false>(out, a, n, n32, p, inv, e, top, device, stream);
 }
 
+#if LFF_N32 == 8
 // K4e inv: the inverses of n Fq2 elements, (2, 8, n) arrays
 int fq2_inv(void* out, const void* a, long long n, int n32, const uint32_t* p,
             uint32_t inv, const uint32_t* e, int top, int device,
             void* stream) {
   return launch_inv<true>(out, a, n, n32, p, inv, e, top, device, stream);
 }
+#endif
 
 }  // extern "C"

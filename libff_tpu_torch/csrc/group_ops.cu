@@ -17,6 +17,13 @@
 // once and written once, limb-major ((8, n) for Fp, (2, 8, n) for Fq2), so
 // every limb load of a warp is one 128-byte transaction.
 //
+// Widths: this file builds the 8-limb library (alt_bn128: G1 with b3 = 9,
+// G2); group_ops_n12.cu builds it again with LFF_N32 = 12, the G1 branch
+// over 12-limb Fp (BLS12-381 with b3 = 12, BLS12-377 with b3 = 3), each
+// width its own translation unit, so nvcc compiles them in parallel.  At
+// 12 limbs a padd is 12 products of 588 IMADs (7,056) against 6 x 48
+// bytes in and 3 x 48 out: still the multiplies.
+//
 // G2 runs its formulas over fp2_pair.cuh's Fp2Pair: the two threads of a
 // pair each hold one coefficient of every Fq2 value and swap operands by
 // shuffle, so a thread keeps half of a G2 formula's values.  With one
@@ -24,8 +31,6 @@
 // needs 255 registers and spills, which leaves 8 warps an SM to hide the
 // products' carry chains.  A pair's lanes are adjacent, so a warp's limb
 // loads are two 64-byte runs, one a coefficient.
-#include <type_traits>
-
 #include "formulas.cuh"
 #include "fp2_pair.cuh"
 
@@ -38,6 +43,11 @@
 #ifndef LFF_K3_MIN_BLOCKS_G2_JAC
 #define LFF_K3_MIN_BLOCKS_G2_JAC 3
 #endif
+// the limb count of the library's field (8 unless a width's own source
+// sets it before including this file)
+#ifndef LFF_N32
+#define LFF_N32 8
+#endif
 
 using namespace lff;
 
@@ -46,7 +56,7 @@ namespace {
 enum Op { kPadd = 0, kPmadd = 1, kPdbl = 2, kAdd = 3, kMadd = 4, kDbl = 5 };
 
 struct OpArgs {
-  const uint32_t* in[6];  // coordinates, each (8, n) or (2, 8, n)
+  const uint32_t* in[6];  // coordinates, each (N, n) or (2, 8, n)
   const int32_t* mask;    // (n,) q_inf for pmadd/madd, else unused
   uint32_t* out[3];
   long long n;
@@ -126,7 +136,7 @@ __global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_MIN_BLOCKS_G2_PROJ
 template <class F, int OP>
 void launch_one(const OpArgs& A, const F& f, cudaStream_t s) {
   constexpr int threads = 128;
-  if constexpr (std::is_same_v<F, FpField<9>>) {
+  if constexpr (F::kG1) {
     const int blocks = (int)((A.n + threads - 1) / threads);
     group_op_kernel<F, OP><<<blocks, threads, 0, s>>>(A, f);
   } else {
@@ -151,15 +161,19 @@ int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
 
 }  // namespace
 
-// k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3_mont
-// holds the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).
+// n32 must be the library's width.  At 8 limbs k = 1 needs b3 = 9
+// (alt_bn128 G1) and leaves b3_mont unused; k = 2: b3_mont holds the 16
+// Montgomery limbs of the Fq2 constant b3 (c0 then c1).  At 12 limbs k
+// must be 1, with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).
 extern "C" int group_op(int op, void* const* in, const void* mask,
                         void* const* out, long long n, int n32, int k,
                         int b3, const uint32_t* b3_mont, const uint32_t* p,
                         const uint32_t* one_mont, uint32_t inv, int device,
                         void* stream) {
-  if (n32 != 8 || n < 0) return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
+  constexpr int N = LFF_N32;
+  if (n32 != N || n < 0) return (int)cudaErrorInvalidValue;
+  if (N == 8 ? !(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr)
+             : !(k == 1 && (b3 == 12 || b3 == 3)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -169,13 +183,20 @@ extern "C" int group_op(int op, void* const* in, const void* mask,
   A.mask = (const int32_t*)mask;
   for (int i = 0; i < 3; i++) A.out[i] = (uint32_t*)out[i];
   A.n = n;
-  const FieldParams<8> P = field_params(p, one_mont, inv);
+  const FieldParams<N> P = field_params<N>(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1) return launch_op(op, A, FpField<9>{P}, s);
+#if LFF_N32 == 8
+  if (k == 1) return launch_op(op, A, FpField<8, 9>{P}, s);
   Fe2 b3c;
   for (int i = 0; i < 8; i++) {
     b3c.c0.v[i] = b3_mont[i];
     b3c.c1.v[i] = b3_mont[8 + i];
   }
   return launch_op(op, A, Fp2Pair{P, b3c}, s);
+#elif LFF_N32 == 12
+  if (b3 == 12) return launch_op(op, A, FpField<12, 12>{P}, s);
+  return launch_op(op, A, FpField<12, 3>{P}, s);
+#else
+#error "group_ops.cu is built for 8 or 12 limbs"
+#endif
 }

@@ -36,33 +36,58 @@
 //     launch needs no co-residency, and the last add writes the result.
 //     A pair whose upper slot is padding adds the identity itself, as the
 //     padded tree does.
+//
+// Widths: this file builds the 8-limb library (alt_bn128 G1 and G2);
+// horner_n12.cu builds it again at LFF_N32 = 12, the G1 branch over
+// 12-limb Fp with b3 = 12 (BLS12-381) or 3 (BLS12-377), its own
+// translation unit.  An element's slot is then three 16-byte words.
 #include "fp2.cuh"
+
+// the limb count of the library's field (8 unless a width's own source
+// sets it before including this file)
+#ifndef LFF_N32
+#define LFF_N32 8
+#endif
 
 using namespace lff;
 
 namespace {
 
+constexpr int N = LFF_N32;
+// 16-byte words of a base-field element: 2 at 8 limbs, 3 at 12
+constexpr int kQuads = N / 4;
+
 // base products of one level: an Fq2 add's six Karatsuba products
 constexpr int kMaxLevel = 18;
 
-// one window's exchange: the level's operands and its products, 32 bytes
-// an element
+// one window's exchange: the level's operands and its products, 4 N
+// bytes an element
 struct Slots {
-  uint4 a[kMaxLevel][2], b[kMaxLevel][2], r[kMaxLevel][2];
+  uint4 a[kMaxLevel][kQuads], b[kMaxLevel][kQuads], r[kMaxLevel][kQuads];
 };
 
-__device__ __forceinline__ void put(uint4* s, const Fe<8>& x) {
-  s[0] = make_uint4(x.v[0], x.v[1], x.v[2], x.v[3]);
-  s[1] = make_uint4(x.v[4], x.v[5], x.v[6], x.v[7]);
+__device__ __forceinline__ void put(uint4* s, const Fe<N>& x) {
+#pragma unroll
+  for (int q = 0; q < kQuads; q++)
+    s[q] = make_uint4(x.v[4 * q], x.v[4 * q + 1], x.v[4 * q + 2],
+                      x.v[4 * q + 3]);
 }
 
-__device__ __forceinline__ Fe<8> get(const uint4* s) {
-  const uint4 lo = s[0], hi = s[1];
-  return Fe<8>{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+__device__ __forceinline__ Fe<N> get(const uint4* s) {
+  Fe<N> x;
+#pragma unroll
+  for (int q = 0; q < kQuads; q++) {
+    const uint4 w = s[q];
+    x.v[4 * q] = w.x;
+    x.v[4 * q + 1] = w.y;
+    x.v[4 * q + 2] = w.z;
+    x.v[4 * q + 3] = w.w;
+  }
+  return x;
 }
 
-__device__ __forceinline__ void operands(Slots& s, int j, const Fe<8>& x,
-                                         const Fe<8>& y) {
+__device__ __forceinline__ void operands(Slots& s, int j, const Fe<N>& x,
+                                         const Fe<N>& y) {
   put(s.a[j], x);
   put(s.b[j], y);
 }
@@ -71,7 +96,7 @@ __device__ __forceinline__ void operands(Slots& s, int j, const Fe<8>& x,
 // lane j < n multiplies pair j, and after the second barrier every lane
 // reads every product.
 __device__ __forceinline__ void level(Slots& s, int n,
-                                      const FieldParams<8>& P) {
+                                      const FieldParams<N>& P) {
   __syncwarp();
   const int lane = threadIdx.x & 31;
   if (lane < n) put(s.r[lane], mul(get(s.a[lane]), get(s.b[lane]), P));
@@ -84,29 +109,31 @@ template <class E>
 struct Ops;
 
 template <>
-struct Ops<Fe<8>> {
+struct Ops<Fe<N>> {
   static constexpr int kMul = 1, kSqr = 1;
-  static __device__ __forceinline__ void mul(Slots& s, int j, const Fe<8>& x,
-                                             const Fe<8>& y,
-                                             const FieldParams<8>&) {
+  static __device__ __forceinline__ void mul(Slots& s, int j, const Fe<N>& x,
+                                             const Fe<N>& y,
+                                             const FieldParams<N>&) {
     operands(s, j, x, y);
   }
-  static __device__ __forceinline__ void sqr(Slots& s, int j, const Fe<8>& x,
-                                             const FieldParams<8>&) {
+  static __device__ __forceinline__ void sqr(Slots& s, int j, const Fe<N>& x,
+                                             const FieldParams<N>&) {
     operands(s, j, x, x);
   }
-  static __device__ __forceinline__ Fe<8> mul_out(const Slots& s, int j,
-                                                  const FieldParams<8>&) {
+  static __device__ __forceinline__ Fe<N> mul_out(const Slots& s, int j,
+                                                  const FieldParams<N>&) {
     return get(s.r[j]);
   }
-  static __device__ __forceinline__ Fe<8> sqr_out(const Slots& s, int j,
-                                                  const FieldParams<8>&) {
+  static __device__ __forceinline__ Fe<N> sqr_out(const Slots& s, int j,
+                                                  const FieldParams<N>&) {
     return get(s.r[j]);
   }
-  static __device__ __forceinline__ Fe<8> one(const FieldParams<8>& P) {
-    return lff::one<8>(P);
+  static __device__ __forceinline__ Fe<N> one(const FieldParams<N>& P) {
+    return lff::one<N>(P);
   }
 };
+
+#if LFF_N32 == 8
 
 // Fq2 (nr = p - 1): fp2.cuh's Karatsuba product (v0, v1, (a0+a1)(b0+b1))
 // and complex square (a0 a1, (a0+a1)(a0-a1)), recombined as there
@@ -138,23 +165,28 @@ struct Ops<Fe2> {
     return Fe2{lff::one<8>(P), zero<8>()};
   }
 };
+#endif
 
 template <class E>
 struct Pt {
   E x, y, z;
 };
 
-// b3 times a (and times b): G1's b3 = 9 by fp.cuh's addition chain, G2's
-// the twist's Fq2 constant, one level of Karatsuba products
-__device__ __forceinline__ void times_b3(Slots&, const Fe<8>& a,
-                                         const Fe<8>& b, Fe<8>& ra,
-                                         Fe<8>& rb, int both,
-                                         const FieldParams<8>& P,
+// b3 times a (and times b): G1's b3 (B3: 9 for alt_bn128, 12 for
+// BLS12-381, 3 for BLS12-377) by fp.cuh's addition chain, G2's the
+// twist's Fq2 constant, one level of Karatsuba products
+template <int B3>
+__device__ __forceinline__ void times_b3(Slots&, const Fe<N>& a,
+                                         const Fe<N>& b, Fe<N>& ra,
+                                         Fe<N>& rb, int both,
+                                         const FieldParams<N>& P,
                                          const Fe2&) {
-  ra = mul_small<9, 8>(a, P);
-  if (both) rb = mul_small<9, 8>(b, P);
+  ra = mul_small<B3, N>(a, P);
+  if (both) rb = mul_small<B3, N>(b, P);
 }
 
+#if LFF_N32 == 8
+template <int B3>
 __device__ __forceinline__ void times_b3(Slots& s, const Fe2& a,
                                          const Fe2& b, Fe2& ra, Fe2& rb,
                                          int both, const FieldParams<8>& P,
@@ -165,11 +197,12 @@ __device__ __forceinline__ void times_b3(Slots& s, const Fe2& a,
   ra = Ops<Fe2>::mul_out(s, 0, P);
   if (both) rb = Ops<Fe2>::mul_out(s, 3, P);
 }
+#endif
 
 // rcb_dbl (formulas.cuh; formulas.py:124-138) with its products by level
-template <class E>
+template <class E, int B3>
 __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
-                                          const FieldParams<8>& P,
+                                          const FieldParams<N>& P,
                                           const Fe2& b3) {
   using O = Ops<E>;
   constexpr int M = O::kMul, S = O::kSqr;
@@ -183,7 +216,7 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
   const E xy = O::mul_out(s, 2 * S + M, P);
   const E rz = dbl(dbl(dbl(t0, P), P), P);
   E t2;
-  times_b3(s, zz, zz, t2, t2, 0, P, b3);
+  times_b3<B3>(s, zz, zz, t2, t2, 0, P, b3);
   const E ry = add(t0, t2, P);
   t0 = sub(t0, add(dbl(t2, P), t2, P), P);
   O::mul(s, 0, t2, rz, P);                 // x3 = t2 z3
@@ -199,10 +232,10 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
 }
 
 // rcb_add (formulas.cuh; formulas.py:77-100) with its products by level
-template <class E>
+template <class E, int B3>
 __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
                                           const Pt<E>& q,
-                                          const FieldParams<8>& P,
+                                          const FieldParams<N>& P,
                                           const Fe2& b3) {
   using O = Ops<E>;
   constexpr int M = O::kMul;
@@ -220,7 +253,7 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   const E t5 = sub(O::mul_out(s, 5 * M, P), add(t0, t2, P), P);
   t0 = add(dbl(t0, P), t0, P);
   E ry;
-  times_b3(s, t2, t5, t2, ry, 1, P, b3);
+  times_b3<B3>(s, t2, t5, t2, ry, 1, P, b3);
   const E rz = add(t1, t2, P);
   t1 = sub(t1, t2, P);
   O::mul(s, 0, t3, t1, P);
@@ -237,25 +270,31 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   return r;
 }
 
-// A point of limb-major (k, 8, n) coordinate arrays: coefficient c's limb
-// i at base[(c * 8 + i) * n + e].  ld.global.cg where another block wrote
+// A point of limb-major (k, N, n) coordinate arrays: coefficient c's limb
+// i at base[(c * N + i) * n + e].  ld.global.cg where another block wrote
 // it in this launch: L2, never a stale L1 line.
 template <bool kCg>
-__device__ __forceinline__ Fe<8> load_el(const uint32_t* base, long long n,
+__device__ __forceinline__ Fe<N> load_el(const uint32_t* base, long long n,
                                          long long e) {
-  Fe<8> r;
+  Fe<N> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.v[i] = kCg ? __ldcg(base + i * n + e)
+  for (int i = 0; i < N; i++) r.v[i] = kCg ? __ldcg(base + i * n + e)
                                            : base[i * n + e];
   return r;
 }
 
 template <bool kCg>
-__device__ __forceinline__ void load_as(Fe<8>& r, const uint32_t* base,
+__device__ __forceinline__ void load_as(Fe<N>& r, const uint32_t* base,
                                         long long n, long long e) {
   r = load_el<kCg>(base, n, e);
 }
 
+__device__ __forceinline__ void store_as(uint32_t* base, long long n,
+                                         long long e, const Fe<N>& a) {
+  store<N>(base, n, e, a);
+}
+
+#if LFF_N32 == 8
 template <bool kCg>
 __device__ __forceinline__ void load_as(Fe2& r, const uint32_t* base,
                                         long long n, long long e) {
@@ -264,19 +303,15 @@ __device__ __forceinline__ void load_as(Fe2& r, const uint32_t* base,
 }
 
 __device__ __forceinline__ void store_as(uint32_t* base, long long n,
-                                         long long e, const Fe<8>& a) {
-  store<8>(base, n, e, a);
-}
-
-__device__ __forceinline__ void store_as(uint32_t* base, long long n,
                                          long long e, const Fe2& a) {
   store2(base, n, e, a);
 }
+#endif
 
 struct ScanArgs {
-  const uint32_t* in[3];  // the totals' X, Y, Z, each (k, 8, W)
-  uint32_t* slot[3];      // the tree's published points, each (k, 8, M)
-  uint32_t* out[3];       // the sum, each (k, 8, 1)
+  const uint32_t* in[3];  // the totals' X, Y, Z, each (k, N, W)
+  uint32_t* slot[3];      // the tree's published points, each (k, N, M)
+  uint32_t* out[3];       // the sum, each (k, N, 1)
   int* arrivals;          // (M,) zeros: pair i of half h counts at h + i
   int W, M, c;
 };
@@ -302,17 +337,18 @@ __device__ __forceinline__ void store_pt(uint32_t* const* base, long long n,
   }
 }
 
-// One warp a block, block w the window w.
-template <class E>
+// One warp a block, block w the window w; B3 the G1 branch's b3 (G2
+// reads b3).
+template <class E, int B3>
 __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
-                                                    FieldParams<8> P,
+                                                    FieldParams<N> P,
                                                     Fe2 b3) {
   __shared__ Slots s;
   const int w = blockIdx.x;
   Pt<E> q = load_pt<E, false>(A.in, A.W, w);
   const int steps = A.c * w;
 #pragma unroll 1
-  for (int k = 0; k < steps; k++) q = scan_dbl(s, q, P, b3);
+  for (int k = 0; k < steps; k++) q = scan_dbl<E, B3>(s, q, P, b3);
   int j = w;
 #pragma unroll 1
   for (int h = A.M >> 1; h >= 1; h >>= 1) {
@@ -321,7 +357,7 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
       // the upper slot is padding, the identity exactly (sums of identity
       // pads stay (0, 1, 0) bit for bit)
       const Pt<E> id{E{}, Ops<E>::one(P), E{}};
-      q = scan_add(s, q, id, P, b3);
+      q = scan_add<E, B3>(s, q, id, P, b3);
       continue;
     }
     store_pt(A.slot, A.M, j, q);
@@ -334,7 +370,8 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
     if (first) return;
     __threadfence();
     const Pt<E> o = load_pt<E, true>(A.slot, A.M, j ^ h);
-    q = j == i ? scan_add(s, q, o, P, b3) : scan_add(s, o, q, P, b3);
+    q = j == i ? scan_add<E, B3>(s, q, o, P, b3)
+               : scan_add<E, B3>(s, o, q, P, b3);
     j = i;
   }
   store_pt(A.out, 1, 0, q);
@@ -342,21 +379,24 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
 
 }  // namespace
 
-// The scan over W totals (limb-major (k, 8, W) each) into out, with c
-// doublings a window step.  slot: (k, 8, M) scratch for each coordinate,
+// The scan over W totals (limb-major (k, N, W) each) into out, with c
+// doublings a window step.  slot: (k, N, M) scratch for each coordinate,
 // M the tree's width (1 for W = 1, else the power of two >= W, at least
-// 2); arrivals: (M,) int32 zeros.  k = 1: b3 must be 9 (alt_bn128 G1);
-// k = 2: b3_mont holds the Fq2 constant's 16 Montgomery limbs (c0, c1).
+// 2); arrivals: (M,) int32 zeros.  n32 must be the library's width N.  At
+// 8 limbs k = 1 needs b3 = 9 (alt_bn128 G1); k = 2: b3_mont holds the
+// Fq2 constant's 16 Montgomery limbs (c0, c1).  At 12 limbs k must be 1,
+// with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).
 extern "C" int horner_scan(void* const* in, void* const* slot,
                            void* const* out, void* arrivals, int W, int M,
                            int c, int n32, int k, int b3,
                            const uint32_t* b3_mont, const uint32_t* p,
                            const uint32_t* one_mont, uint32_t inv,
                            int device, void* stream) {
-  if (n32 != 8 || W < 1 || c < 0 || M < W || (M & (M - 1)) ||
+  if (n32 != N || W < 1 || c < 0 || M < W || (M & (M - 1)) ||
       (W > 1 && M >= 2 * W) || (W == 1 && M != 1))
     return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
+  if (N == 8 ? !(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr)
+             : !(k == 1 && (b3 == 12 || b3 == 3)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -370,18 +410,27 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   A.W = W;
   A.M = M;
   A.c = c;
-  const FieldParams<8> P = field_params(p, one_mont, inv);
+  const FieldParams<N> P = field_params<N>(p, one_mont, inv);
   Fe2 b3c{};
+  const cudaStream_t s = (cudaStream_t)stream;
+#if LFF_N32 == 8
   if (k == 2) {
     for (int i = 0; i < 8; i++) {
       b3c.c0.v[i] = b3_mont[i];
       b3c.c1.v[i] = b3_mont[8 + i];
     }
   }
-  const cudaStream_t s = (cudaStream_t)stream;
   if (k == 1)
-    horner_kernel<Fe<8>><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_kernel<Fe<8>, 9><<<W, 32, 0, s>>>(A, P, b3c);
   else
-    horner_kernel<Fe2><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_kernel<Fe2, 9><<<W, 32, 0, s>>>(A, P, b3c);
+#elif LFF_N32 == 12
+  if (b3 == 12)
+    horner_kernel<Fe<12>, 12><<<W, 32, 0, s>>>(A, P, b3c);
+  else
+    horner_kernel<Fe<12>, 3><<<W, 32, 0, s>>>(A, P, b3c);
+#else
+#error "horner.cu is built for 8 or 12 limbs"
+#endif
   return (int)cudaGetLastError();
 }

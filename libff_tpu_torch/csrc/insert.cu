@@ -39,8 +39,8 @@ extern "C" int insert_v1(const void* off, const void* ent, int wide,
   if ((long long)W * L == 0) return 0;
   if (bx == nullptr || by == nullptr || bz == nullptr)
     return (int)cudaErrorInvalidValue;
-  return lff::chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                           lff::FpField<9>{lff::field_params(p, one_mont,
-                                                             inv)},
-                           (cudaStream_t)stream);
+  return lff::chain_launch(
+      off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
+      lff::FpField<8, 9>{lff::field_params(p, one_mont, inv)},
+      (cudaStream_t)stream);
 }

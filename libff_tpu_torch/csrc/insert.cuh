@@ -249,10 +249,14 @@ inline int bucket_lists_entry(const void* d, const void* pinf, void* off,
 }
 
 // One coordinate of a bucket as 16-byte stores (merge.cuh's load_words
-// reads a point record's or a bucket's the same way).
-__device__ __forceinline__ void store_words(uint32_t* p, const Fe<8>& a) {
-  ((uint4*)p)[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  ((uint4*)p)[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+// reads a point record's or a bucket's the same way): two at 8 limbs,
+// three at 12.
+template <int N>
+__device__ __forceinline__ void store_words(uint32_t* p, const Fe<N>& a) {
+#pragma unroll
+  for (int q = 0; q < N / 4; q++)
+    ((uint4*)p)[q] = make_uint4(a.v[4 * q], a.v[4 * q + 1], a.v[4 * q + 2],
+                                a.v[4 * q + 3]);
 }
 
 __device__ __forceinline__ void store_words(uint32_t* p, const Fe2& a) {
@@ -263,7 +267,7 @@ __device__ __forceinline__ void store_words(uint32_t* p, const Fe2& a) {
 // The chain kernel's share of a lane and occupancy target by branch.
 template <class F>
 struct ChainShape {
-  static constexpr bool kG1 = sizeof(typename F::E) == sizeof(Fe<8>);
+  static constexpr bool kG1 = F::kG1;
   static constexpr int kEntries = kG1 ? kEntriesG1 : kEntriesG2;
   static constexpr int kMinBlocks = kG1 ? kMinBlocksG1 : kMinBlocksG2;
 };
@@ -425,7 +429,7 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
   int rc;
   if (k == 1) {
     rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
-                      FpField<9, M>{P}, s);
+                      FpField<8, 9, M>{P}, s);
   } else {
     Fp2Field<M> f{P, {}};
     for (int i = 0; i < 8; i++) {
@@ -443,6 +447,35 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
   const Rows out{{(uint32_t*)m[0], (uint32_t*)m[1], (uint32_t*)m[2]},
                  (size_t)n, 0};
   return merge_rows<M, true>(k, in, out, (uint32_t*)far, P, b3_mont, s);
+}
+
+// K2 over 12-limb Fp (insert_n12.cu), the arguments as insert_entry's:
+// G1 only (k = 1, b3 = 12 for BLS12-381 or 3 for BLS12-377), the CIOS
+// product only, the raw buckets only (m null).  The chain kernel is the
+// 8-limb one over FpField<12, B3>: a bucket is 36 words, a point record
+// 36, and kEntries and the blocks an SM are G1's (tuned at 8 limbs).
+inline int insert_entry_n12(int kmul, const void* off, const void* ent,
+                            int wide, const void* rec, void* const* lane,
+                            void* bx, void* by, void* bz, int W, int T,
+                            int L, int B, int n32, int k, int b3,
+                            const uint32_t* p, const uint32_t* one_mont,
+                            uint32_t inv, void* const* m, int device,
+                            void* stream) {
+  if (kmul != (int)Mul::Cios || n32 != 12 || W < 0 || T < 0 || L < 0 ||
+      B <= 0 || (wide != 0 && wide != 1) || lane == nullptr || k != 1 ||
+      (b3 != 12 && b3 != 3) || m != nullptr || bx == nullptr ||
+      by == nullptr || bz == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)W * L == 0) return 0;
+  const FieldParams<12> P = field_params<12>(p, one_mont, inv);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (b3 == 12)
+    return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
+                        FpField<12, 12>{P}, s);
+  return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
+                      FpField<12, 3>{P}, s);
 }
 
 }  // namespace lff

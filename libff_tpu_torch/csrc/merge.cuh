@@ -114,10 +114,18 @@ struct Rows {
 };
 
 // One coordinate of an element whose words are contiguous, as 16-byte
-// loads (a pair thread reads its own coefficient's 8 words).
-__device__ __forceinline__ void load_words(const uint32_t* p, Fe<8>& r) {
-  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
-  r = Fe<8>{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+// loads (a pair thread reads its own coefficient's 8 words; a 12-limb
+// element is three loads).
+template <int N>
+__device__ __forceinline__ void load_words(const uint32_t* p, Fe<N>& r) {
+#pragma unroll
+  for (int q = 0; q < N / 4; q++) {
+    const uint4 a = __ldg((const uint4*)p + q);
+    r.v[4 * q] = a.x;
+    r.v[4 * q + 1] = a.y;
+    r.v[4 * q + 2] = a.z;
+    r.v[4 * q + 3] = a.w;
+  }
 }
 
 __device__ __forceinline__ void load_words(const uint32_t* p, Fe2& r) {
@@ -187,8 +195,7 @@ struct MergeShape {
   static constexpr int kWords = 3 * (int)(sizeof(E) / sizeof(uint32_t));
   static constexpr int kMinBlocks =
       F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2
-                       : (sizeof(E) == sizeof(Fe<8>) ? LFF_K5_MIN_BLOCKS_G1
-                                                     : 1);
+                       : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1 : 1);
   // the slots a thread needs at L lanes: log2(m) - 1, m = L / min(kRow, L)
   __host__ __device__ static int slots(int L) {
     int b = 0;
@@ -318,7 +325,7 @@ int merge_rows(int k, const LaneRows& in, const Rows& out, uint32_t* far,
                const FieldParams<8>& P, const uint32_t* b3_mont,
                cudaStream_t s) {
   if (k == 1)
-    return merge_launch<kLaneMajor>(in, out, far, FpField<9, M>{P}, s);
+    return merge_launch<kLaneMajor>(in, out, far, FpField<8, 9, M>{P}, s);
   Fe2 b3;
   for (int i = 0; i < 8; i++) {
     b3.c0.v[i] = b3_mont[i];
@@ -337,7 +344,7 @@ int merge_rows(int k, const LaneRows& in, const Rows& out, uint32_t* far,
 template <Mul M>
 int merge_far_words(int k, int L) {
   if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
-  if (k == 1) return MergeShape<FpField<9, M>>::far_words(L);
+  if (k == 1) return MergeShape<FpField<8, 9, M>>::far_words(L);
   if constexpr (M == Mul::Cios) {
     return MergeShape<Fp2Pair>::far_words(L);
   } else {

@@ -89,8 +89,14 @@ def register(cd: CurveDef) -> CurveDef:
     return cd
 
 
-# the reference's other curve modules, which the port has not copied yet
-_LATER = ("bls12_381", "bls12_377", "bw6_761", "mnt4", "mnt6", "edwards")
+# the reference's other curve modules, which the port has not copied yet,
+# and the ROADMAP Queue 1 items each waits for
+_LATER = {
+    "bw6_761": "item 9d (24-limb fields) and item 10 (a != 0)",
+    "mnt4": "item 10 (a != 0) and item 11 (Fq4 towers)",
+    "mnt6": "item 10 (a != 0) and item 11 (Fq3 towers)",
+    "edwards": "item 10 (Edwards groups)",
+}
 
 
 def get_curve(name: str) -> CurveDef:
@@ -98,16 +104,17 @@ def get_curve(name: str) -> CurveDef:
         _import_curve_modules()
     if name in _LATER:
         raise NotImplementedError(
-            f"curve {name} waits for the wider fields (ROADMAP Queue 1 item 9)")
+            f"curve {name} waits for ROADMAP Queue 1 {_LATER[name]}")
     return _REGISTRY[name]
 
 
 def _import_curve_modules() -> None:
     """Lazy-import every available curve module (each registers itself).
-    The port carries alt_bn128 only; the rest come with Queue 1 item 9."""
+    The port carries alt_bn128, bls12_381 and bls12_377; the rest come
+    with the items of _LATER."""
     import importlib
 
-    for mod in ("alt_bn128",):
+    for mod in ("alt_bn128", "bls12_381", "bls12_377"):
         try:
             importlib.import_module(f".{mod}", __package__)
         except ImportError:

@@ -1,5 +1,7 @@
 """Batched short-Weierstrass group arithmetic (port of
-libff_tpu/curves/group.py, the part the G1 and G2 MSMs run).
+libff_tpu/curves/group.py: the part the G1 and G2 MSMs run, and the
+public API beside it: constructors, predicates, negation, scalar
+multiplication and the Jacobian sum tree).
 
 Points are NamedTuples of coordinate arrays ``(*el, *batch)``, ``el`` the
 field's element dims: ``(n32,)`` over Fp (G1), ``(2, n32)`` over Fq2
@@ -10,7 +12,12 @@ field's element dims: ``(n32,)`` over Fp (G1), ``(2, n32)`` over Fq2
 the JAX package's formula VM, its rounds engine and its size gate are TPU
 scheduling and have no counterpart here.  Coordinate maps
 (``proj_to_jacobian``, ``to_affine``) are field ops, which run on K1e
-(and K4e for the Fq2 products of G2).
+(and K4e for the Fq2 products of G2).  The rest of the API composes the
+two: ``eq`` and ``is_well_formed`` are field ops and compares,
+``scalar_mul_bits``, ``scalar_mul_int`` and ``sum_tree`` loops of K3's
+Jacobian ``dbl`` and ``add`` with torch selects, each giving the JAX
+package's coordinates bit for bit.  Constructors put their tensors on
+the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import formulas as fml
 from .group_ops import group_op, tree_width
 
 
@@ -53,6 +61,8 @@ class Group:
         # 3b, the constant of the complete formulas: 9 for alt_bn128 G1,
         # the Fq2 element 3b' for its G2
         self._b3_host = gdef.curve.F.mul_scalar_int(gdef.curve.b, 3)
+        self._a_host = gdef.curve.a
+        self._b_host = gdef.curve.b
 
     @property
     def supports_complete(self) -> bool:
@@ -103,6 +113,34 @@ class Group:
         return [o.reshape(self.F.el_shape + batch) for o in outs]
 
     # -- constructors --------------------------------------------------------
+    def _bcast(self, c: torch.Tensor, batch) -> torch.Tensor:
+        """An element (*el,) broadcast to (*el, *batch)."""
+        return c.reshape(tuple(c.shape) + (1,) * len(batch)).expand(
+            tuple(c.shape) + tuple(batch))
+
+    def _gen_coords(self, device):
+        x, y = self.gdef.generator
+        return self.F.from_host(x, device), self.F.from_host(y, device)
+
+    def zero(self, batch=(), device="cuda") -> JacobianPoint:
+        """The Jacobian identity (0, 1, 0) (group.py:183-185)."""
+        F = self.F
+        return JacobianPoint(F.zero(batch, device), F.one(batch, device),
+                             F.zero(batch, device))
+
+    def generator(self, batch=(), device="cuda") -> JacobianPoint:
+        """The generator as a Jacobian point (x, y, 1) (group.py:187-191)."""
+        gx, gy = self._gen_coords(device)
+        return JacobianPoint(self._bcast(gx, batch), self._bcast(gy, batch),
+                             self.F.one(batch, device))
+
+    def generator_affine(self, batch=(), device="cuda") -> AffinePoint:
+        """The generator as an affine point (group.py:193-196)."""
+        gx, gy = self._gen_coords(device)
+        return AffinePoint(self._bcast(gx, batch), self._bcast(gy, batch),
+                           torch.zeros(tuple(batch), dtype=torch.bool,
+                                       device=device))
+
     def proj_zero(self, batch=(), device="cuda") -> ProjectivePoint:
         F = self.F
         return ProjectivePoint(F.zero(batch, device), F.one(batch, device),
@@ -111,6 +149,32 @@ class Group:
     # -- predicates and maps -------------------------------------------------
     def is_zero(self, P):
         return self.F.is_zero(P.z)
+
+    def proj_is_zero(self, P: ProjectivePoint):
+        return self.F.is_zero(P.z)
+
+    def eq(self, P: JacobianPoint, Q: JacobianPoint):
+        """Jacobian equality (group.py:202-228): X1 Z2^2 = X2 Z1^2 and
+        Y1 Z2^3 = Y2 Z1^3, or both zero."""
+        F = self.F
+        batch = self._batch_of(P.z, Q.z)
+        P, Q = self._bc_point(P, batch), self._bc_point(Q, batch)
+        z1s, z2s = F.sqr(P.z), F.sqr(Q.z)
+        x_eq = F.eq(F.mul(P.x, z2s), F.mul(Q.x, z1s))
+        y_eq = F.eq(F.mul(P.y, F.mul(Q.z, z2s)), F.mul(Q.y, F.mul(P.z, z1s)))
+        pz, qz = self.is_zero(P), self.is_zero(Q)
+        return (pz & qz) | (~pz & ~qz & x_eq & y_eq)
+
+    def is_well_formed(self, P: JacobianPoint):
+        """Curve membership y^2 = x^3 + a x z^4 + b z^6 (group.py:230-247);
+        zero is well formed."""
+        F = self.F
+        a = None if self.a_is_zero else self._a_host
+        rhs = fml.curve_rhs(F, P.x, P.z, a, self._b_host)
+        return self.is_zero(P) | F.eq(F.sqr(P.y), rhs)
+
+    def neg(self, P: JacobianPoint) -> JacobianPoint:
+        return JacobianPoint(P.x, self.F.neg(P.y), P.z)
 
     def select(self, mask, P, Q):
         out = []
@@ -183,6 +247,61 @@ class Group:
     def pdbl(self, P: ProjectivePoint) -> ProjectivePoint:
         """Complete doubling (formulas.rcb_dbl_a0)."""
         return ProjectivePoint(*self._op("pdbl", [P]))
+
+    # -- scalar multiplication and the Jacobian sum tree: loops of K3 -------
+    def _bits_ladder(self, bits, P: JacobianPoint) -> JacobianPoint:
+        """Double-and-add from the Jacobian identity over MSB-first bits,
+        each a bool tensor of P's batch shape or a host bool: a doubling
+        every step, P added where the bit is set (group.py:566-601)."""
+        batch = tuple(P.z.shape[self.F.el_ndim:])
+        acc = self.zero(batch, P.z.device)
+        for bit in bits:
+            acc = self.dbl(acc)
+            if isinstance(bit, torch.Tensor):
+                acc = self.select(bit, self.add(acc, P), acc)
+            elif bit:
+                acc = self.add(acc, P)
+        return acc
+
+    def scalar_mul_bits(self, bits, P: JacobianPoint) -> JacobianPoint:
+        """[k] P for one scalar per batch element, its bits MSB first:
+        bits (nbits, *batch), any integer or bool dtype
+        (curve_utils.tcc:14-32, group.py:566-582)."""
+        bits = torch.as_tensor(bits, device=P.z.device) != 0
+        return self._bits_ladder(list(bits.unbind(0)), P)
+
+    def scalar_mul_int(self, k: int, P: JacobianPoint) -> JacobianPoint:
+        """[k] P for a host integer k (group.py:584-601)."""
+        if k < 0:
+            return self.scalar_mul_int(-k, self.neg(P))
+        if k == 0:
+            return self.zero(tuple(P.z.shape[self.F.el_ndim:]), P.z.device)
+        return self._bits_ladder([c == "1" for c in bin(k)[2:]], P)
+
+    def sum_tree(self, P: JacobianPoint, axis: int = -1) -> JacobianPoint:
+        """The sum along a batch axis by a log-depth tree of Jacobian adds
+        (group.py:695-731): zeros (Z = 0) pad the axis to m = a power of
+        two >= 2 (1 for one point), and level by level the point at i
+        takes the one at i + m/2^(l+1).  The JAX package rolls the whole
+        axis each level and reads slot 0; the slots that reach slot 0 are
+        the lower halves, so halving gives the same bits."""
+        el = self.F.el_ndim
+        axis = axis % P.z.ndim
+        if axis < el:
+            raise ValueError(f"axis {axis} is an element axis")
+        n = P.z.shape[axis]
+        m = tree_width(n)
+        if m != n:
+            pad = list(P.z.shape)
+            pad[axis] = m - n
+            P = JacobianPoint(*(torch.cat([a, a.new_zeros(pad)], dim=axis)
+                                for a in P))
+        while P.z.shape[axis] > 1:
+            half = P.z.shape[axis] // 2
+            P = self.add(JacobianPoint(*(a.narrow(axis, 0, half) for a in P)),
+                         JacobianPoint(*(a.narrow(axis, half, half)
+                                         for a in P)))
+        return JacobianPoint(*(a.select(axis, 0) for a in P))
 
     def proj_sum_tree(self, P: ProjectivePoint, axis: int = -1
                       ) -> ProjectivePoint:

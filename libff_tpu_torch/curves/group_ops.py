@@ -13,6 +13,11 @@ plain field with the kernel's masks as ``torch.where``.  The TPU kernel's
 size gate (``kernel_op_eligible``: N % 1024 == 0 and N >= 2^13) follows the
 TPU's tiling; this kernel takes any N.
 
+Both entries are built for alt_bn128's 8-limb G1 and G2 and for the G1
+of BLS12-381 and BLS12-377 over 12-limb Fp (:func:`kernel_branch`), each
+width from its own sources (``csrc/group_ops_n12.cu``,
+``csrc/horner_n12.cu``).
+
 :func:`horner_scan` is K3's scan entry: the Horner phase of the MSM
 (libff_tpu/msm/pippenger.py:419-433, a scan of masked pdbl steps and a sum
 tree) as one launch of ``csrc/horner.cu`` on a CUDA tensor, and
@@ -27,11 +32,14 @@ import ctypes
 import torch
 
 from .. import _build
-from ..fields.fp import _carry, to16, to32
+from ..fields.fp import KERNEL_WIDTHS, _carry, to16, to32
 from ..fields.tower import PlainField2
 from ..host import mont as hm
 from . import formulas as fml
 
+# the G1 branches' b3 by width: the constants the kernels' addition
+# chains are instantiated for (formulas.cuh FpField<N, B3>)
+G1_B3 = {8: (9,), 12: (12, 3)}
 # op -> (its code in csrc/group_ops.cu, coordinate inputs, masks)
 OPS = {"padd": (0, 6, 0), "pmadd": (1, 5, 1), "pdbl": (2, 3, 0),
        "add": (3, 6, 0), "madd": (4, 5, 1), "dbl": (5, 3, 0)}
@@ -48,17 +56,41 @@ _SCAN_ARGS = [_PTRS3, _PTRS3, _PTRS3, _build.VP, ctypes.c_int, ctypes.c_int,
 
 def kernel_branch(G, what: str):
     """The CUDA kernels' branch for group G as (k, b3, b3's Montgomery
-    limbs): k = 1 for alt_bn128 G1 (254-bit Fp, b3 = 9 by an addition
-    chain), k = 2 for alt_bn128 G2 (Fq2 with nr = p - 1, b3 a runtime
-    constant).  Raises for any other group."""
+    limbs): k = 1 for a G1 whose b3 is a small constant of the kernels
+    (an addition chain): alt_bn128's (8 limbs, b3 = 9), BLS12-381's (12
+    limbs, b3 = 12) and BLS12-377's (12 limbs, b3 = 3); k = 2 for
+    alt_bn128 G2 (Fq2 over 8-limb Fp with nr = p - 1, b3 a runtime
+    constant).  The library is the width's (``_build.width_stem``).
+    Raises for any other group: 12-limb G2 waits for ROADMAP Queue 1 item
+    9b, other widths for item 9d."""
     F = G.F
-    if F.n32 == 8 and F.el_ndim == 1 and G._b3_host == 9:
-        return 1, 9, None
-    if F.n32 == 8 and F.el_ndim == 2 and F.nr == F.B.p - 1:
+    n32 = F.prime_field.n32
+    if n32 not in KERNEL_WIDTHS:
+        raise NotImplementedError(
+            f"{what} is built for 8 and 12 limbs, not {n32} ({G.name}): "
+            "wider fields wait for ROADMAP Queue 1 item 9d")
+    if F.el_ndim == 2 and n32 != 8:
+        raise NotImplementedError(
+            f"{what} over a {n32}-limb Fq2 ({G.name}) waits for ROADMAP "
+            "Queue 1 item 9b")
+    if F.el_ndim == 1 and G._b3_host in G1_B3[n32]:
+        return 1, G._b3_host, None
+    if n32 == 8 and F.el_ndim == 2 and F.nr == F.B.p - 1:
         return 2, 0, _build.u32_array(F.mont_limbs(G._b3_host))
     raise NotImplementedError(
-        f"{what} is built for alt_bn128 G1 (254-bit Fp, b3 = 9) and G2 "
-        f"(Fq2 over a 254-bit Fp with nr = p - 1), not {G.name}")
+        f"{what} is built for alt_bn128 G1 (b3 = 9) and G2 (Fq2 with nr = "
+        f"p - 1) and for BLS12-381 and BLS12-377 G1 (b3 = 12, 3), not "
+        f"{G.name}")
+
+
+def width_only_8(G, what: str) -> None:
+    """Raise for a group over a wider field than 8 limbs: `what` (K5,
+    K2m, K6 or an SOS product) is built for alt_bn128's only."""
+    n32 = G.F.prime_field.n32
+    if n32 != 8:
+        raise NotImplementedError(
+            f"{what} at {n32} limbs ({G.name}) waits for ROADMAP Queue 1 "
+            "item 9c")
 
 
 def _check(G, op, coords, masks):
@@ -102,12 +134,14 @@ def group_op(G, op: str, coords, masks=()):
                                   + [None] * (6 - len(coords))))
     ous = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
     Fp = G.F.prime_field
-    fn = _build.function("group_ops", "group_op", _ARGS)
-    _build.launch(fn, f"K3 group_op {op} (k = {k})", dev, OPS[op][0], ins,
+    name = _build.width_name(f"K3 g{k}", Fp.n32)
+    fn = _build.function(_build.width_stem("group_ops", Fp.n32), "group_op",
+                         _ARGS)
+    _build.launch(fn, f"{name} group_op {op}", dev, OPS[op][0], ins,
                   _build.ptr(mask) if mask is not None else None, ous, n,
                   Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c, Fp.inv32,
                   coords[0].get_device(), _build.stream_ptr(coords[0]))
-    _build.LAUNCHES[f"K3 g{k}"] += 1
+    _build.LAUNCHES[name] += 1
     return outs
 
 
@@ -290,12 +324,14 @@ def horner_scan(G, totals, c: int):
         return (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
 
     Fp = G.F.prime_field
-    fn = _build.function("horner", "horner_scan", _SCAN_ARGS)
-    _build.launch(fn, f"K3 scan (k = {k})", dev, ptrs(totals), ptrs(slots),
+    name = _build.width_name(f"K3 scan g{k}", Fp.n32)
+    fn = _build.function(_build.width_stem("horner", Fp.n32), "horner_scan",
+                         _SCAN_ARGS)
+    _build.launch(fn, name, dev, ptrs(totals), ptrs(slots),
                   ptrs(outs), _build.ptr(arrivals), W, M, c, Fp.n32, k, b3,
                   b3_mont, Fp.p_c, Fp.one_c, Fp.inv32, totals[0].get_device(),
                   _build.stream_ptr(totals[0]))
-    _build.LAUNCHES[f"K3 scan g{k}"] += 1
+    _build.LAUNCHES[name] += 1
     return outs
 
 

@@ -11,7 +11,9 @@ limbs are the JAX package's 16-bit limbs repacked in pairs
 On a CUDA tensor, ``add``/``sub``/``mul`` launch kernel K1e
 (``csrc/fp_ops.cu``, built on ``csrc/fp.cuh``), and ``inv`` launches its
 inverse entry K1e inv once, whatever the batch: the whole ladder of
-``pow_static`` runs in each thread's registers.  On a CPU tensor they run
+``pow_static`` runs in each thread's registers.  The kernels are built
+for 8 limbs (alt_bn128) and 12 (BLS12-381 and BLS12-377), each width
+from its own source (``csrc/fp_ops_n12.cu``; ``KERNEL_WIDTHS``).  On a CPU tensor they run
 the plain version, :class:`PlainField`, which follows the JAX package's
 16-bit CIOS (fp.py:246-276) in int64 tensors: this torch build has no CPU
 right shift for uint32, and a 32x32-bit product wraps int64.  The plain
@@ -43,6 +45,9 @@ MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
 # the in-kernel Montgomery products (pallas_insert.py:96-99, fp.cuh)
 KMULS = ("cios", "sos", "sos2")
+# the limb counts the kernels are built for: 254-bit fields (alt_bn128)
+# and 377- and 381-bit ones (BLS12-377, BLS12-381)
+KERNEL_WIDTHS = (8, 12)
 
 
 # -- the n16 <-> n32 repack --------------------------------------------------
@@ -297,14 +302,16 @@ def check_operands(F, a: torch.Tensor, b: torch.Tensor) -> None:
 
 def kernel_device(a: torch.Tensor, n32: int, what: str) -> bool:
     """False for a CPU tensor (the caller runs the plain version), True for
-    a CUDA tensor the 8-limb kernels take; raises otherwise."""
+    a CUDA tensor of a width the kernels are built for (KERNEL_WIDTHS);
+    raises otherwise."""
     if a.device.type == "cpu":
         return False
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    if n32 != 8:
+    if n32 not in KERNEL_WIDTHS:
         raise NotImplementedError(
-            f"{what} is built for 8 limbs (254-bit fields), not n32 = {n32}")
+            f"{what} is built for 8 and 12 limbs, not n32 = {n32}: wider "
+            "fields wait for ROADMAP Queue 1 item 9d")
     return True
 
 
@@ -317,11 +324,13 @@ def launch_k1e(B: "PrimeField", op: str, a: torch.Tensor, b: torch.Tensor,
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     n = a.numel() // (groups * B.n32)
-    fn = _build.function("fp_ops", f"fp_{op}", _K1E_ARGS)
-    _build.launch(fn, f"K1e fp_{op}", a.device, _build.ptr(out),
+    name = _build.width_name("K1e", B.n32)
+    fn = _build.function(_build.width_stem("fp_ops", B.n32), f"fp_{op}",
+                         _K1E_ARGS)
+    _build.launch(fn, f"{name} fp_{op}", a.device, _build.ptr(out),
                   _build.ptr(a), _build.ptr(b), n, groups, B.n32, B.p_c,
                   B.inv32, a.get_device(), _build.stream_ptr(a))
-    _build.LAUNCHES["K1e"] += 1
+    _build.LAUNCHES[name] += 1
     return out
 
 
@@ -403,7 +412,8 @@ def launch_inv(B: "PrimeField", entry: str, name: str,
     a = a.contiguous()
     out = torch.empty_like(a)
     per_element = B.n32 * (2 if entry == "fq2_inv" else 1)
-    fn = _build.function("fp_ops", entry, _INV_ARGS)
+    fn = _build.function(_build.width_stem("fp_ops", B.n32), entry,
+                         _INV_ARGS)
     _build.launch(fn, name, a.device, _build.ptr(out), _build.ptr(a),
                   a.numel() // per_element, B.n32, B.p_c, B.inv32,
                   B.inv_exp_c, B.inv_exp_top, a.get_device(),
@@ -415,11 +425,12 @@ def launch_inv(B: "PrimeField", entry: str, name: str,
 def fp_inv(F: "PrimeField", a: torch.Tensor) -> torch.Tensor:
     """a^(p-2) of every element of the (n32, *batch) int32 array a; 0 maps
     to 0.  A CPU tensor takes pow_static, the plain version; a CUDA tensor
-    launches kernel K1e inv once."""
+    launches kernel K1e inv once (counted as "K1e inv", or "K1e inv n12"
+    at 12 limbs)."""
     check_operands(F, a, a)
     if not kernel_device(a, F.n32, "K1e inv"):
         return F.pow_static(a, F.p - 2)
-    return launch_inv(F, "fp_inv", "K1e inv", a)
+    return launch_inv(F, "fp_inv", _build.width_name("K1e inv", F.n32), a)
 
 
 def fp_inv_plain(F: "PrimeField", a: torch.Tensor) -> torch.Tensor:
@@ -596,6 +607,24 @@ class PrimeField(FieldBase):
         a host tuple (fields/fp.py:103-107)."""
         (v,) = self.to_ints(x.reshape(self.n32, 1))
         return v
+
+    def from_host(self, v: int, device="cuda") -> torch.Tensor:
+        """Host-field element (plain int) -> Montgomery constant (n32,)
+        (fields/fp.py:82-84)."""
+        return self.const(int(v), device)
+
+    # the names the tower layer shares (fields/fp.py:108-116)
+    def from_host_batch(self, vals, device="cuda") -> torch.Tensor:
+        """Host ints -> Montgomery array (n32, N)."""
+        return self.from_ints([int(v) for v in vals], device)
+
+    def to_host_batch(self, x: torch.Tensor) -> list[int]:
+        """Montgomery array -> host ints (batch flattened)."""
+        return self.to_ints(x)
+
+    def frobenius(self, a, power: int = 1):
+        """The identity on the prime field."""
+        return a
 
     # -- ring ops -----------------------------------------------------------
     def add(self, a, b):

@@ -120,6 +120,15 @@ _K4E_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
              _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
 
 
+def check_fq2_width(F: "ExtField", what: str) -> None:
+    """Raise unless F's base field has 8 limbs: the Fq2 kernels (K1e's
+    Fq2 branch, K4, K4e, K4e inv) are built for alt_bn128's."""
+    if F.n32 != 8:
+        raise NotImplementedError(
+            f"{what} over a {F.n32}-limb Fq2 waits for ROADMAP Queue 1 "
+            "item 9b")
+
+
 def check_nr(F: "ExtField", what: str) -> None:
     """Raise unless F's non-residue is p - 1, the one K4 is built for."""
     if F.nr != F.B.p - 1:
@@ -141,6 +150,7 @@ def fq2_op(F: "ExtField", op: str, a: torch.Tensor,
     lin = op in ("add", "sub")
     if not kernel_device(a, F.n32, "K1e" if lin else "K4e"):
         return fq2_op_plain(F, op, a, b)
+    check_fq2_width(F, "K1e" if lin else "K4e")
     if lin:
         return launch_k1e(F.B, op, a, b, groups=2)
     check_nr(F, "K4")
@@ -180,6 +190,7 @@ def fq2_inv(F: "ExtField", a: torch.Tensor) -> torch.Tensor:
     check_operands(F, a, a)
     if not kernel_device(a, F.n32, "K4e inv"):
         return inv2(F.B, F.mul_by_nr, F.B.inv, a)
+    check_fq2_width(F, "K4e inv")
     check_nr(F, "K4e inv")
     return launch_inv(F.B, "fq2_inv", "K4e inv", a)
 

@@ -92,9 +92,22 @@ def imad_rates(dev) -> dict:
     return {kind: v * per_sm for kind, v in IMAD_PER_CLOCK_PER_SM.items()}
 
 
-def imads(products: float, kmul: str = "cios") -> dict:
-    """The multiply-adds of `products` Montgomery products, by kind."""
-    return {k: v * products for k, v in IMAD_PER_FP_MUL[kmul].items()}
+def imad_per_product(kmul: str = "cios", n32: int = 8) -> dict:
+    """The multiply-adds of one Montgomery product by kind: the table's at
+    8 limbs; at another width CIOS only, n32 rows of 2 n32 + 1 lo (the
+    quotient's mul.lo among them) and 2 n32 hi (300 and 288 at 12)."""
+    if n32 == 8:
+        return IMAD_PER_FP_MUL[kmul]
+    if kmul != "cios":
+        raise ValueError(f"the {n32}-limb product is CIOS only, not {kmul}")
+    return {"lo": n32 * (2 * n32 + 1), "hi": 2 * n32 * n32}
+
+
+def imads(products: float, kmul: str = "cios", n32: int = 8) -> dict:
+    """The multiply-adds of `products` Montgomery products of n32 limbs,
+    by kind."""
+    return {k: v * products
+            for k, v in imad_per_product(kmul, n32).items()}
 
 
 def bound(nbytes: float, imad: dict, rates: dict) -> dict:

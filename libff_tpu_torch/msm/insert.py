@@ -14,7 +14,11 @@ counterpart (pallas_insert.py:198): the same function as :func:`insert`
 on G1, refused on G2 as there.  ``kmul`` chooses the Montgomery product
 inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
 ``csrc/insert.cu``, "sos" and "sos2" from ``csrc/insert_sos.cu`` and
-``csrc/insert_sos2.cu``; every product gives the same buckets.
+``csrc/insert_sos2.cu``; every product gives the same buckets.  Over
+12-limb Fp (BLS12-381 and BLS12-377 G1) K2 builds from
+``csrc/insert_n12.cu``, CIOS and raw buckets only: on a CUDA tensor the
+fused merge, an SOS product and K6 raise there (ROADMAP Queue 1 item
+9c), and the CPU's plain versions run every setting.
 
 On the card K2 is the sort :func:`bucket_lists`, which lists each
 (window, lane)'s steps by bucket in t order, then the chain kernel, which
@@ -39,7 +43,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import kernel_branch
+from ..curves.group_ops import kernel_branch, width_only_8
 from ..fields.fp import KMULS, check_kmul, to16, to32
 from .merge import far_scratch, merge_lanes_plain
 
@@ -122,15 +126,23 @@ def _bucket_lists(d, pinf, B, k):
     return off, ent
 
 
+def bucket_keys(d: torch.Tensor, pinf: torch.Tensor, B: int) -> torch.Tensor:
+    """The sort's keys, (W, L, T): each step's bucket min(|d| - 1, B - 1),
+    or B for a step that adds nothing (a zero digit, a point at
+    infinity)."""
+    dl = d.permute(0, 2, 1)                              # (W, L, T)
+    return torch.where((dl != 0) & ~pinf.T[None],
+                       (dl.abs() - 1).clamp(max=B - 1), B).contiguous()
+
+
 def bucket_lists_plain(d: torch.Tensor, pinf: torch.Tensor, B: int):
     """The plain version of :func:`bucket_lists` on any device: a stable
-    sort of each (window, lane)'s steps by bucket, the steps that add
-    nothing last."""
+    sort of each (window, lane)'s steps by bucket (:func:`bucket_keys`),
+    the steps that add nothing last."""
     _check_lists_inputs(d, pinf, B)
     W, T, L = d.shape
     dl = d.permute(0, 2, 1)                              # (W, L, T)
-    key = torch.where((dl != 0) & ~pinf.T[None],
-                      (dl.abs() - 1).clamp(max=B - 1), B).contiguous()
+    key = bucket_keys(d, pinf, B)
     skey, t = torch.sort(key, dim=-1, stable=True)
     neg = (dl < 0).gather(-1, t)
     ent = torch.where(skey < B, 2 * t + neg, -1).to(entry_dtype(T))
@@ -171,14 +183,19 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     k, b3, b3_mont = kernel_branch(G, "K2")
+    if merge:
+        width_only_8(G, "K2m, the fused merge,")
+    if kmul != "cios":
+        width_only_8(G, f"K2 over {kmul}")
     off, ent, rec, lane, out = _kernel_tensors(
         G, d, pts, B, k, (W, B, 1) if merge else (W, B, L))
     raw = [None] * 3 if merge else out
     Fp = G.F.prime_field
-    stem = _build.kmul_stem("insert", kmul)
+    stem = _build.width_stem(_build.kmul_stem("insert", kmul), Fp.n32)
     fn = _build.function(stem, "insert", _ARGS)
     far = far_scratch(stem, kmul, k, W * B, L, d.device) if merge else None
-    name = _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul)
+    name = _build.width_name(
+        _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul), Fp.n32)
     _build.launch(fn, f"{name} insert", d.device, KMULS.index(kmul),
                   _build.ptr(off), _build.ptr(ent),
                   int(ent.dtype == torch.int32), _build.ptr(rec),
@@ -206,6 +223,7 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     kernel_branch(G, "K6")
+    width_only_8(G, "K6")
     W, T, L = d.shape
     off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, (W, B, L))
     Fp = G.F.prime_field

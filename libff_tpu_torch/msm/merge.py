@@ -37,7 +37,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import kernel_branch
+from ..curves.group_ops import kernel_branch, width_only_8
 from ..fields.fp import KMULS, check_kmul, to16, to32
 
 _ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
@@ -77,6 +77,7 @@ def merge_lanes(G, buckets: ProjectivePoint,
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     k, b3, b3_mont = kernel_branch(G, "K5")
+    width_only_8(G, "K5")
     W, B, L = buckets.z.shape[-3:]
     ins = [c.contiguous() for c in buckets]
     outs = [torch.empty(G.F.el_shape + (W, B, 1), dtype=torch.int32,

@@ -17,15 +17,22 @@ buckets for every window.
            one launch                                   kernel K3 (scan)
   finish : projective -> Jacobian                      kernel K1e (K4e on G2)
 
-``MsmConfig.engine``, ``MsmConfig.merge`` and ``MsmConfig.kmul`` have the
-JAX package's meanings and routes (pippenger.py:41-69, :520-540); every
-setting gives the same buckets bit for bit, so the same result.
-``kmul`` ("cios", "sos", "sos2") is the Montgomery product inside K2 and
-K5, as the JAX package passes it to insert_pallas3 (pippenger.py:534);
-K3 and K6 stay on CIOS there and here.  The JAX package's other knobs
-choose among TPU schedules and have no counterpart here: ``tb`` (time
-rows per grid step), ``formulas`` (its formula VM), ``scatter`` (the XLA
-path's bucket update).
+``MsmConfig`` has the JAX package's eight fields in its order
+(pippenger.py:41-68).  ``engine``, ``merge`` and ``kmul`` have the JAX
+package's meanings and routes (pippenger.py:520-540); every setting gives
+the same buckets bit for bit, so the same result.  ``kmul`` ("cios",
+"sos", "sos2") is the Montgomery product inside K2 and K5, as the JAX
+package passes it to insert_pallas3 (pippenger.py:534); K3 and K6 stay on
+CIOS there and here.  ``scatter`` and ``formulas`` are checked against
+the JAX package's values and choose nothing yet: they select the XLA
+path's bucket update and the formula VM, which ROADMAP Queue 1 item 18
+ports.  ``tb`` (the TPU kernel's time rows per grid step) is accepted
+and has no effect on the card.
+
+The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 of
+BLS12-381 and BLS12-377 (12 limbs); at 12 limbs the card runs K2 over
+CIOS with K3's lane tree (merge False), and the other settings raise
+there (ROADMAP Queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -45,24 +52,36 @@ from .merge import merge_lanes
 
 ENGINES = ("auto", "pallas3", "pallas", "xla")
 MERGES = (False, "kernel", True)
+SCATTERS = ("select", "gather")
+FORMULAS = ("auto", "direct", "vm")
 
 
 class MsmConfig(NamedTuple):
     c: int        # signed-digit window width
     lanes: int    # number of independent bucket lanes (a power of two)
+    scatter: str = "select"    # the XLA path's bucket update, "select" or
+                               # "gather": checked, acts with ROADMAP
+                               # Queue 1 item 18
     engine: str = "auto"       # insert kernel: "auto" or "pallas3" (K2),
                                # "pallas" (K6, the v1 insert, G1 only);
                                # "xla" waits for ROADMAP Queue 1 item 18
+    formulas: str = "auto"     # the formula engine, "auto", "direct" or
+                               # "vm": checked, acts with item 18
     merge: bool | str = False  # lane merge: False = K3's halving tree in
                                # the reduce, "kernel" = K5 after the
                                # insert, True = fused into K2 (lanes a
                                # multiple of 128)
+    tb: int = 16               # the TPU kernel's time rows per grid step:
+                               # accepted, no effect on the card
     kmul: str = "cios"         # Montgomery product in K2 and K5: "cios",
                                # "sos", "sos2" (engine "pallas": CIOS only)
 
 
-def default_config(n: int, device) -> MsmConfig:
-    """Window and lane choice by device and size.
+def default_config(n: int, G: Group | None = None,
+                   device="cuda") -> MsmConfig:
+    """Window and lane choice by device and size (called as the JAX
+    package's ``default_config(n, G)``; the group may steer the choice,
+    and today it does not).
 
     CUDA: the insert sorts each (window, lane)'s steps by bucket and
     walks the bucket chains, so its time follows the number of mixed adds
@@ -74,8 +93,8 @@ def default_config(n: int, device) -> MsmConfig:
     that varied more between runs than two settings differ, a sweep of
     256 against 1024 lanes found G2 faster at 256 (a shorter lane merge
     in the reduce) and left G1 unresolved, 256 ahead in one of three
-    pairs (PERF.md §6-§7).  This choice does not know
-    the group, so both groups keep 1024 lanes.
+    pairs (PERF.md §6-§7).  Both groups keep 1024 lanes, and so do the
+    12-limb G1s of BLS12-381 and BLS12-377, which no sweep has measured.
     Smaller sizes were not swept; ``_prepare`` cuts the lanes to the
     largest power of two <= n.
     CPU (the plain versions, tests): small windows keep the plain insert's
@@ -171,13 +190,19 @@ def window_totals_v1(G: Group, d: torch.Tensor, pts, B: int
 
 
 def _check_config(G: Group, cfg: MsmConfig) -> None:
-    """The engine, merge and kmul settings the port runs
-    (pippenger.py:520-540), or raise: "xla" is still to port; "pallas" is
-    G1 only and has no lane merge and no product but CIOS (the JAX package
-    would ignore either silently, and would run an unknown kmul as CIOS,
-    pallas_insert.py:98-99)."""
+    """The settings the port runs (pippenger.py:520-540), or raise: an
+    unknown scatter or formulas value (pippenger.py:41-68); "xla" is
+    still to port; "pallas" is G1 only and has no lane merge and no
+    product but CIOS (the JAX package would ignore either silently, and
+    would run an unknown kmul as CIOS, pallas_insert.py:98-99)."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; one of {ENGINES}")
+    if cfg.scatter not in SCATTERS:
+        raise ValueError(f"unknown scatter {cfg.scatter!r}; one of "
+                         f"{SCATTERS}")
+    if cfg.formulas not in FORMULAS:
+        raise ValueError(f"unknown formulas {cfg.formulas!r}; one of "
+                         f"{FORMULAS}")
     if not (isinstance(cfg.merge, bool) or cfg.merge == "kernel"):
         raise ValueError(f"unknown merge {cfg.merge!r}; one of {MERGES}")
     if cfg.kmul not in KMULS:
@@ -241,7 +266,7 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
         raise NotImplementedError(
             "the non-complete Jacobian path waits for ROADMAP Queue 1 item 10")
     N = scalar_limbs.shape[-1]
-    cfg = config or default_config(N, scalar_limbs.device)
+    cfg = config or default_config(N, G, scalar_limbs.device)
     _check_config(G, cfg)
     c = cfg.c
     W = dig.num_signed_digits(G.order, num_bits, c)

@@ -142,6 +142,8 @@ def mul_chain(F, a: torch.Tensor, b: torch.Tensor, kmul: str,
     k7 = "K7b" if F.el_ndim == 1 else "K7d"
     if not kernel_device(a, F.n32, k7):
         return mul_chain_plain(F, a, b, kmul, reps)
+    if F.n32 != 8:
+        raise NotImplementedError(f"{k7} is built for 8 limbs (alt_bn128)")
     if F.el_ndim == 2:
         check_nr(F, "K7d")
     a, b = a.contiguous(), b.contiguous()
@@ -186,6 +188,8 @@ def lone_chain(F, a: torch.Tensor, b: torch.Tensor,
     _check_pair(a, b, F.el_shape)
     if not kernel_device(a, F.n32, "K7b lone"):
         return lone_chain_plain(F, a, b, reps)
+    if F.n32 != 8:
+        raise NotImplementedError("K7b lone is built for 8 limbs (alt_bn128)")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     fn = _build.function("roofline", "mul_lone_chain", _LONE_ARGS)
@@ -272,8 +276,8 @@ def insert_mul_ns(dc, log2n: int, dev) -> tuple[float, int]:
     time, as roofline.py:207-242 counts them).  Returns (ns, madds)."""
     G = dc.g1
     scalars, points, _ = workload.msm_case(dc, "g1", log2n, dev)
-    cfg = default_config(1 << log2n, dev)
-    W = dig.num_signed_digits(G.order, 254, cfg.c)
+    cfg = default_config(1 << log2n, G, dev)
+    W = dig.num_signed_digits(G.order, workload.scalar_bits(G), cfg.c)
     s, pts, T, L = _prepare(G, scalars, points, cfg)
     d = dig.signed_digits(s, cfg.c, W).reshape(W, T, L)
     B = 1 << (cfg.c - 1)

@@ -60,7 +60,8 @@ def cases(dev):
         G = getattr(dc, group)
         scalars, points, _ = workload.msm_case(dc, group, log2n, dev)
         d, pts, B = workload.insert_inputs(G, scalars, points,
-                                           default_config(1 << log2n, dev))
+                                           default_config(1 << log2n, G,
+                                                          dev))
         case = (G, d, even_digits(d, B), pts, B)
         yield ({"group": group, "shape": list(d.shape) + [B]}, case,
                outputs(*case))

@@ -46,7 +46,7 @@ def cases(dev):
         G = getattr(dc, group)
         scalars, points, _ = workload.msm_case(dc, group, log2n, dev)
         d, pts, B = workload.insert_inputs(
-            G, scalars, points, default_config(1 << log2n, dev))
+            G, scalars, points, default_config(1 << log2n, G, dev))
         for inputs, raw in (("random", workload.merge_inputs(G, *SHAPE, rng,
                                                               dev)),
                             ("path", insert(G, d, pts, B))):

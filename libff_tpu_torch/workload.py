@@ -3,7 +3,9 @@
 G1 as in bench.py:72-137: N scalars times N points, point i being
 (i % 32 + 1) * gen, so the MSM equals (sum_j (j+1) * K_j mod r) * gen with
 K_j the sum of the scalars of residue class j, one host scalar
-multiplication however large N is.  G2 as in profile/bench_g2.py:49-85:
+multiplication however large N is.  Nothing in it is alt_bn128's: the
+same case and oracle serve the G1 of BLS12-381 and BLS12-377, with their
+generators, r and scalar bits (``scalar_bits``).  G2 as in profile/bench_g2.py:49-85:
 the same with period 16 and the G2 generator.  The scalars here come from
 a numpy seed (the JAX package uses libff's SHA512 generator) and are held
 in the JAX package's layout, (n16, N) uint32 plain 16-bit limbs; points
@@ -217,6 +219,12 @@ def msm_case(dc, group: str, log2n: int, device="cuda", seed: int = SEED):
     return scalars, points, want
 
 
+def scalar_bits(G) -> int:
+    """The bits of group G's scalars, its order's (the curve's Fr bits:
+    254 for alt_bn128, 255 for BLS12-381, 253 for BLS12-377)."""
+    return G.order.bit_length()
+
+
 def run_msm(G, scalars, points, config=None, phases: bool = True):
     """One MSM through msm_pippenger and to_affine, the card synchronised
     at its end: (host affine result or None, host seconds, phase seconds).
@@ -224,8 +232,8 @@ def run_msm(G, scalars, points, config=None, phases: bool = True):
     phase seconds, to_affine's included, are recorded; else they are {}."""
     times: dict | None = {} if phases else None
     t0 = time.perf_counter()
-    A = G.to_affine(msm_pippenger(G, scalars, points, 254, config=config,
-                                  phase_times=times))
+    A = G.to_affine(msm_pippenger(G, scalars, points, scalar_bits(G),
+                                  config=config, phase_times=times))
     if A.x.is_cuda:
         torch.cuda.synchronize(A.x.device)
     total = time.perf_counter() - t0
@@ -238,7 +246,7 @@ def run_msm(G, scalars, points, config=None, phases: bool = True):
 def insert_inputs(G, scalars, points, cfg):
     """The insert's inputs on the MSM path under cfg: (d, pts, B), the
     signed digits (W, T, L), the prepared points and the bucket count."""
-    W = dig.num_signed_digits(G.order, 254, cfg.c)
+    W = dig.num_signed_digits(G.order, scalar_bits(G), cfg.c)
     s, pts, T, L = _prepare(G, scalars, points, cfg)
     d = dig.signed_digits(s, cfg.c, W).reshape(W, T, L)
     return d, pts, 1 << (cfg.c - 1)

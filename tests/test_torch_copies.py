@@ -2,18 +2,22 @@
 they copy.
 
 The port imports nothing of ``libff_tpu``; it carries copies of
-``host/{mont,field,ec}.py`` and ``curves/{curvedef,formulas,alt_bn128}.py``.
-These tests hold the copies to the originals: the host modules and the
-formulas function by function (same source body), and alt_bn128's curve
-data value by value (moduli, generators, b, the twist's b', the
-non-residues and Frobenius tables of Fq2, Fq6 and Fq12).  ``curvedef``
-differs on purpose: it registers alt_bn128 only, and ``get_curve`` of
-another curve raises until those curve modules are copied too.
+``host/{mont,field,ec}.py`` and ``curves/{curvedef,formulas,alt_bn128,
+bls12_381,bls12_377}.py``.  These tests hold the copies to the
+originals: the host modules and the formulas function by function (same
+source body), each curve module whole (its imports are the same
+relative ones), and alt_bn128's curve data value by value (moduli,
+generators, b, the twist's b', the non-residues and Frobenius tables of
+Fq2, Fq6 and Fq12).  ``curvedef`` differs on purpose: it registers the
+copied curves only, and ``get_curve`` of another curve raises until its
+module is copied too.
 """
 
 import inspect
 
 import pytest
+
+import importlib
 
 import libff_tpu.curves.alt_bn128  # noqa: F401  (registers the curve)
 from libff_tpu.curves import curvedef as jcurvedef
@@ -61,8 +65,15 @@ def test_alt_bn128_constants_equal_the_reference():
         _curve_data(jcurvedef.get_curve("alt_bn128"))
 
 
+@pytest.mark.parametrize("name", ["alt_bn128", "bls12_381", "bls12_377"])
+def test_curve_modules_are_whole_copies(name):
+    port = importlib.import_module(f"libff_tpu_torch.curves.{name}")
+    ref = importlib.import_module(f"libff_tpu.curves.{name}")
+    assert inspect.getsource(port) == inspect.getsource(ref)
+
+
 def test_other_curves_wait_for_their_copies():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        curvedef.get_curve("bls12_381")
+        curvedef.get_curve("bw6_761")
     with pytest.raises(KeyError):
         curvedef.get_curve("no_such_curve")

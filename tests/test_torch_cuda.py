@@ -587,8 +587,8 @@ def test_to_affine_makes_one_inverse_launch(dev, dc, group):
 
 
 def test_inverses_refuse_what_the_kernels_do_not_take(dev, dc):
-    """The kernels are built for 8 limbs and, on Fq2, nr = p - 1: a CUDA
-    tensor of another field raises, never falls back."""
+    """The kernels are built for 8 and 12 limbs and, on Fq2, nr = p - 1:
+    a CUDA tensor of another field raises, never falls back."""
     from tests.test_pallas_interpret import P_TOY
 
     T = PrimeField(P_TOY, name="toy_Fp")
@@ -667,3 +667,135 @@ def test_k7e_time_doubles_with_steps(dev, dc):
         full = ae.best_ms(lambda: fn(x, y))[0]
         half = ae.best_ms(lambda: fn(x[:, :128], y[:, :128]))[0]
         assert 1.8 <= full / half <= 2.2, (name, full, half)
+
+
+# -- the 12-limb kernels: BLS12-381 and BLS12-377 G1 ---------------------------
+
+CURVES12 = ["bls12_381", "bls12_377"]
+
+
+@pytest.fixture(scope="module")
+def dc12():
+    return {name: device_curve(name) for name in CURVES12}
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_k1e_n12_matches_plain(dev, dc12, curve, op):
+    """K1e over 12-limb Fq, every pair of edge values first, one launch
+    counted as "K1e n12"."""
+    F = dc12[curve].fq
+    rng = np.random.default_rng(70)
+    a, b = (chip_smoke.rand_elements(F, 4099, rng, dev) for _ in range(2))
+    edges = workload.edge_values(F)
+    pairs = [(x, y) for x in edges for y in edges]
+    a[:, :len(pairs)] = F.plain_from_ints([x for x, _ in pairs], dev)
+    b[:, :len(pairs)] = F.plain_from_ints([y for _, y in pairs], dev)
+    before = _build.LAUNCHES["K1e n12"]
+    got = fp_op(F, op, a, b)
+    assert _build.LAUNCHES["K1e n12"] == before + 1
+    assert torch.equal(got, fp_op_plain(F, op, a, b))
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("n", [1, 4099])
+def test_k1e_inv_n12_matches_plain(dev, dc12, curve, n):
+    """K1e inv over 12-limb Fq, one launch, on the edge values."""
+    F = dc12[curve].fq
+    for a in _inv_inputs(F, n, 71, dev):
+        before = dict(_build.LAUNCHES)
+        got = F.inv(a)
+        assert _build.LAUNCHES["K1e inv n12"] == \
+            before.get("K1e inv n12", 0) + 1
+        assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(got, fp_inv_plain(F, a))
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_k3_n12_matches_plain(dev, dc12, curve, op):
+    """K3's G1 branch over 12-limb Fp (b3 = 12 and 3) with the edge lanes
+    of chip_smoke.k3_inputs."""
+    G = dc12[curve].g1
+    c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000, np.random.default_rng(72),
+                                        dev)
+    coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
+                     "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
+                     "madd": (list(cm), (q_inf,))}[op]
+    before = _build.LAUNCHES["K3 g1 n12"]
+    got = group_op(G, op, coords, masks)
+    assert _build.LAUNCHES["K3 g1 n12"] == before + 1
+    for g, w in zip(got, group_op_plain(G, op, coords, masks)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("W,c", [(32, 8), (5, 3), (1, 4)])
+def test_k3_scan_n12_matches_plain(dev, dc12, curve, W, c):
+    G = dc12[curve].g1
+    tot = chip_smoke.scan_inputs(G.F, W, np.random.default_rng(73 + W), dev)
+    before = _build.LAUNCHES["K3 scan g1 n12"]
+    got = horner_scan(G, tot, c)
+    assert _build.LAUNCHES["K3 scan g1 n12"] == before + 1
+    for g, w in zip(got, horner_scan_plain(G, tot, c)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_k2_n12_matches_plain(dev, dc12, curve):
+    """K2 over 12-limb Fp on distinct points, some at infinity, and on
+    chip_smoke.skewed's digits (one bucket a lane, zero digits, the last
+    bucket, every point at infinity)."""
+    dc = dc12[curve]
+    d, pts, B = chip_smoke.k2_inputs(dc, "g1", 1 << 12,
+                                     MsmConfig(c=8, lanes=256),
+                                     np.random.default_rng(74), dev)
+    assert bool(pts[3].any())
+    before = _build.LAUNCHES["K2 g1 n12"]
+    got = insert(dc.g1, d, pts, B)
+    assert _build.LAUNCHES["K2 g1 n12"] == before + 1
+    for g, w in zip(got, insert_plain(dc.g1, d, pts, B)):
+        assert torch.equal(g, w)
+    ds, ps = chip_smoke.skewed(d, pts, B)
+    for g, w in zip(insert(dc.g1, ds, ps, B), insert_plain(dc.g1, ds, ps, B)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_msm_n12_matches_oracle(dev, dc12, curve):
+    """The 12-limb G1 MSM through default_config(n, G): the oracle's
+    point, one scan and one inverse launch, every 12-limb kernel launched
+    and no 8-limb one."""
+    dc = dc12[curve]
+    s, A, want = workload.msm_case(dc, "g1", 12, dev, 75)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(dc.g1, s, A,
+                                 default_config(1 << 12, dc.g1, dev))
+    assert got == want
+    n = _build.LAUNCHES
+    assert n["K3 scan g1 n12"] == 1 and n["K1e inv n12"] == 1
+    assert n["K2 g1 n12"] == 1 and n["K3 g1 n12"] > 0 and n["K1e n12"] > 0
+    assert not [k for k in n if not k.endswith("n12") and k != "K2 sort g1"]
+
+
+def test_n12_refuses_what_waits(dev, dc12):
+    """On a CUDA tensor the 12-limb G2 kernels raise (ROADMAP item 9b),
+    and so do the fused merge, K5, K6 and the SOS products at 12 limbs
+    (item 9c): none falls back to a plain version."""
+    from libff_tpu_torch.msm.pippenger import msm_pippenger
+
+    dc = dc12["bls12_381"]
+    G2 = dc.g2
+    x = chip_smoke.rand_elements(G2.F, 8, np.random.default_rng(76), dev)
+    with pytest.raises(NotImplementedError, match="9b"):
+        group_op(G2, "pdbl", [x, x, x])
+    with pytest.raises(NotImplementedError, match="9b"):
+        fq2_op(G2.F, "mul", x, x)
+    with pytest.raises(NotImplementedError, match="9b"):
+        G2.F.inv(x)
+    s, A, _ = workload.msm_case(dc, "g1", 8, dev, 77)
+    for fields in ({"merge": True}, {"merge": "kernel"},
+                   {"engine": "pallas"}, {"kmul": "sos"}, {"kmul": "sos2"}):
+        cfg = MsmConfig(c=4, lanes=128, **fields)
+        with pytest.raises(NotImplementedError, match="9c"):
+            msm_pippenger(dc.g1, s, A, 255, config=cfg)

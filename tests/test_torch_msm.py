@@ -196,7 +196,7 @@ def test_later_slices_raise(toy):
         msm_pippenger_windows(TG, convert.field_to_torch(limbs, "cpu"), A,
                               TOY_BITS, 0, 2)
     with pytest.raises(NotImplementedError):
-        device_curve("bls12_381")
+        device_curve("bw6_761")
     with pytest.raises(ValueError):
         msm_pippenger(TG, convert.field_to_torch(limbs, "cpu"), A, TOY_BITS,
                       config=MsmConfig(c=4, lanes=3))
@@ -205,6 +205,7 @@ def test_later_slices_raise(toy):
 def test_default_config():
     for n in (1, 64, 1 << 12, 1 << 20):
         for dev in ("cpu", "cuda"):
-            cfg = default_config(n, dev)
+            cfg = default_config(n, device=dev)
             assert 2 <= cfg.c <= 16 and cfg.lanes & (cfg.lanes - 1) == 0
-    assert default_config(1 << 20, "cuda") == MsmConfig(c=8, lanes=1024)
+    assert default_config(1 << 20, device="cuda") == MsmConfig(c=8,
+                                                                lanes=1024)
