@@ -19,8 +19,9 @@ the path's W = 32 totals and c = 8, with identities and repeated points;
 the inverses at one element, 0, 1 and p - 1 among the inputs, and at
 2^20; K2m's tail as its time less K2's on the same inputs, beside K5's,
 and phase merge's line sets each K5 and K2m beside its time under the
-lane tree's previous design, ``BEFORE_MS``, which is not measured
-here), and runs these paths through ``msm_pippenger``:
+lane tree's previous design, and the K2 phases' lines K2's sort and the
+12-limb K2 beside theirs, ``BEFORE_MS``, which is not measured here),
+and runs these paths through ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
   exact oracle of bench.py:113-137, with the default configuration (K1e,
@@ -102,15 +103,19 @@ CURVES12 = ("bls12_381", "bls12_377")
 K2_N12_WINDOWS = 8              # windows of the 12-limb K2 check
 K3_SMALL = 1 << 14              # BLS12-377's K3 check: its b3 = 3 branch
 SCAN_SMALL = (5, 3)             # and its scan's (W, c)
-# K5's and K2m's times under the lane tree's previous design (one warp a
-# row through a device scratch array; K2m's tail on each window's last
-# block), as this script measured them on an NVIDIA H100 80GB HBM3 at
-# 700 W.  They are not measured here: phase merge's line sets them beside
-# this run's times as before_ms, and the kernels line leaves them out.
+# Times under a kernel's previous design, as this script measured them
+# on an NVIDIA H100 80GB HBM3 at 700 W: K5's and K2m's under the lane
+# tree's (one warp a row through a device scratch array; K2m's tail on
+# each window's last block), K2's sort's under one thread a lane, and
+# the 12-limb K2's under the 8-limb chain kernel with the bucket in
+# registers.  They are not measured here: the merge and K2 phases' lines
+# set them beside this run's times as before_ms, and the kernels line
+# leaves them out.
 BEFORE_MS = {"K5 g1": 2.344, "K5 g1 sos": 2.536, "K5 g1 sos2": 2.572,
              "K5 g2": 14.15, "K5 g2 sos": 14.96, "K5 g2 sos2": 15.28,
              "K2m g1": 40.57, "K2m g1 sos": 46.88, "K2m g1 sos2": 45.87,
-             "K2m g2": 145.82, "K2m g2 sos": 159.97, "K2m g2 sos2": 160.99}
+             "K2m g2": 145.82, "K2m g2 sos": 159.97, "K2m g2 sos2": 160.99,
+             "K2 sort g1": 1.029, "K2 sort g2": 0.277, "K2 g1 n12": 59.19}
 
 
 def inv_edges(F) -> dict[str, tuple]:
@@ -451,8 +456,10 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     want_lists, sort_plain_ms = host_timed(
         lambda: bucket_lists_plain(d, pts[3], B))
     keys = bucket_keys(d, pts[3], B).reshape(-1, d.shape[1])   # (W*L, T)
+    sort_name = f"K2 sort g{1 if G.F.el_ndim == 1 else 2}"
     sort = {"max_abs_err": max_abs_err(lists, want_lists),
             "plain_ms": sort_plain_ms,
+            "before_ms": BEFORE_MS.get(sort_name),
             "entry_bytes": lists[1].element_size(),
             "ms": event_ms(lambda: bucket_lists(G, d, pts[3], B), 20),
             "library": "torch.sort(keys (W*L, T), stable=True)",
@@ -466,7 +473,8 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
                 "max_abs_err": max_abs_err(insert(G, ds, ps, B),
                                            insert_plain(G, ds, ps, B))}
         del ds, ps
-    res = {"name": _build.width_name(f"K2 {group}", G.F.prime_field.n32),
+    name = _build.width_name(f"K2 {group}", G.F.prime_field.n32)
+    res = {"name": name, "before_ms": BEFORE_MS.get(name),
            "shape": list(d.shape) + [B], "checked_windows": checked,
            "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
            "zero_digits": int((d == 0).sum()), "madds": madds,
@@ -1101,8 +1109,15 @@ def main() -> int:
     per_source = _build.build()
     ptxas = {p.stem: _build.ptxas_lines(p)
              for p in sorted(_build.build_dir().glob("*.log"))}
+    # the redesigned K2 kernels' registers and spills
+    k2_ptxas = {name: [k for k in _build.ptxas_kernels(_build.build_dir()
+                                                       / log)
+                       if kernel in k["function"]]
+                for name, log, kernel in (
+                    ("K2 sort", "insert.log", "bucket_lists_kernel"),
+                    ("K2 g1 n12", "insert_n12.log", "chain_kernel"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": per_source, "ptxas": ptxas})
+          "nvcc_seconds": per_source, "k2_ptxas": k2_ptxas, "ptxas": ptxas})
 
     dc = device_curve("alt_bn128")
     rng = np.random.default_rng(SEED)

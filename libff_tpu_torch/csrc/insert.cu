@@ -12,14 +12,22 @@
 
 LFF_INSERT_ENTRY(lff::Mul::Cios)
 
-// K2's sort (insert.cuh bucket_lists_kernel), the same for every product
-// and group: d (W, T, L) int32 and pinf (T, L) bool in; off (W, L, B + 1)
-// int32 and ent (W, L, T), int32 if wide else int16, out.
+// K2's sort (insert.cuh bucket_lists_kernel), the same for every product,
+// group and width: d (W, T, L) int32 and pinf (T, L) bool (one byte each)
+// in; off (W, L, B + 1) int32 and ent (W, L, T), int32 if wide else int16
+// (which needs T <= 16384), out.
 extern "C" int bucket_lists(const void* d, const void* pinf, void* off,
                             void* ent, int wide, int W, int T, int L, int B,
                             int device, void* stream) {
-  return lff::bucket_lists_entry(d, pinf, off, ent, wide, W, T, L, B, device,
-                                 stream);
+  if (W < 0 || T < 0 || L < 0 || B <= 0 || (wide != 0 && wide != 1) ||
+      (!wide && T > 16384))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)W * L == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return wide ? lff::sort_launch<int32_t>(d, pinf, off, ent, W, T, L, B, s)
+              : lff::sort_launch<int16_t>(d, pinf, off, ent, W, T, L, B, s);
 }
 
 // K6, the v1 insert: G1 only (b3 must be 9), raw buckets (8, W, B, L),

@@ -25,23 +25,30 @@
 // TPU kernel's raw buckets bit for bit, whatever its time block tb was.
 // Three launches:
 //
-//   bucket_lists   (the sort) one thread per (w, l) lists the steps t
-//                  whose digit is non-zero and whose point is finite,
-//                  grouped by bucket and in t order within a bucket (a
-//                  stable counting sort): off (W, L, B + 1) int32, the
-//                  start of each bucket's list; ent (W, L, T), each entry
-//                  2t + 1 for a negative digit, 2t for a positive one,
-//                  then -1 to the end of the row; int16 while T <= 16384,
-//                  else int32.  The digits and the infinity flags (bool
-//                  bytes, as the caller holds them) are read with
-//                  neighbouring lanes on neighbouring words, kSortBatch
-//                  steps in flight; the counters live in shared memory,
-//                  one column per thread, kSortChunk buckets a pass.
-//                  kSortBlocksPerSM
-//                  blocks an SM walk all the lanes, so that the rows being
-//                  written at once fit in L2: with every lane at once the
-//                  scattered 2-byte writes left their sectors part-written
-//                  and the sort took twice as long.
+//   bucket_lists   (the sort) lists, per (w, l), the steps t whose digit
+//                  is non-zero and whose point is finite, grouped by
+//                  bucket and in t order within a bucket (a stable
+//                  counting sort): off (W, L, B + 1) int32, the start of
+//                  each bucket's list; ent (W, L, T), each entry 2t + 1
+//                  for a negative digit, 2t for a positive one, then -1
+//                  to the end of the row; int16 while T <= 16384, else
+//                  int32.  Its bound is bytes: the digits and the flags
+//                  (bool bytes, as the caller holds them) read once, the
+//                  lists written once.  A block owns 32 neighbouring
+//                  lanes of one window: it reads their digit and flag rows
+//                  as whole 128-byte lines into a tile of one-byte keys
+//                  (16-bit past B = 255) and sign words in shared memory;
+//                  then each warp lists one lane at a time: it counts the
+//                  lane's keys (shared-memory atomics), scans the counts
+//                  into starts, and ranks the steps 32 at a time among
+//                  their peers (one ballot a key bit) into a row of
+//                  entries in shared memory, which it stores as 16-byte
+//                  words.  So the digits are read once and the lists
+//                  written once, whole sectors, where one thread a lane
+//                  read each lane's steps twice and scattered 2-byte
+//                  stores over its own row (1.03 ms against 0.24 on an
+//                  H100, G1 path, PERF.md).  A lane longer than the tile
+//                  (kSortTile steps) is listed from device memory.
 //   chain_kernel   S threads per (w, l), S = ceil(T / kEntries).  Thread
 //                  s owns the buckets whose lists start in the s-th of S
 //                  equal shares of the lane's list: a run of consecutive
@@ -59,12 +66,16 @@
 //                  fastest thread index, so a warp's list reads coalesce.
 //                  The threads of a warp finish their buckets at
 //                  different times, so each stores a bucket's limbs
-//                  contiguous, (W, L, B, K) per coordinate: whole 32-byte
-//                  sectors.  In the contract's (K, W, B, L) each store
-//                  would be one word of a sector that seven other threads
-//                  fill later; on G2 those part-written sectors cost more
-//                  than the madds.
-//   limb_major_kernel  the raw buckets from (W, L, B, K) into (K, W, B,
+//                  contiguous, (W, L, B, Kp) per coordinate, Kp the K
+//                  words padded to whole 32-byte sectors (lane_words: 8
+//                  at 8 limbs, 16 on G2 and at 12 limbs).  In the
+//                  contract's (K, W, B, L) each store would be one word of
+//                  a sector that seven other threads fill later; on G2
+//                  those part-written sectors cost more than the madds,
+//                  and at 12 limbs a 48-byte coordinate without its pad
+//                  left every other sector half written until the
+//                  thread's next bucket.
+//   limb_major_kernel  the raw buckets from (W, L, B, Kp) into (K, W, B,
 //                  L) through shared memory, 32 lanes of one (w, b) a
 //                  block: the bucket bytes read and written once more.
 //
@@ -73,15 +84,37 @@
 // -y as 16-byte loads: 64 bytes on G1, 128 on G2, where the TPU layout
 // (K, T, L) costs one 32-byte sector per limb.
 //
-// kEntries, kSortBlocksPerSM and the blocks an SM that __launch_bounds__
-// asks for were chosen on an H100 with tune_insert.py, which builds this
-// header with other values of their LFF_ macros (PERF.md).
-// On the two MSM paths kEntries gives S = 2 (G1) and 1 (G2): one wave of
-// blocks, every thread with as many entries as the next.  Runs of a fixed
-// count of buckets a thread, tried first, lost up to 2x to the digits'
-// skew.  A G2 thread holds a 48-word accumulator, a 32-word point and the
-// Karatsuba temporaries in 255 registers with a few spills; asking for 3
-// blocks an SM (168 registers) spills a kilobyte and runs slower.
+// kEntries, the blocks an SM that __launch_bounds__ asks for and the
+// sort's tile and warps were chosen on an H100 with tune_insert.py, which
+// builds this header with other values of their LFF_ macros (PERF.md).
+// On the two 8-limb MSM paths kEntries gives S = 2 (G1) and 1 (G2): one
+// wave of blocks, every thread with as many entries as the next.  Runs
+// of a fixed count of buckets a thread, tried first, lost up to 2x to the
+// digits' skew.  A G2 thread holds a 48-word accumulator, a 32-word point
+// and the Karatsuba temporaries in 255 registers with a few spills;
+// asking for 3 blocks an SM (168 registers) spills a kilobyte and runs
+// slower.
+//
+// At 12 limbs (BLS12-381 and BLS12-377 G1, insert_n12.cu) the bound is
+// the same, the multiplies: a 12-limb product is 300 mul.lo and 288
+// mul.hi multiply-adds, 2.24 times an 8-limb one.  At G1's 8-limb
+// settings, 4 blocks an SM capped the chain kernel at 128 registers,
+// where the bucket (36 words), the point (24) and the madd's first-level
+// values (60) beside CIOS's row accumulator spill 260-272 bytes on the
+// inner loop, and its 48-byte coordinates left half-written sectors: it
+// ran at 32% of its bound (59.2 ms on the path).  Now a coordinate takes
+// 16 words in the lane-major arrays (whole sectors), and the 12-limb
+// constants are their own: 3 blocks an SM (168 registers, at most 12
+// bytes of spills) and kEntries = 342, so that the path's 32 x 3 x 1024
+// threads fill two waves of 3 x 132 blocks (37.5 ms on an H100, 51% of
+// the bound).  Tried and measured on an H100 (PERF.md):
+// keeping the bucket, the point and a scratch element in shared memory
+// with the next point fetched by cp.async, in a madd order that keeps
+// three elements in registers, ran 4 blocks an SM at 128 registers
+// without spills and was the fastest on even digits, but lost 8-9 ms on
+// the path's digits, whose chains end at different steps in a warp, and
+// at 3 blocks an SM it lost to registers; so the bucket stays in
+// registers.
 //
 // The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
 // totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
@@ -115,8 +148,11 @@
 namespace lff {
 
 // The constants tune_insert.py varies, each open to -D at build time.
-#ifndef LFF_SORT_BLOCKS_PER_SM
-#define LFF_SORT_BLOCKS_PER_SM 4
+#ifndef LFF_SORT_TILE
+#define LFF_SORT_TILE 1024
+#endif
+#ifndef LFF_SORT_WARPS
+#define LFF_SORT_WARPS 16
 #endif
 #ifndef LFF_ENTRIES_G1
 #define LFF_ENTRIES_G1 512
@@ -130,122 +166,253 @@ namespace lff {
 #ifndef LFF_MIN_BLOCKS_G2
 #define LFF_MIN_BLOCKS_G2 1
 #endif
+#ifndef LFF_ENTRIES_G1_N12
+#define LFF_ENTRIES_G1_N12 342
+#endif
+#ifndef LFF_MIN_BLOCKS_G1_N12
+#define LFF_MIN_BLOCKS_G1_N12 3
+#endif
 
-constexpr int kSortThreads = 32;
-constexpr int kSortChunk = 128;  // buckets counted per pass over the digits
-constexpr int kSortBatch = 16;   // steps whose loads are in flight at once
-constexpr int kSortBlocksPerSM = LFF_SORT_BLOCKS_PER_SM;
+// The sort: the steps of a lane that a block holds in shared memory, its
+// warps, the lanes it owns (one 128-byte line of digits), the buckets a
+// pass counts and the rows of digits a warp has in flight.
+constexpr int kSortTile = LFF_SORT_TILE;
+constexpr int kSortWarps = LFF_SORT_WARPS;
+constexpr int kSortThreads = 32 * kSortWarps;
+constexpr int kSortLanes = 32;
+constexpr int kSortBins = 256;
+constexpr int kSortBatch = 16;
+static_assert(kSortTile > 0 && kSortTile % 32 == 0, "whole groups of 32");
 constexpr int kChainThreads = 128;
-// list entries a thread walks, G1 and G2
+// list entries a chain thread walks: G1 at 8 and at 12 limbs, G2
 constexpr int kEntriesG1 = LFF_ENTRIES_G1;
+constexpr int kEntriesG1N12 = LFF_ENTRIES_G1_N12;
 constexpr int kEntriesG2 = LFF_ENTRIES_G2;
 // __launch_bounds__'s blocks an SM
 constexpr int kMinBlocksG1 = LFF_MIN_BLOCKS_G1;
+constexpr int kMinBlocksG1N12 = LFF_MIN_BLOCKS_G1_N12;
 constexpr int kMinBlocksG2 = LFF_MIN_BLOCKS_G2;
 constexpr int kLayoutThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
-// The bucket of a step, or -1 for a step that adds nothing.
-__device__ __forceinline__ int list_bucket(int dig, int inf, int B) {
-  return (dig == 0 || inf != 0) ? -1 : min(abs(dig) - 1, B - 1);
+// The sort key of a step: its bucket, or B for a step that adds nothing.
+__device__ __forceinline__ int sort_key(int dig, int inf, int B) {
+  return (dig == 0 || inf != 0) ? B : min(abs(dig) - 1, B - 1);
 }
 
-// Steps t0 .. t0 + kSortBatch - 1 of one lane, all loads issued before
-// any is used; a step past T reads as a zero digit.
-__device__ __forceinline__ void load_steps(const int32_t* __restrict__ dl,
-                                           const uint8_t* __restrict__ fl,
-                                           int t0, int T, int L, int* dig,
-                                           int* inf) {
-#pragma unroll
-  for (int k = 0; k < kSortBatch; k++) {
-    const bool in = t0 + k < T;
-    dig[k] = in ? __ldg(dl + (size_t)(t0 + k) * L) : 0;
-    inf[k] = in ? __ldg(fl + (size_t)(t0 + k) * L) : 0;
+// A lane's keys in the block's tile: row[t] the key of step t, bit c of
+// signs[t] the sign of its digit (c the lane's column in the block).
+template <class Key>
+struct TileKeys {
+  const Key* row;
+  const uint32_t* signs;
+  int c;
+  __device__ __forceinline__ unsigned key(int t) const { return row[t]; }
+  __device__ __forceinline__ int neg(int t) const {
+    return (signs[t] >> c) & 1;
   }
+};
+
+// A lane's keys straight from the digits and flags in device memory, for
+// a lane longer than a tile.
+struct GlobalKeys {
+  const int32_t* dl;  // step t at dl[t * L]
+  const uint8_t* fl;
+  int L, B;
+  __device__ __forceinline__ unsigned key(int t) const {
+    return (unsigned)sort_key(__ldg(dl + (size_t)t * L),
+                              __ldg(fl + (size_t)t * L), B);
+  }
+  __device__ __forceinline__ int neg(int t) const {
+    return __ldg(dl + (size_t)t * L) < 0;
+  }
+};
+
+// The lanes of the warp whose k equals this lane's, k < 2^bits: one
+// ballot a bit (the mask __match_any_sync gives).
+__device__ __forceinline__ unsigned peers_of(unsigned k, int bits) {
+  unsigned m = kFullMask;
+  for (int j = 0; j < bits; j++) {
+    const unsigned v = __ballot_sync(kFullMask, (k >> j) & 1);
+    m &= (k >> j) & 1 ? v : ~v;
+  }
+  return m;
 }
 
-template <class Entry>
+// One warp lists one lane: its row of off, o (B + 1 starts), and its row
+// of entries (in shared or device memory), from its T keys, kSortBins
+// buckets a pass.  A pass counts its buckets' keys (shared-memory
+// atomics), scans the counts into starts across the warp, then takes the
+// steps 32 at a time: each goes to its bucket's start plus the number of
+// its peers (peers_of) at earlier steps of the group, and the starts move
+// past the group: a stable counting sort.  cnt: kSortBins words of shared
+// memory for this warp.
+template <class Keys, class Entry>
+__device__ __forceinline__ void sort_lane(const Keys& keys, Entry* row,
+                                          int32_t* o, int* cnt, int T,
+                                          int B) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  int base = 0;
+  for (int b0 = 0; b0 < B; b0 += kSortBins) {
+    const unsigned nb = (unsigned)min(kSortBins, B - b0);
+    const int bits = 32 - __clz(nb);  // a key of the pass, or nb: not in it
+    for (int j = lane; j < (int)nb; j += 32) cnt[j] = 0;
+    __syncwarp();
+    for (int t = lane; t < T; t += 32) {
+      const unsigned k = keys.key(t) - b0;
+      if (k < nb) atomicAdd(cnt + k, 1);
+    }
+    __syncwarp();
+    // each lane sums a run of `per` counts; the runs are scanned across
+    // the warp, then each run in the lane
+    const int per = ((int)nb + 31) / 32;
+    const int j0 = min(lane * per, (int)nb), j1 = min(j0 + per, (int)nb);
+    int sum = 0;
+    for (int j = j0; j < j1; j++) sum += cnt[j];
+    int incl = sum;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, s);
+      if (lane >= s) incl += v;
+    }
+    int start = base + incl - sum;
+    for (int j = j0; j < j1; j++) {
+      const int n = cnt[j];
+      cnt[j] = start;
+      o[b0 + j] = start;
+      start += n;
+    }
+    base += __shfl_sync(kFullMask, incl, 31);
+    __syncwarp();
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int t = t0 + lane;
+      const unsigned k = min((t < T ? keys.key(t) : (unsigned)B) - b0, nb);
+      const bool in = k < nb;
+      const unsigned peers = peers_of(k, bits);
+      if (in)
+        row[cnt[k] + __popc(peers & below)] = (Entry)(2 * t + keys.neg(t));
+      __syncwarp();
+      if (in && (peers >> lane) == 1) cnt[k] += __popc(peers);  // last peer
+      __syncwarp();
+    }
+  }
+  if (lane == 0) o[B] = base;
+  for (int i = base + lane; i < T; i += 32) row[i] = (Entry)-1;
+  __syncwarp();
+}
+
+// The sort's shared memory: with a tile (T <= kSortTile) a row of entries
+// and kSortBins counters a warp, the tile's sign words and its keys (a row
+// a lane, padded by one 32-bit word so that a warp's stores of one step
+// fall on 32 banks); without, the counters only.
+template <class Key, class Entry>
+struct SortSmem {
+  static constexpr int kStride = kSortTile + 4 / (int)sizeof(Key);
+  static constexpr size_t kRows = sizeof(Entry) * kSortWarps * kSortTile;
+  static constexpr size_t kCnt = 4 * kSortWarps * kSortBins;
+  static constexpr size_t kSigns = 4 * kSortTile;
+  static constexpr size_t kKeys = sizeof(Key) * kSortLanes * kStride;
+  static constexpr size_t bytes(bool tile) {
+    return tile ? kRows + kCnt + kSigns + kKeys : kCnt;
+  }
+};
+
+// A block lists kSortLanes neighbouring lanes of one window.  With T <=
+// kSortTile its warps first read the lanes' digit and flag rows as whole
+// lines (kSortBatch rows a warp in flight) into the tile of keys and sign
+// words; then each warp lists its lanes in turn into its row of entries
+// and stores the row as 16-byte words.  A longer lane is listed from
+// device memory straight into ent.
+template <class Key, class Entry>
 __global__ void __launch_bounds__(kSortThreads)
     bucket_lists_kernel(const int32_t* __restrict__ d,
                         const uint8_t* __restrict__ pinf,
                         int32_t* __restrict__ off, Entry* __restrict__ ent,
-                        int W, int T, int L, int B) {
-  __shared__ int32_t cnt[kSortChunk * kSortThreads];
-  int32_t* c = cnt + threadIdx.x;  // this thread's counter of bucket b0 + j
-                                   // at c[j * kSortThreads]
-  // a grid of few blocks walks the lanes, so that the rows of entries
-  // being written at once stay in L2 until their sectors are whole
-  for (long long gid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       gid < (long long)W * L; gid += (long long)gridDim.x * blockDim.x) {
-    const int w = (int)(gid / L);
-    const int l = (int)(gid % L);
-    const int32_t* dl = d + (size_t)w * T * L + l;  // step t at dl[t * L]
-    const uint8_t* fl = pinf + l;
-    int32_t* o = off + (size_t)gid * (B + 1);
-    Entry* e = ent + (size_t)gid * T;
-    int base = 0;
-    for (int b0 = 0; b0 < B; b0 += kSortChunk) {
-      const int nb = min(kSortChunk, B - b0);
-      for (int j = 0; j < nb; j++) c[j * kSortThreads] = 0;
-      for (int t0 = 0; t0 < T; t0 += kSortBatch) {
-        int dig[kSortBatch], inf[kSortBatch];
-        load_steps(dl, fl, t0, T, L, dig, inf);
+                        int T, int L, int B) {
+  using S = SortSmem<Key, Entry>;
+  extern __shared__ uint4 sort_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int lane_blocks = (L + kSortLanes - 1) / kSortLanes;
+  const int w = (int)(blockIdx.x / lane_blocks);
+  const int l0 = (int)(blockIdx.x % lane_blocks) * kSortLanes;
+  const int nl = min(kSortLanes, L - l0);
+  const size_t row0 = (size_t)w * L + l0;  // the block's first lane row
+  const int32_t* dw = d + (size_t)w * T * L + l0;
+  char* sm = (char*)sort_smem;
+  const bool tile = T <= kSortTile;
+  int* cnt = (int*)(sm + (tile ? S::kRows : 0)) + warp * kSortBins;
+  if (!tile) {
+    for (int c = warp; c < nl; c += kSortWarps)
+      sort_lane(GlobalKeys{dw + c, pinf + l0 + c, L, B},
+                ent + (row0 + c) * T, off + (row0 + c) * (B + 1), cnt, T, B);
+    return;
+  }
+  uint32_t* signs = (uint32_t*)(sm + S::kRows + S::kCnt);
+  Key* keys = (Key*)(sm + S::kRows + S::kCnt + S::kSigns);
+  const bool mine = lane < nl;
+  for (int t0 = warp * kSortBatch; t0 < T; t0 += kSortWarps * kSortBatch) {
+    int dig[kSortBatch], inf[kSortBatch];
 #pragma unroll
-        for (int k = 0; k < kSortBatch; k++) {
-          const unsigned j = list_bucket(dig[k], inf[k], B) - b0;
-          if (j < (unsigned)nb) c[j * kSortThreads]++;
-        }
-      }
-      for (int j = 0; j < nb; j++) {  // counts -> starts
-        const int n = c[j * kSortThreads];
-        o[b0 + j] = base;
-        c[j * kSortThreads] = base;
-        base += n;
-      }
-      for (int t0 = 0; t0 < T; t0 += kSortBatch) {
-        int dig[kSortBatch], inf[kSortBatch];
-        load_steps(dl, fl, t0, T, L, dig, inf);
+    for (int k = 0; k < kSortBatch; k++) {
+      const bool in = mine && t0 + k < T;
+      dig[k] = in ? __ldg(dw + (size_t)(t0 + k) * L + lane) : 0;
+      inf[k] = in ? __ldg(pinf + (size_t)(t0 + k) * L + l0 + lane) : 0;
+    }
 #pragma unroll
-        for (int k = 0; k < kSortBatch; k++) {
-          const unsigned j = list_bucket(dig[k], inf[k], B) - b0;
-          if (j < (unsigned)nb)
-            e[c[j * kSortThreads]++] = (Entry)(2 * (t0 + k) + (dig[k] < 0));
-        }
+    for (int k = 0; k < kSortBatch; k++) {
+      if (t0 + k < T) {
+        keys[lane * S::kStride + t0 + k] = (Key)sort_key(dig[k], inf[k], B);
+        const unsigned neg = __ballot_sync(kFullMask, dig[k] < 0);
+        if (lane == 0) signs[t0 + k] = neg;
       }
     }
-    o[B] = base;
-    for (int i = base; i < T; i++) e[i] = (Entry)-1;
+  }
+  __syncthreads();
+  Entry* row = (Entry*)sm + warp * kSortTile;
+  const bool vec = (T * sizeof(Entry)) % 16 == 0;
+  for (int c = warp; c < nl; c += kSortWarps) {
+    sort_lane(TileKeys<Key>{keys + c * S::kStride, signs, c}, row,
+              off + (row0 + c) * (B + 1), cnt, T, B);
+    Entry* e = ent + (row0 + c) * T;
+    if (vec) {
+      const int n = (int)(T * sizeof(Entry) / 16);
+      for (int i = lane; i < n; i += 32)
+        ((uint4*)e)[i] = ((const uint4*)row)[i];
+    } else {
+      for (int i = lane; i < T; i += 32) e[i] = row[i];
+    }
+    __syncwarp();
   }
 }
 
-// The sort.  d (W, T, L) int32, pinf (T, L) bool (one byte each); wide:
-// int32 entries (else int16, which needs T <= 16384).
-inline int bucket_lists_entry(const void* d, const void* pinf, void* off,
-                              void* ent, int wide, int W, int T, int L,
-                              int B, int device, void* stream) {
-  if (W < 0 || T < 0 || L < 0 || B <= 0 || (wide != 0 && wide != 1) ||
-      (!wide && T > 16384))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+template <class Key, class Entry>
+int sort_launch(const void* d, const void* pinf, void* off, void* ent, int W,
+                int T, int L, int B, cudaStream_t s) {
+  const size_t smem = SortSmem<Key, Entry>::bytes(T <= kSortTile);
+  cudaError_t err = cudaFuncSetAttribute(
+      bucket_lists_kernel<Key, Entry>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)W * L == 0) return 0;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const long long lane_blocks =
-      ((long long)W * L + kSortThreads - 1) / kSortThreads;
-  const long long blocks = lane_blocks < (long long)sms * kSortBlocksPerSM
-                               ? lane_blocks
-                               : (long long)sms * kSortBlocksPerSM;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (wide)
-    bucket_lists_kernel<int32_t><<<(unsigned)blocks, kSortThreads, 0, s>>>(
-        (const int32_t*)d, (const uint8_t*)pinf, (int32_t*)off,
-        (int32_t*)ent, W, T, L, B);
-  else
-    bucket_lists_kernel<int16_t><<<(unsigned)blocks, kSortThreads, 0, s>>>(
-        (const int32_t*)d, (const uint8_t*)pinf, (int32_t*)off,
-        (int16_t*)ent, W, T, L, B);
+  const long long blocks =
+      (long long)W * ((L + kSortLanes - 1) / kSortLanes);
+  bucket_lists_kernel<Key, Entry><<<(unsigned)blocks, kSortThreads, smem,
+                                    s>>>(
+      (const int32_t*)d, (const uint8_t*)pinf, (int32_t*)off, (Entry*)ent, T,
+      L, B);
   return (int)cudaGetLastError();
+}
+
+// The keys are bytes while B <= 255 (B itself marks a step that adds
+// nothing), 16-bit words while B <= 65535.
+template <class Entry>
+int sort_launch(const void* d, const void* pinf, void* off, void* ent, int W,
+                int T, int L, int B, cudaStream_t s) {
+  if (B <= 255)
+    return sort_launch<uint8_t, Entry>(d, pinf, off, ent, W, T, L, B, s);
+  if (B <= 65535)
+    return sort_launch<uint16_t, Entry>(d, pinf, off, ent, W, T, L, B, s);
+  return sort_launch<uint32_t, Entry>(d, pinf, off, ent, W, T, L, B, s);
 }
 
 // One coordinate of a bucket as 16-byte stores (merge.cuh's load_words
@@ -264,12 +431,33 @@ __device__ __forceinline__ void store_words(uint32_t* p, const Fe2& a) {
   store_words(p + 8, a.c1);
 }
 
+// The words of one coordinate of a bucket in the chain kernels'
+// lane-major arrays: its K words padded to whole 32-byte sectors (12
+// limbs take 16), so that no store leaves a sector part-written for a
+// later store to fill.
+template <class E>
+__host__ __device__ constexpr int lane_words() {
+  return (sizeof(E) / sizeof(uint32_t) + 7) / 8 * 8;
+}
+
+// One coordinate at p in the lane-major arrays, its pad zeroed.
+template <class E>
+__device__ __forceinline__ void store_lane(uint32_t* p, const E& a) {
+  store_words(p, a);
+#pragma unroll
+  for (int q = sizeof(E) / 16; q < lane_words<E>() / 4; q++)
+    ((uint4*)p)[q] = make_uint4(0, 0, 0, 0);
+}
+
 // The chain kernel's share of a lane and occupancy target by branch.
 template <class F>
 struct ChainShape {
   static constexpr bool kG1 = F::kG1;
-  static constexpr int kEntries = kG1 ? kEntriesG1 : kEntriesG2;
-  static constexpr int kMinBlocks = kG1 ? kMinBlocksG1 : kMinBlocksG2;
+  static constexpr bool kN12 = kG1 && sizeof(typename F::E) == 48;
+  static constexpr int kEntries =
+      kN12 ? kEntriesG1N12 : kG1 ? kEntriesG1 : kEntriesG2;
+  static constexpr int kMinBlocks =
+      kN12 ? kMinBlocksG1N12 : kG1 ? kMinBlocksG1 : kMinBlocksG2;
 };
 
 // Threads per (w, l) for T steps.
@@ -326,10 +514,10 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
     Pt<F> acc{z, one, z};
     for (;;) {
       while (i == next) {  // bucket b's list has ended: store it once
-        const size_t e = (row * B + b) * K;  // (W, L, B, K): whole sectors
-        store_words(bx + e, acc.x);
-        store_words(by + e, acc.y);
-        store_words(bz + e, acc.z);
+        const size_t e = (row * B + b) * lane_words<E>();  // whole sectors
+        store_lane(bx + e, acc.x);
+        store_lane(by + e, acc.y);
+        store_lane(bz + e, acc.z);
         if (++b == b1) break;
         next = o[b + 1];
         acc = Pt<F>{z, one, z};
@@ -346,10 +534,10 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
   }
 }
 
-// The raw buckets from the chain kernel's lane-major arrays (W, L, B, K)
-// into the contract's (K, W, B, L), one coordinate of a (w, b) row of 32
-// lanes a block: whole sectors read, whole lines written.
-template <int K>
+// The raw buckets from the chain kernel's lane-major arrays (W, L, B, Kp),
+// Kp = lane_words, into the contract's (K, W, B, L), one coordinate of a
+// (w, b) row of 32 lanes a block: whole sectors read, whole lines written.
+template <int K, int Kp>
 __global__ void __launch_bounds__(kLayoutThreads)
     limb_major_kernel(const uint32_t* __restrict__ sx,
                       const uint32_t* __restrict__ sy,
@@ -363,7 +551,7 @@ __global__ void __launch_bounds__(kLayoutThreads)
   for (int i = threadIdx.x; i < 32 * K; i += kLayoutThreads) {
     const int l = i / K, k = i % K;
     if (l0 + l < L)
-      tile[k][l] = in[(((size_t)w * L + l0 + l) * B + b) * K + k];
+      tile[k][l] = in[(((size_t)w * L + l0 + l) * B + b) * Kp + k];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 32 * K; i += kLayoutThreads) {
@@ -389,7 +577,8 @@ int chain_launch(const void* off, const void* ent, int wide, const void* rec,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || bx == nullptr) return (int)err;
   const dim3 grid((unsigned)((long long)W * B), (unsigned)((L + 31) / 32), 3);
-  limb_major_kernel<K><<<grid, kLayoutThreads, 0, s>>>(
+  limb_major_kernel<K, lane_words<typename F::E>()>
+      <<<grid, kLayoutThreads, 0, s>>>(
       (const uint32_t*)lane[0], (const uint32_t*)lane[1],
       (const uint32_t*)lane[2], (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
       W, L, B);
@@ -447,35 +636,6 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
   const Rows out{{(uint32_t*)m[0], (uint32_t*)m[1], (uint32_t*)m[2]},
                  (size_t)n, 0};
   return merge_rows<M, true>(k, in, out, (uint32_t*)far, P, b3_mont, s);
-}
-
-// K2 over 12-limb Fp (insert_n12.cu), the arguments as insert_entry's:
-// G1 only (k = 1, b3 = 12 for BLS12-381 or 3 for BLS12-377), the CIOS
-// product only, the raw buckets only (m null).  The chain kernel is the
-// 8-limb one over FpField<12, B3>: a bucket is 36 words, a point record
-// 36, and kEntries and the blocks an SM are G1's (tuned at 8 limbs).
-inline int insert_entry_n12(int kmul, const void* off, const void* ent,
-                            int wide, const void* rec, void* const* lane,
-                            void* bx, void* by, void* bz, int W, int T,
-                            int L, int B, int n32, int k, int b3,
-                            const uint32_t* p, const uint32_t* one_mont,
-                            uint32_t inv, void* const* m, int device,
-                            void* stream) {
-  if (kmul != (int)Mul::Cios || n32 != 12 || W < 0 || T < 0 || L < 0 ||
-      B <= 0 || (wide != 0 && wide != 1) || lane == nullptr || k != 1 ||
-      (b3 != 12 && b3 != 3) || m != nullptr || bx == nullptr ||
-      by == nullptr || bz == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if ((long long)W * L == 0) return 0;
-  const FieldParams<12> P = field_params<12>(p, one_mont, inv);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (b3 == 12)
-    return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                        FpField<12, 12>{P}, s);
-  return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-                      FpField<12, 3>{P}, s);
 }
 
 }  // namespace lff

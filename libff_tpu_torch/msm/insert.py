@@ -29,8 +29,9 @@ repack gives way to K5's lane tree (``csrc/merge.cuh``), launched by the
 same C call on the chain kernel's lane-major buckets.  A CUDA tensor
 launches the kernels; a CPU tensor runs the plain versions,
 :func:`insert_plain` (and ``merge_lanes_plain``) over the same product and
-:func:`bucket_lists_plain`.  :func:`insert_from_lists_plain` walks the
-lists as the chain kernel does, for the tests.
+:func:`bucket_lists_plain`.  For the tests, :func:`bucket_lists_by_groups`
+lists the steps as the sort kernel does and
+:func:`insert_from_lists_plain` walks the lists as the chain kernel does.
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ _ARGS_SORT = [_build.VP] * 4 + [ctypes.c_int] * 6 + [_build.VP]
 MERGE_LANE_MULTIPLE = 128
 # a list entry is 2t + (digit < 0): int16 holds it while T <= 16384
 INT16_ENTRIES_MAX_T = 1 << 14
+# the buckets a pass of the sort kernel counts (insert.cuh kSortBins)
+SORT_BINS = 256
 
 
 def _check(G, d, pts, B, kmul="cios"):
@@ -151,6 +154,48 @@ def bucket_lists_plain(d: torch.Tensor, pinf: torch.Tensor, B: int):
     return off.to(torch.int32), ent
 
 
+def bucket_lists_by_groups(d: torch.Tensor, pinf: torch.Tensor, B: int,
+                           group: int = 32, bins: int = SORT_BINS):
+    """:func:`bucket_lists` as the sort kernel computes it, in plain torch
+    ops: per (window, lane), passes of `bins` buckets; a pass counts its
+    buckets' keys, turns the counts into starts, then takes the steps
+    `group` at a time (a warp's 32 in the kernel): each goes to its
+    bucket's start plus the number of steps of the group before it with
+    the same key, and each start moves past the group's steps.  The same
+    (off, ent) as :func:`bucket_lists_plain`."""
+    _check_lists_inputs(d, pinf, B)
+    W, T, L = d.shape
+    key = bucket_keys(d, pinf, B).long()                 # (W, L, T)
+    neg = (d.permute(0, 2, 1) < 0).long()
+    off = torch.empty((W, L, B + 1), dtype=torch.int32, device=d.device)
+    ent = torch.full((W, L, T + 1), -1, dtype=torch.long, device=d.device)
+    base = torch.zeros((W, L, 1), dtype=torch.long, device=d.device)
+    earlier = torch.ones(group, group, dtype=torch.bool,
+                         device=d.device).tril(-1)       # [j, i]: i < j
+    for b0 in range(0, B, bins):
+        nb = min(bins, B - b0)
+        k = key - b0
+        live = (k >= 0) & (k < nb)
+        k = torch.where(live, k, nb)                     # nb: not this pass
+        cnt = torch.zeros((W, L, nb + 1), dtype=torch.long, device=d.device)
+        cnt = cnt.scatter_add_(-1, k, torch.ones_like(k))[..., :nb]
+        start = base + cnt.cumsum(-1) - cnt
+        off[..., b0:b0 + nb] = start.to(torch.int32)
+        base = base + cnt.sum(-1, keepdim=True)
+        start = torch.cat([start, torch.zeros_like(base)], -1)
+        for t0 in range(0, T, group):
+            kg, lg = k[..., t0:t0 + group], live[..., t0:t0 + group]
+            n = kg.shape[-1]
+            peers = (kg[..., :, None] == kg[..., None, :]) & earlier[:n, :n]
+            pos = start.gather(-1, kg) + peers.sum(-1)
+            t = torch.arange(t0, t0 + n, device=d.device)
+            ent.scatter_(-1, torch.where(lg, pos, T),
+                         2 * t + neg[..., t0:t0 + group])
+            start.scatter_add_(-1, kg, torch.ones_like(kg))
+    off[..., B] = base[..., 0].to(torch.int32)
+    return off, ent[..., :T].to(entry_dtype(T))
+
+
 def point_records(G, pts) -> torch.Tensor:
     """The points as K2's chain kernel reads them: (T * L, 3, K) int32,
     point t*L + l's x, y and -y each as its K words contiguous (K = 8 on
@@ -238,14 +283,21 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     return ProjectivePoint(*raw)
 
 
+def lane_words(G) -> int:
+    """The words of a bucket's coordinate in the chain kernels' lane-major
+    scratch: its limbs padded to whole 32-byte sectors (8 on alt_bn128's
+    G1, 16 on its G2 and at 12 limbs; insert.cuh lane_words)."""
+    return -(-math.prod(G.F.el_shape) // 8) * 8
+
+
 def _kernel_tensors(G, d, pts, B, k, out_shape):
     """What the chain kernel reads and writes: the sort's lists (launched
-    here), the point records, the lane-major scratch (W, L, B, *el) that
-    the chain kernel writes the raw buckets to, a bucket's limbs
-    contiguous so that each thread's stores fill whole sectors, and the
-    three outputs (*el, *out_shape): the raw buckets (W, B, L) or the lane
-    totals (W, B, 1), all from torch.empty.  The caller holds them until
-    the launch is queued."""
+    here), the point records, the lane-major scratch (W, L, B,
+    lane_words) that the chain kernel writes the raw buckets to, a
+    bucket's limbs contiguous so that each thread's stores fill whole
+    sectors, and the three outputs (*el, *out_shape): the raw buckets (W,
+    B, L) or the lane totals (W, B, 1), all from torch.empty.  The caller
+    holds them until the launch is queued."""
     W, _, L = d.shape
     off, ent = _bucket_lists(d, pts[3], B, k)
 
@@ -254,7 +306,7 @@ def _kernel_tensors(G, d, pts, B, k, out_shape):
                 for _ in range(3)]
 
     return (off, ent, point_records(G, pts),
-            coords((W, L, B) + G.F.el_shape),
+            coords((W, L, B, lane_words(G))),
             coords(G.F.el_shape + out_shape))
 
 

@@ -316,12 +316,26 @@ SKEW_CUTS = ["skewed", "zero digits", "B=1", "T=1", "T=3", "T=600"]
 INSERT_T = {"zero digits": 3, "B=1": 600}
 
 
+# the sort's own cases: 40 lanes (a block's 32 and 8 of the next), B =
+# 256 with digits up to +-255 (16-bit keys), T = 1100 (a lane longer
+# than the sort's tile of 1024 steps, listed from device memory)
+SORT_CUTS = SKEW_CUTS + ["L=40", "B=256", "T=1100"]
+
+
 def _cut(case, cut, steps=None):
     G, d, pts, B = case
     if cut == "zero digits":
         d = torch.zeros_like(d)
     elif cut == "B=1":
         d, B = d.clamp(-1, 1), 1
+    elif cut == "B=256":
+        d, B = torch.where(d == 0, d, 2 * d - d.sign()), 256
+    elif cut == "L=40":
+        d = d[..., :40].contiguous()
+        pts = tuple(a[..., :40].contiguous() for a in pts)
+    elif cut == "T=1100":
+        d = torch.cat([d, d[:, :76]], 1)
+        pts = tuple(torch.cat([a, a[..., :76, :]], -2) for a in pts)
     elif cut.startswith("T="):
         steps = int(cut[2:])
     if steps is not None:
@@ -331,7 +345,7 @@ def _cut(case, cut, steps=None):
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
-@pytest.mark.parametrize("cut", SKEW_CUTS)
+@pytest.mark.parametrize("cut", SORT_CUTS)
 def test_k2_sort_matches_plain(dev, skew_case, group, cut):
     G, d, pts, B = _cut(skew_case[group], cut)
     before = _build.LAUNCHES[f"K2 sort {group}"]
@@ -341,10 +355,12 @@ def test_k2_sort_matches_plain(dev, skew_case, group, cut):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_k2_sort_int32_entries_match_plain(dev, dc):
-    """T > 16384 steps: the entries 2t + sign no longer fit int16."""
+@pytest.mark.parametrize("L,B", [(32, 16), (40, 300)])
+def test_k2_sort_int32_entries_match_plain(dev, dc, L, B):
+    """T > 16384 steps: the entries 2t + sign no longer fit int16; at B =
+    300 with 16-bit keys in two passes of buckets, on 40 lanes."""
     rng = np.random.default_rng(12)
-    W, T, L, B = 2, 16385, 32, 16
+    W, T = 2, 16385
     d = torch.from_numpy(rng.integers(-B, B + 1, (W, T, L),
                                       dtype=np.int32)).to(dev)
     pinf = torch.from_numpy(rng.random((T, L)) < 0.05).to(dev)
@@ -759,6 +775,24 @@ def test_k2_n12_matches_plain(dev, dc12, curve):
     ds, ps = chip_smoke.skewed(d, pts, B)
     for g, w in zip(insert(dc.g1, ds, ps, B), insert_plain(dc.g1, ds, ps, B)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_k2_n12_matches_plain_with_several_chain_threads(dev, dc12, curve):
+    """K2 over 12-limb Fp at T = 1024 steps of 128 lanes (several chain
+    threads a lane), 4 windows, on distinct points and on
+    chip_smoke.skewed's digits."""
+    dc = dc12[curve]
+    d, pts, B = chip_smoke.k2_inputs(dc, "g1", 1 << 17,
+                                     MsmConfig(c=8, lanes=128),
+                                     np.random.default_rng(78), dev)
+    d = d[:4].contiguous()
+    for dd, pp in ((d, pts), chip_smoke.skewed(d, pts, B)):
+        before = _build.LAUNCHES["K2 g1 n12"]
+        got = insert(dc.g1, dd, pp, B)
+        assert _build.LAUNCHES["K2 g1 n12"] == before + 1
+        for g, w in zip(got, insert_plain(dc.g1, dd, pp, B)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("curve", CURVES12)

@@ -10,9 +10,11 @@ scalar and one point at infinity.
 
 The card's K2 is a sort then a walk of bucket chains: its plain versions
 ``bucket_lists_plain`` and ``insert_from_lists_plain`` must list every
-step once, stably, and give ``insert_plain``'s buckets bit for bit, on
-the toy G1 curve and its Fq2 twin, with lanes that put every step in one
-bucket, lanes of zero digits and lanes at infinity.
+step once, stably, and give ``insert_plain``'s buckets bit for bit, and
+the sort kernel's scheme (``bucket_lists_by_groups``: passes of buckets,
+ranks within groups of steps) must give ``bucket_lists_plain``'s lists,
+on the toy G1 curve and its Fq2 twin, with lanes that put every step in
+one bucket, lanes of zero digits and lanes at infinity.
 """
 
 import jax.numpy as jnp
@@ -34,7 +36,8 @@ from libff_tpu_torch.curves.group import AffinePoint, Group
 from libff_tpu_torch.fields.fp import PrimeField
 from libff_tpu_torch.fields.tower import ExtField
 from libff_tpu_torch.msm import digits as tdig
-from libff_tpu_torch.msm.insert import (bucket_lists_plain, insert,
+from libff_tpu_torch.msm.insert import (SORT_BINS, bucket_lists_by_groups,
+                                        bucket_lists_plain, insert,
                                         insert_from_lists_plain,
                                         insert_plain)
 from libff_tpu_torch.msm.pippenger import MsmConfig, _prepare
@@ -235,6 +238,22 @@ def test_bucket_lists_plain_is_complete_and_stable(lists_case):
     assert off[:, 1:3, B].eq(0).all()
     n = T - int(pts[3][:, 8].sum())
     assert off[:, 8, 1:3].tolist() == [[0, n]] * W and n > 0
+
+
+@pytest.mark.parametrize("group,bins,one_bucket", [
+    (32, SORT_BINS, False), (4, 3, False), (3, 1, False), (4, 8, True)])
+def test_bucket_lists_by_groups_matches_plain(lists_case, group, bins,
+                                              one_bucket):
+    """The sort kernel's scheme gives bucket_lists_plain's lists: one
+    group and one pass as on the path; T = 7 steps in groups of 4 and of
+    3 (the last group part-way) with passes of 3 buckets of B = 8 (the
+    last pass part-way) and of 1; and B = 1."""
+    _, d, pts, B = lists_case
+    if one_bucket:
+        d, B = d.clamp(-1, 1), 1
+    got = bucket_lists_by_groups(d, pts[3], B, group, bins)
+    for g, w in zip(got, bucket_lists_plain(d, pts[3], B)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("entries", [1, 3, 8])

@@ -31,3 +31,17 @@ def test_tune_parse_takes_the_scripts_macros_and_refuses_others(name):
 def test_tune_script_refuses_without_a_card(name, capsys):
     assert _script(name).main([]) == 2
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_tune_split_args_reads_against_builds_and_variants():
+    """``--against DIR`` and ``--against DIR:NAME=V,...`` (another
+    checkout's macros, not checked) beside the script's own variants."""
+    m = _script("tune_insert")
+    against, variants = tune.split_args(
+        ["--against", "_tree/parent", "LFF_SORT_WARPS=4",
+         "--against", "_tree/parent:LFF_MIN_BLOCKS_G1=3,LFF_OLD=2"],
+        m.TUNABLES, "insert")
+    assert [(str(p), c) for p, c in against] == [
+        ("_tree/parent", {}),
+        ("_tree/parent", {"LFF_MIN_BLOCKS_G1": 3, "LFF_OLD": 2})]
+    assert variants == [{"LFF_SORT_WARPS": 4}]
