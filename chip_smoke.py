@@ -39,8 +39,8 @@ and runs these paths through ``msm_pippenger``:
   12-limb kernels are held bit for bit against their plain versions on
   the inputs they are timed on: K1e and K1e inv on BLS12-381's Fq at one
   element and 2^20, K3's six ops at 2^21 and its scan at the path's
-  (W, c) on BLS12-381, the same at 2^14 and a small scan on BLS12-377
-  (its b3 = 3 instantiation), and K2 on BLS12-381 timed at the path's
+  (W, c) on BLS12-381 and on BLS12-377 (its b3 = 3 instantiation), and
+  K2 on BLS12-381 timed at the path's
   shape, the first K2_N12_WINDOWS windows of its timed output held
   against the plain insert on those windows (at 12 limbs the plain
   insert takes minutes at all 32).
@@ -48,7 +48,9 @@ and runs these paths through ``msm_pippenger``:
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
 the roofline K7a, K7b, K7d (timed at the JAX shapes, with the ratio and
-production ratio of profile/roofline.py); each bench's timed output is
+production ratio of profile/roofline.py; K7b lone at 8 limbs and, on
+BLS12-381's Fq, at 12 limbs over CIOS and over the scan's two-accumulator
+product); each bench's timed output is
 held against its plain version on the same inputs.  Their launches are
 counted from 0 over these two phases.  Last the batched-affine experiment
 K7e through its harness (``affine_experiment.measure``: the madd, affine
@@ -101,21 +103,22 @@ INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
 # the 12-limb G1 paths, at 2^20 points like alt_bn128's G1
 CURVES12 = ("bls12_381", "bls12_377")
 K2_N12_WINDOWS = 8              # windows of the 12-limb K2 check
-K3_SMALL = 1 << 14              # BLS12-377's K3 check: its b3 = 3 branch
-SCAN_SMALL = (5, 3)             # and its scan's (W, c)
 # Times under a kernel's previous design, as this script measured them
 # on an NVIDIA H100 80GB HBM3 at 700 W: K5's and K2m's under the lane
 # tree's (one warp a row through a device scratch array; K2m's tail on
-# each window's last block), K2's sort's under one thread a lane, and
-# the 12-limb K2's under the 8-limb chain kernel with the bucket in
-# registers.  They are not measured here: the merge and K2 phases' lines
+# each window's last block), K2's sort's under one thread a lane, the
+# 12-limb K2's under the 8-limb chain kernel with the bucket in
+# registers, the 12-limb K3's padd (2^21) under one thread an element and
+# its scan (W = 32, c = 8) with each level's products through shared
+# memory.  They are not measured here: the merge, K2 and K3 phases' lines
 # set them beside this run's times as before_ms, and the kernels line
-# leaves them out.
+# leaves them out (it holds only what this run measured).
 BEFORE_MS = {"K5 g1": 2.344, "K5 g1 sos": 2.536, "K5 g1 sos2": 2.572,
              "K5 g2": 14.15, "K5 g2 sos": 14.96, "K5 g2 sos2": 15.28,
              "K2m g1": 40.57, "K2m g1 sos": 46.88, "K2m g1 sos2": 45.87,
              "K2m g2": 145.82, "K2m g2 sos": 159.97, "K2m g2 sos2": 160.99,
-             "K2 sort g1": 1.029, "K2 sort g2": 0.277, "K2 g1 n12": 59.19}
+             "K2 sort g1": 1.029, "K2 sort g2": 0.277, "K2 g1 n12": 59.19,
+             "K3 g1 n12": 2.875, "K3 scan g1 n12": 1.073}
 
 
 def inv_edges(F) -> dict[str, tuple]:
@@ -323,11 +326,15 @@ def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int,
     first lane-halving level at c = 8, 1024 lanes: W*B*L/2 = 32*128*512
     for G1 at 2^20 and for G2 at 2^18), timed there; padd also at 1 point
     and padd and pdbl at 32 (the reduce's last sum tree and the old
-    Horner step's size), timed there too.  Then the scan entry at the
+    Horner step's size), timed there too; and padd on the two halves of
+    (el, 4096, 1024) buckets read in place, as the lane halving passes
+    them, held against the kernel on contiguous copies, both timed.  Then
+    the scan entry at the
     path's (W, c) = (scan_w, scan_c) on scan_inputs' totals (identities
     and repeated points), its timed output held against
     horner_scan_plain.  The name is K3's launch count's (with " n12" at
-    12 limbs)."""
+    12 limbs); before_ms gives BEFORE_MS's time of the op and the scan
+    under their previous design, where it has one."""
     from libff_tpu_torch.curves.group_ops import (group_op, group_op_plain,
                                                   horner_scan,
                                                   horner_scan_plain)
@@ -356,13 +363,32 @@ def phase_k3(G, group: str, rng, dev, scan_w: int, scan_c: int,
         res["ops"][f"{op}_{m}"] = {
             "max_abs_err": e,
             "ms": event_ms(lambda: group_op(G, op, coords), 200)}
-    del c, cm, q_inf, args
+    # the lane halving's first padd at the path's shape: the two halves of
+    # (el, W B, 1024) buckets read in place (lanes 0-511 hold P, 512-1023
+    # Q), against the kernel on contiguous copies
+    el = G.F.el_shape
+    buckets = [torch.cat([c[i].reshape(el + (-1, 512)),
+                          c[i + 3].reshape(el + (-1, 512))], dim=-1)
+               for i in range(3)]
+    hv = [a[..., h * 512:(h + 1) * 512] for h in (0, 1) for a in buckets]
+    got = group_op(G, "padd", hv)
+    e = max_abs_err(got, group_op(G, "padd", [a.contiguous() for a in hv]))
+    err = max(err, e)
+    res["ops"]["padd_halves"] = {
+        "max_abs_err": e, "shape": list(hv[0].shape),
+        "ms": event_ms(lambda: group_op(G, "padd", hv), 20),
+        "ms_copied": event_ms(
+            lambda: group_op(G, "padd", [a.contiguous() for a in hv]), 20)}
+    del c, cm, q_inf, args, buckets, hv, got
     tot = scan_inputs(G.F, scan_w, rng, dev)
     ms, got = timed_output(lambda: horner_scan(G, tot, scan_c), 20)
     want, plain_ms = host_timed(lambda: horner_scan_plain(G, tot, scan_c))
     e = max_abs_err(got, want)
     res["scan"] = {"W": scan_w, "c": scan_c, "max_abs_err": e, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms, "before_ms": BEFORE_MS.get(
+                       _build.width_name(f"K3 scan {group}",
+                                         G.F.prime_field.n32))}
+    res["before_ms"] = BEFORE_MS.get(res["name"])
     res["max_abs_err"] = max(err, e)
     if res["max_abs_err"]:
         fail(f"{res['name']} disagrees with its plain version on {G.name}: "
@@ -643,6 +669,25 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
         "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
         "plain_ms_by_reps": plain_ms}
     res["lone_product_ns"] = ns
+    # K7b lone at 12 limbs on BLS12-381's Fq: the CIOS product and the
+    # scan's two-accumulator one
+    from libff_tpu_torch.curves.device import device_curve
+    F12 = device_curve("bls12_381").fq
+    x, y = (rand_elements(F12, 1, rng, dev) for _ in range(2))
+    for product in rl.LONE_PRODUCTS[12]:
+        ns, ms, outs = rl.lone_product_ns(F12, x, y, product=product)
+        err, plain_ms = 0, {}
+        for reps, got in outs.items():
+            want, plain_ms[reps] = host_timed(
+                lambda: rl.lone_chain_plain(F12, x, y, reps))
+            err = max(err, max_abs_err([got], [want]))
+        name = rl.lone_name(12, product)
+        res["kernels"][name] = {
+            "max_abs_err": err, "plain_ms": plain_ms[rl.LONE_REPS], "n": 1,
+            "products_per_element": rl.LONE_REPS, "ns_per_product": ns,
+            "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
+            "plain_ms_by_reps": plain_ms}
+        res[f"lone_product_{product}_n12_ns"] = ns
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K7a, K7b or K7d disagrees with its plain version: {res}")
     products = {"k1e": rl.k1e_mul_ns(dc.fq, 1 << LOG2N, rng, dev)}
@@ -883,8 +928,10 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                 out[-1].update({k: q[k] for k in (
                     "k2_ms", "tail_ms", "k5_ms",
                     "over_k2_plus_k5") if q.get(k) is not None})
-    # the 12-limb kernels on the BLS12-381 G1 path
+    # the 12-limb kernels on the BLS12-381 G1 path; K7b lone n12's
+    # latencies, ns a product
     path, w = "bls12_381 g1", WORDS12
+    lone12 = {p: roof[f"lone_product_{p}_n12_ns"] for p in ("cios", "eo")}
     r = n12["k1e"]
     n = r["n"]
     ob = field_op_bounds(r["ops"], 1, n, rates, n32=12)
@@ -899,22 +946,39 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
         bound(2 * 4 * w * n, imads(r["bound_products"] * n, n32=12), rates))
     out[-1].update(
         computes=ref + "fields/fp.py:465", products=r["products"],
-        bound_products=r["bound_products"], ms_at_1=r["ms_at_1"],
-        plain_ms_at_1=r["plain_ms_at_1"])
+        chain_products=r["chain_products"],
+        bound_products=r["bound_products"],
+        bound_chain_products=r["bound_chain_products"], ms_at_1=r["ms_at_1"],
+        plain_ms_at_1=r["plain_ms_at_1"],
+        own_latency_ms_at_1=r["bound_chain_products"] * lone12["cios"]
+        * 1e-6)
     r = n12["k3"]
     ob = k3_op_bounds(r, 1, rates, n32=12)
     add("K3 g1 n12", path, "group_ops_n12.cu", "curves/pallas_ops.py:66",
         r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"], [w, r["n"]],
         max(r["max_abs_err"], n12["k3 bls12_377"]["max_abs_err"]),
         ob["padd"])
-    out[-1]["op_bounds"] = ob
+    r377 = n12["k3 bls12_377"]
+    out[-1].update(op_bounds=ob, ms_by_op={k: v["ms"] for k, v in
+                                           r["ops"].items()},
+                   bls12_377_ms_by_op={k: v["ms"] for k, v in
+                                       r377["ops"].items()},
+                   bls12_377_scan_ms=r377["scan"]["ms"])
     q = r["scan"]
     sc = scan_counts(q["W"], q["c"], 1)
     add("K3 scan g1 n12", path, "horner_n12.cu", "curves/pallas_ops.py:66",
-        q["ms"], q["plain_ms"], [q["W"], q["c"]], q["max_abs_err"],
+        q["ms"], q["plain_ms"], [q["W"], q["c"]],
+        max(q["max_abs_err"], n12["k3 bls12_377"]["scan"]["max_abs_err"]),
         bound(3 * 4 * w * (q["W"] + 1), imads(sc["base_products"], n32=12),
               rates))
-    out[-1].update(sc)
+    # own latency: the chain's dependent products at K7b lone n12's
+    # latency of the product the scan runs (the two-accumulator one) and
+    # of CIOS
+    out[-1].update(sc, chain_ns_per_product=q["ms"] * 1e6
+                   / sc["chain_products"],
+                   own_latency_ms=sc["chain_products"] * lone12["eo"] * 1e-6,
+                   own_latency_cios_ms=sc["chain_products"]
+                   * lone12["cios"] * 1e-6)
     r = n12["k2"]
     W, T, L, B = r["shape"]
     add("K2 g1 n12", path, "insert_n12.cu", "msm/pallas_insert3.py:74",
@@ -945,6 +1009,15 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
         r["plain_ms"], [8, 1], r["max_abs_err"],
         bound(3 * 4 * 8, imads(r["products_per_element"]), rates))
     out[-1].update(latency_ns=r["ns_per_product"], ms_by_reps=r["ms_by_reps"])
+    for product in ("cios", "eo"):
+        name = f"K7b lone{'' if product == 'cios' else ' eo'} n12"
+        r = rk[name]
+        add(name, None, "roofline_n12.cu", "profile/roofline.py:193",
+            r["ms"], r["plain_ms"], [12, 1], r["max_abs_err"],
+            bound(3 * 4 * 12, imads(r["products_per_element"], n32=12),
+                  rates))
+        out[-1].update(latency_ns=r["ns_per_product"],
+                       ms_by_reps=r["ms_by_reps"])
     # K7c's row: the carry-chain body (fp.cuh's rows) at full occupancy
     body = k7c["bodies"]["carry full"]
     n, R = k7c["elements"], k7c["op_groups"]
@@ -1062,7 +1135,7 @@ def bls_paths(rng, dev) -> dict:
     out["k3"] = phase_k3(G, "g1", rng, dev, W, cfg.c)
     emit({"phase": "K3 bls12_381 g1", **out["k3"]})
     out["k3 bls12_377"] = phase_k3(device_curve("bls12_377").g1, "g1", rng,
-                                   dev, *SCAN_SMALL, n=K3_SMALL)
+                                   dev, W, cfg.c)
     emit({"phase": "K3 bls12_377 g1", **out["k3 bls12_377"]})
     out["k2"], inputs = phase_k2(dc, "g1", n, cfg, rng, dev, K2_N12_WINDOWS)
     del inputs
@@ -1109,15 +1182,20 @@ def main() -> int:
     per_source = _build.build()
     ptxas = {p.stem: _build.ptxas_lines(p)
              for p in sorted(_build.build_dir().glob("*.log"))}
-    # the redesigned K2 kernels' registers and spills
-    k2_ptxas = {name: [k for k in _build.ptxas_kernels(_build.build_dir()
-                                                       / log)
-                       if kernel in k["function"]]
-                for name, log, kernel in (
-                    ("K2 sort", "insert.log", "bucket_lists_kernel"),
-                    ("K2 g1 n12", "insert_n12.log", "chain_kernel"))}
+    # the redesigned K2 and K3 kernels' registers and spills (the K3 G1
+    # kernels' names carry the field context, FpField<12, b3>, and the
+    # op, 0-5 as in group_ops.cu)
+    redesigned = {name: [k for k in _build.ptxas_kernels(_build.build_dir()
+                                                         / log)
+                         if kernel in k["function"]]
+                  for name, log, kernel in (
+                      ("K2 sort", "insert.log", "bucket_lists_kernel"),
+                      ("K2 g1 n12", "insert_n12.log", "chain_kernel"),
+                      ("K3 g1 n12", "group_ops_n12.log", "group_op"),
+                      ("K3 scan g1 n12", "horner_n12.log", "horner"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": per_source, "k2_ptxas": k2_ptxas, "ptxas": ptxas})
+          "nvcc_seconds": per_source, "redesigned_ptxas": redesigned,
+          "ptxas": ptxas})
 
     dc = device_curve("alt_bn128")
     rng = np.random.default_rng(SEED)

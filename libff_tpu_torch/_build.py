@@ -22,7 +22,9 @@ and K5 over the SOS products (``MsmConfig.kmul``) count under the same
 names with the product appended, "K2 g1 sos", "K2m g2 sos2", "K5 g1 sos"
 and so on; the CIOS names carry no suffix.  The field-mul benches count
 as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
-of products), "K7b lone" (one chain a thread: a product's latency),
+of products), "K7b lone" (one chain a thread: a product's latency; at
+12 limbs "K7b lone n12" and, over the scan's two-accumulator product,
+"K7b lone eo n12"),
 "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos", "K7d sos2"
 (chains of Fq2 products), and the batched-affine experiment as
 "K7e madd", "K7e affine" and "K7e inv".  The kernels over 12-limb Fp

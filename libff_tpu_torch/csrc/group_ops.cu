@@ -31,8 +31,24 @@
 // needs 255 registers and spills, which leaves 8 warps an SM to hide the
 // products' carry chains.  A pair's lanes are adjacent, so a warp's limb
 // loads are two 64-byte runs, one a coefficient.
+//
+// G1 at 12 limbs runs padd and pmadd on two threads an element too, split
+// by products (g1_pair.cuh): the pair body, for the ops whose bit is set
+// in LFF_K3_PAIR_OPS_G1_N12; the others keep the one-thread body, which
+// ran them faster than a pair body on the card.
+//
+// padd reads its inputs where they lie: element e is row e / cols,
+// column e % cols, at row * rstride + column from each input's first
+// word, its limbs lstride apart (an Fq2 coefficient 8 limbs on), one
+// layout for every input.  So the reduce's lane halving (and its sum
+// tree) passes the two halves of its buckets as they are, with no copy.
+// That form is padd's own instantiation (kRows): every op on flat inputs
+// keeps the one-row kernel, element e at e with limbs n apart, whose
+// registers and spills the row arithmetic would raise (G2's padd spills
+// at 128 registers).  The outputs are flat.
 #include "formulas.cuh"
 #include "fp2_pair.cuh"
+#include "g1_pair.cuh"
 
 // __launch_bounds__'s blocks an SM for the G2 kernels (128 threads a
 // block): the projective ops (padd, pmadd, pdbl) and the Jacobian ones
@@ -42,6 +58,18 @@
 #endif
 #ifndef LFF_K3_MIN_BLOCKS_G2_JAC
 #define LFF_K3_MIN_BLOCKS_G2_JAC 3
+#endif
+// G1 at 12 limbs: the ops (bit op of enum Op: 1 padd, 2 pmadd) that run
+// the pair body, its blocks an SM, and the one-thread body's (0: no
+// minimum, ptxas's choice), chosen with tune_group_ops
+#ifndef LFF_K3_PAIR_OPS_G1_N12
+#define LFF_K3_PAIR_OPS_G1_N12 3
+#endif
+#ifndef LFF_K3_MIN_BLOCKS_G1_N12_PAIR
+#define LFF_K3_MIN_BLOCKS_G1_N12_PAIR 4
+#endif
+#ifndef LFF_K3_MIN_BLOCKS_G1_N12
+#define LFF_K3_MIN_BLOCKS_G1_N12 0
 #endif
 // the limb count of the library's field (8 unless a width's own source
 // sets it before including this file)
@@ -56,31 +84,51 @@ namespace {
 enum Op { kPadd = 0, kPmadd = 1, kPdbl = 2, kAdd = 3, kMadd = 4, kDbl = 5 };
 
 struct OpArgs {
-  const uint32_t* in[6];  // coordinates, each (N, n) or (2, 8, n)
+  const uint32_t* in[6];  // coordinates, each (N, ...) or (2, 8, ...)
   const int32_t* mask;    // (n,) q_inf for pmadd/madd, else unused
-  uint32_t* out[3];
+  uint32_t* out[3];       // each (N, n) or (2, 8, n)
   long long n;
+  long long lstride;      // words between an input's limbs
+  long long rstride;      // words between an input's rows
+  long long cols;         // elements a row (n: a flat array)
+};
+
+// element e's coordinate in input i: a loader of the body's inputs, in
+// rows (kRows) or flat
+template <class F, bool kRows>
+struct InputAt {
+  const OpArgs& A;
+  long long at;  // element e's word in every input
+  __device__ __forceinline__ InputAt(const OpArgs& A, long long e)
+      : A(A), at(e) {
+    if constexpr (kRows) {
+      const long long row = e / A.cols;
+      at = row * A.rstride + (e - row * A.cols);
+    }
+  }
+  __device__ __forceinline__ typename F::E operator()(int i) const {
+    return F::load(A.in[i], kRows ? A.lstride : A.n, at);
+  }
 };
 
 // op OP on element e, over field context f
-template <class F, int OP>
+template <class F, int OP, bool kRows>
 __device__ __forceinline__ void group_op_body(const OpArgs& A, const F& f,
                                               long long e) {
   using E = typename F::E;
   const long long n = A.n;
-  const Pt<F> p{F::load(A.in[0], n, e), F::load(A.in[1], n, e),
-                F::load(A.in[2], n, e)};
+  const InputAt<F, kRows> ld(A, e);
+  const Pt<F> p{ld(0), ld(1), ld(2)};
   Pt<F> r;
   if constexpr (OP == kPdbl) {
     r = rcb_dbl(f, p);
   } else if constexpr (OP == kDbl) {
     r = jac_dbl(f, p);
   } else if constexpr (OP == kPadd) {
-    const Pt<F> q{F::load(A.in[3], n, e), F::load(A.in[4], n, e),
-                  F::load(A.in[5], n, e)};
+    const Pt<F> q{ld(3), ld(4), ld(5)};
     r = rcb_add(f, p, q);
   } else if constexpr (OP == kPmadd) {
-    const E qx = F::load(A.in[3], n, e), qy = F::load(A.in[4], n, e);
+    const E qx = ld(3), qy = ld(4);
     r = select(A.mask[e] != 0, p, rcb_madd(f, p, qx, qy));
   } else {
     // Jacobian add / madd with the special cases of pallas_ops.py:102-140
@@ -88,14 +136,13 @@ __device__ __forceinline__ void group_op_body(const OpArgs& A, const F& f,
     Pt<F> q;
     bool q_zero;
     if constexpr (OP == kAdd) {
-      q = Pt<F>{F::load(A.in[3], n, e), F::load(A.in[4], n, e),
-                F::load(A.in[5], n, e)};
+      q = Pt<F>{ld(3), ld(4), ld(5)};
       r = jac_add_raw(f, p, q, h, rr);
       q_zero = F::is_zero(q.z);
     } else {
       // affine Q as Jacobian (x, y, 1); its infinity lanes are overridden
       // by the q_zero select below
-      q = Pt<F>{F::load(A.in[3], n, e), F::load(A.in[4], n, e), f.one()};
+      q = Pt<F>{ld(3), ld(4), f.one()};
       r = jac_madd_raw(f, p, q.x, q.y, h, rr);
       q_zero = A.mask[e] != 0;
     }
@@ -114,46 +161,101 @@ __device__ __forceinline__ void group_op_body(const OpArgs& A, const F& f,
   F::store(A.out[2], n, e, r.z);
 }
 
-// G1: one thread an element
-template <class F, int OP>
-__global__ void __launch_bounds__(128) group_op_kernel(OpArgs A, F f) {
+// G1: one thread an element; at 12 limbs LFF_K3_MIN_BLOCKS_G1_N12
+// blocks an SM where it is set
+#if LFF_N32 == 12 && LFF_K3_MIN_BLOCKS_G1_N12 > 0
+#define LFF_K3_G1_BOUNDS __launch_bounds__(128, LFF_K3_MIN_BLOCKS_G1_N12)
+#else
+#define LFF_K3_G1_BOUNDS __launch_bounds__(128)
+#endif
+template <class F, int OP, bool kRows>
+__global__ void LFF_K3_G1_BOUNDS
+    group_op_kernel(const __grid_constant__ OpArgs A, F f) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= A.n) return;
-  group_op_body<F, OP>(A, f, e);
+  group_op_body<F, OP, kRows>(A, f, e);
 }
 
-// G2: two threads an element (a pair leaves together: same e)
-template <class F, int OP>
-__global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_MIN_BLOCKS_G2_PROJ
-                                                    : LFF_K3_MIN_BLOCKS_G2_JAC))
-    group_op_g2_kernel(OpArgs A, F f) {
+// G1's pair body (g1_pair.cuh): two threads an element, each storing half
+// of every output coordinate's limbs
+template <class F, int OP, bool kRows>
+__global__ void __launch_bounds__(128, LFF_K3_MIN_BLOCKS_G1_N12_PAIR)
+    group_op_g1_pair_kernel(const __grid_constant__ OpArgs A, F f) {
+  constexpr int N = sizeof(typename F::E) / 4;
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long e = t >> 1;
   if (e >= A.n) return;
-  group_op_body<F, OP>(A, f, e);
-}
-
-template <class F, int OP>
-void launch_one(const OpArgs& A, const F& f, cudaStream_t s) {
-  constexpr int threads = 128;
-  if constexpr (F::kG1) {
-    const int blocks = (int)((A.n + threads - 1) / threads);
-    group_op_kernel<F, OP><<<blocks, threads, 0, s>>>(A, f);
+  const bool c1 = (threadIdx.x & 1u) != 0;
+  const InputAt<F, kRows> ld(A, e);
+  Pt<F> r;
+  if constexpr (OP == kPadd) {
+    r = pair_add(f, c1, ld);
   } else {
-    const int blocks = (int)((2 * A.n + threads - 1) / threads);
-    group_op_g2_kernel<F, OP><<<blocks, threads, 0, s>>>(A, f);
+    static_assert(OP == kPmadd, "the pair body runs padd and pmadd");
+    r = pair_madd(f, c1, ld);
+    if (A.mask[e] != 0) r = Pt<F>{ld(0), ld(1), ld(2)};
+  }
+  // limb k0 + k by selects on fixed limbs: an index into r that varies
+  // by thread would put r in local memory
+  const int k0 = c1 ? N / 2 : 0;
+#pragma unroll
+  for (int k = 0; k < N / 2; k++) {
+    const long long at = (k0 + k) * A.n + e;
+    A.out[0][at] = c1 ? r.x.v[N / 2 + k] : r.x.v[k];
+    A.out[1][at] = c1 ? r.y.v[N / 2 + k] : r.y.v[k];
+    A.out[2][at] = c1 ? r.z.v[N / 2 + k] : r.z.v[k];
   }
 }
 
+// G2: two threads an element (a pair leaves together: same e)
+template <class F, int OP, bool kRows>
+__global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_MIN_BLOCKS_G2_PROJ
+                                                    : LFF_K3_MIN_BLOCKS_G2_JAC))
+    group_op_g2_kernel(const __grid_constant__ OpArgs A, F f) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long e = t >> 1;
+  if (e >= A.n) return;
+  group_op_body<F, OP, kRows>(A, f, e);
+}
+
+// whether op OP of field context F runs the pair body
+template <class F, int OP>
+constexpr bool pair_body() {
+  return F::kG1 && sizeof(typename F::E) == 48 && OP <= kPmadd &&
+         ((LFF_K3_PAIR_OPS_G1_N12 >> OP) & 1);
+}
+
+template <class F, int OP, bool kRows>
+void launch_one(const OpArgs& A, const F& f, cudaStream_t s) {
+  constexpr int threads = 128;
+  if constexpr (pair_body<F, OP>()) {
+    const int blocks = (int)((2 * A.n + threads - 1) / threads);
+    group_op_g1_pair_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);
+  } else if constexpr (F::kG1) {
+    const int blocks = (int)((A.n + threads - 1) / threads);
+    group_op_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);
+  } else {
+    const int blocks = (int)((2 * A.n + threads - 1) / threads);
+    group_op_g2_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);
+  }
+}
+
+// rows for padd only; every other op takes flat inputs (one row of n,
+// limbs n apart)
 template <class F>
 int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
+  if (A.cols < A.n || A.lstride != A.n) {
+    if (op != kPadd) return (int)cudaErrorInvalidValue;
+    launch_one<F, kPadd, true>(A, f, s);
+    return (int)cudaGetLastError();
+  }
   switch (op) {
-    case kPadd: launch_one<F, kPadd>(A, f, s); break;
-    case kPmadd: launch_one<F, kPmadd>(A, f, s); break;
-    case kPdbl: launch_one<F, kPdbl>(A, f, s); break;
-    case kAdd: launch_one<F, kAdd>(A, f, s); break;
-    case kMadd: launch_one<F, kMadd>(A, f, s); break;
-    case kDbl: launch_one<F, kDbl>(A, f, s); break;
+    case kPadd: launch_one<F, kPadd, false>(A, f, s); break;
+    case kPmadd: launch_one<F, kPmadd, false>(A, f, s); break;
+    case kPdbl: launch_one<F, kPdbl, false>(A, f, s); break;
+    case kAdd: launch_one<F, kAdd, false>(A, f, s); break;
+    case kMadd: launch_one<F, kMadd, false>(A, f, s); break;
+    case kDbl: launch_one<F, kDbl, false>(A, f, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -164,14 +266,19 @@ int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
 // n32 must be the library's width.  At 8 limbs k = 1 needs b3 = 9
 // (alt_bn128 G1) and leaves b3_mont unused; k = 2: b3_mont holds the 16
 // Montgomery limbs of the Fq2 constant b3 (c0 then c1).  At 12 limbs k
-// must be 1, with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).
-extern "C" int group_op(int op, void* const* in, const void* mask,
-                        void* const* out, long long n, int n32, int k,
-                        int b3, const uint32_t* b3_mont, const uint32_t* p,
-                        const uint32_t* one_mont, uint32_t inv, int device,
-                        void* stream) {
+// must be 1, with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).  Every
+// input (its limb 0 of element 0 at in[i]) has its limbs lstride words
+// apart and its rows of `cols` elements rstride words apart; any op but
+// padd needs them flat (cols = lstride = n).
+extern "C" int group_op_at(int op, void* const* in, long long lstride,
+                           long long rstride, long long cols,
+                           const void* mask, void* const* out, long long n,
+                           int n32, int k, int b3, const uint32_t* b3_mont,
+                           const uint32_t* p, const uint32_t* one_mont,
+                           uint32_t inv, int device, void* stream) {
   constexpr int N = LFF_N32;
-  if (n32 != N || n < 0) return (int)cudaErrorInvalidValue;
+  if (n32 != N || n < 0 || (n > 0 && cols < 1))
+    return (int)cudaErrorInvalidValue;
   if (N == 8 ? !(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr)
              : !(k == 1 && (b3 == 12 || b3 == 3)))
     return (int)cudaErrorInvalidValue;
@@ -180,6 +287,9 @@ extern "C" int group_op(int op, void* const* in, const void* mask,
   if (n == 0) return 0;
   OpArgs A{};
   for (int i = 0; i < 6; i++) A.in[i] = (const uint32_t*)in[i];
+  A.lstride = lstride;
+  A.rstride = rstride;
+  A.cols = cols;
   A.mask = (const int32_t*)mask;
   for (int i = 0; i < 3; i++) A.out[i] = (uint32_t*)out[i];
   A.n = n;

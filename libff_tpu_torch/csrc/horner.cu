@@ -25,10 +25,19 @@
 //     (y^2, yz, z^2, xy; then t2 rz, t1 rz, t0 ry, t0 xy) and three on G2
 //     (10 base products of the Karatsuba and complex-square layer of
 //     fp2.cuh, 3 for b3 z^2, 12); an add two levels of 6 on G1, three of
-//     18, 6 and 18 on G2.  Lane j takes its operands from shared memory,
-//     runs one Montgomery product and writes it back; every lane then does
-//     the formula's additions itself (they are cheap, and a value every
-//     lane holds needs no second exchange);
+//     18, 6 and 18 on G2;
+//   - on G1 (lane_dbl, lane_add) each product's operands go to its lane by
+//     __shfl_sync, in registers, and the additions between two levels run
+//     on the lanes that consume them, each lane its own chain at once (the
+//     doubling's 8 t0 on lanes 0-1 while lanes 2-3 make b3 z^2 and t0 -
+//     3 t2 from it): between a doubling's two levels a lane waits for
+//     four to six additions, not the whole formula's;
+//   - at 12 limbs every G1 product is chain_mul.cuh's two-accumulator
+//     product, whose two carry chains a row run side by side (0.93 against
+//     CIOS's 1.28 us a lone product on an H100, K7b lone n12);
+//   - on G2 lane j takes its operands from shared memory, runs one
+//     Montgomery product and writes it back, and every lane does the
+//     formula's additions itself;
 //   - the sum tree runs by arrival: a window's block, when done, publishes
 //     its point and counts itself in at its pair; the second of a pair adds
 //     the two (lower slot first, as proj_sum_tree does) and goes on to the
@@ -40,7 +49,8 @@
 // Widths: this file builds the 8-limb library (alt_bn128 G1 and G2);
 // horner_n12.cu builds it again at LFF_N32 = 12, the G1 branch over
 // 12-limb Fp with b3 = 12 (BLS12-381) or 3 (BLS12-377), its own
-// translation unit.  An element's slot is then three 16-byte words.
+// translation unit.
+#include "chain_mul.cuh"
 #include "fp2.cuh"
 
 // the limb count of the library's field (8 unless a width's own source
@@ -54,7 +64,16 @@ using namespace lff;
 namespace {
 
 constexpr int N = LFF_N32;
-// 16-byte words of a base-field element: 2 at 8 limbs, 3 at 12
+
+template <class E>
+struct Pt {
+  E x, y, z;
+};
+
+#if LFF_N32 == 8
+// -- G2's body: a level's base products through shared memory --------------
+
+// 16-byte words of a base-field element
 constexpr int kQuads = N / 4;
 
 // base products of one level: an Fq2 add's six Karatsuba products
@@ -108,33 +127,6 @@ __device__ __forceinline__ void level(Slots& s, int n,
 template <class E>
 struct Ops;
 
-template <>
-struct Ops<Fe<N>> {
-  static constexpr int kMul = 1, kSqr = 1;
-  static __device__ __forceinline__ void mul(Slots& s, int j, const Fe<N>& x,
-                                             const Fe<N>& y,
-                                             const FieldParams<N>&) {
-    operands(s, j, x, y);
-  }
-  static __device__ __forceinline__ void sqr(Slots& s, int j, const Fe<N>& x,
-                                             const FieldParams<N>&) {
-    operands(s, j, x, x);
-  }
-  static __device__ __forceinline__ Fe<N> mul_out(const Slots& s, int j,
-                                                  const FieldParams<N>&) {
-    return get(s.r[j]);
-  }
-  static __device__ __forceinline__ Fe<N> sqr_out(const Slots& s, int j,
-                                                  const FieldParams<N>&) {
-    return get(s.r[j]);
-  }
-  static __device__ __forceinline__ Fe<N> one(const FieldParams<N>& P) {
-    return lff::one<N>(P);
-  }
-};
-
-#if LFF_N32 == 8
-
 // Fq2 (nr = p - 1): fp2.cuh's Karatsuba product (v0, v1, (a0+a1)(b0+b1))
 // and complex square (a0 a1, (a0+a1)(a0-a1)), recombined as there
 template <>
@@ -161,32 +153,10 @@ struct Ops<Fe2> {
                                                 const FieldParams<8>& P) {
     return Fe2{get(s.r[j + 1]), dbl(get(s.r[j]), P)};
   }
-  static __device__ __forceinline__ Fe2 one(const FieldParams<8>& P) {
-    return Fe2{lff::one<8>(P), zero<8>()};
-  }
-};
-#endif
-
-template <class E>
-struct Pt {
-  E x, y, z;
 };
 
-// b3 times a (and times b): G1's b3 (B3: 9 for alt_bn128, 12 for
-// BLS12-381, 3 for BLS12-377) by fp.cuh's addition chain, G2's the
-// twist's Fq2 constant, one level of Karatsuba products
-template <int B3>
-__device__ __forceinline__ void times_b3(Slots&, const Fe<N>& a,
-                                         const Fe<N>& b, Fe<N>& ra,
-                                         Fe<N>& rb, int both,
-                                         const FieldParams<N>& P,
-                                         const Fe2&) {
-  ra = mul_small<B3, N>(a, P);
-  if (both) rb = mul_small<B3, N>(b, P);
-}
-
-#if LFF_N32 == 8
-template <int B3>
+// b3 times a (and times b): the twist's Fq2 constant, one level of
+// Karatsuba products
 __device__ __forceinline__ void times_b3(Slots& s, const Fe2& a,
                                          const Fe2& b, Fe2& ra, Fe2& rb,
                                          int both, const FieldParams<8>& P,
@@ -197,10 +167,9 @@ __device__ __forceinline__ void times_b3(Slots& s, const Fe2& a,
   ra = Ops<Fe2>::mul_out(s, 0, P);
   if (both) rb = Ops<Fe2>::mul_out(s, 3, P);
 }
-#endif
 
 // rcb_dbl (formulas.cuh; formulas.py:124-138) with its products by level
-template <class E, int B3>
+template <class E>
 __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
                                           const FieldParams<N>& P,
                                           const Fe2& b3) {
@@ -216,7 +185,7 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
   const E xy = O::mul_out(s, 2 * S + M, P);
   const E rz = dbl(dbl(dbl(t0, P), P), P);
   E t2;
-  times_b3<B3>(s, zz, zz, t2, t2, 0, P, b3);
+  times_b3(s, zz, zz, t2, t2, 0, P, b3);
   const E ry = add(t0, t2, P);
   t0 = sub(t0, add(dbl(t2, P), t2, P), P);
   O::mul(s, 0, t2, rz, P);                 // x3 = t2 z3
@@ -232,7 +201,7 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
 }
 
 // rcb_add (formulas.cuh; formulas.py:77-100) with its products by level
-template <class E, int B3>
+template <class E>
 __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
                                           const Pt<E>& q,
                                           const FieldParams<N>& P,
@@ -253,7 +222,7 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   const E t5 = sub(O::mul_out(s, 5 * M, P), add(t0, t2, P), P);
   t0 = add(dbl(t0, P), t0, P);
   E ry;
-  times_b3<B3>(s, t2, t5, t2, ry, 1, P, b3);
+  times_b3(s, t2, t5, t2, ry, 1, P, b3);
   const E rz = add(t1, t2, P);
   t1 = sub(t1, t2, P);
   O::mul(s, 0, t3, t1, P);
@@ -269,6 +238,7 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   r.z = add(O::mul_out(s, 4 * M, P), O::mul_out(s, 5 * M, P), P);
   return r;
 }
+#endif
 
 // A point of limb-major (k, N, n) coordinate arrays: coefficient c's limb
 // i at base[(c * N + i) * n + e].  ld.global.cg where another block wrote
@@ -337,18 +307,151 @@ __device__ __forceinline__ void store_pt(uint32_t* const* base, long long n,
   }
 }
 
-// One warp a block, block w the window w; B3 the G1 branch's b3 (G2
-// reads b3).
-template <class E, int B3>
-__global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
-                                                    FieldParams<N> P,
-                                                    Fe2 b3) {
-  __shared__ Slots s;
+// -- G1's lane body: each product's operands handed to its lane ------------
+
+// The scan's product at this width: chain_mul.cuh's two-accumulator
+// product at 12 limbs, fp.cuh's CIOS at 8
+__device__ __forceinline__ Fe<N> scan_mul(const Fe<N>& a, const Fe<N>& b,
+                                          const FieldParams<N>& P) {
+#if LFF_N32 == 12
+  return mul_eo(a, b, P);
+#else
+  return mul(a, b, P);
+#endif
+}
+
+// lane src's a, on every lane
+__device__ __forceinline__ Fe<N> from_lane(const Fe<N>& a, int src) {
+  Fe<N> r;
+#pragma unroll
+  for (int k = 0; k < N; k++) r.v[k] = __shfl_sync(0xFFFFFFFFu, a.v[k], src);
+  return r;
+}
+
+// rcb_dbl on the lanes of a warp, every lane holding q and ending with
+// the double.  Level 1: lane 0 y^2 = t0, lane 1 y z = t1, lane 2 z^2,
+// lane 3 (and up) x y.  Between: t0 and z^2 go to every lane; lanes 0, 1
+// make 8 t0 while lanes 2, 3 make b3 z^2 = t2 by one addition chain
+// (2u, then 4 t0 | 3 z^2, then 8 t0 | 6 z^2, ...); lanes 2, 3 then t0 - 3
+// t2 and t0 + t2.  Level 2: lane 0 t2 (8 t0) = x3, lane 1 t1 (8 t0) =
+// z3, lane 2 (t0 - 3 t2)(t0 + t2) = A, lane 3 (t0 - 3 t2) x y = B; every
+// lane then takes them and forms (2 B, A + x3, z3).
+template <int B3>
+__device__ __forceinline__ Pt<Fe<N>> lane_dbl(const Pt<Fe<N>>& q, int j,
+                                              const FieldParams<N>& P) {
+  using E = Fe<N>;
+  const E o1 = select(j >= 3, q.x, select(j == 2, q.z, q.y));
+  const E o2 = select(j == 1 || j == 2, q.z, q.y);
+  const E m = scan_mul(o1, o2, P);
+  const E t0 = from_lane(m, 0), zz = from_lane(m, 2);
+  const bool lo = j < 2;
+  const E v1 = dbl(select(lo, t0, zz), P);
+  E rz, t2;
+  if constexpr (B3 == 9) {
+    const E v3 = dbl(add(v1, v1, P), P);                   // 8 t0 | 8 zz
+    rz = v3;
+    t2 = add(v3, zz, P);
+  } else {
+    static_assert(B3 == 12 || B3 == 3, "b3 is 9, 12 or 3");
+    const E v2 = add(v1, select(lo, v1, zz), P);           // 4 t0 | 3 zz
+    rz = dbl(v2, P);                                       // 8 t0 | 6 zz
+    t2 = B3 == 12 ? dbl(rz, P) : v2;
+  }
+  const E t2l = from_lane(t2, 2);                          // lane 0's t2
+  const E t0m = sub(t0, add(dbl(t2, P), t2, P), P);
+  const E ry = add(t0, t2, P);
+  const E p1 = select(j == 0, t2l, select(j == 1, m, t0m));
+  const E p2 = select(lo, rz, select(j == 2, ry, m));
+  const E r = scan_mul(p1, p2, P);
+  const E x3 = from_lane(r, 0), z3 = from_lane(r, 1);
+  const E a = from_lane(r, 2), b = from_lane(r, 3);
+  return Pt<E>{dbl(b, P), add(a, x3, P), z3};
+}
+
+// lane j's pick of six values, the sixth for lanes 5 and up
+__device__ __forceinline__ Fe<N> of6(int j, const Fe<N>& v0, const Fe<N>& v1,
+                                     const Fe<N>& v2, const Fe<N>& v3,
+                                     const Fe<N>& v4, const Fe<N>& v5) {
+  return select(j < 3, select(j == 0, v0, select(j == 1, v1, v2)),
+                select(j == 3, v3, select(j == 4, v4, v5)));
+}
+
+// rcb_add on the lanes of a warp, every lane holding p and q and ending
+// with the sum: each level's six products on lanes 0-5, each product's
+// result to every lane, the additions on every lane.
+template <int B3>
+__device__ __forceinline__ Pt<Fe<N>> lane_add(const Pt<Fe<N>>& p,
+                                              const Pt<Fe<N>>& q, int j,
+                                              const FieldParams<N>& P) {
+  using E = Fe<N>;
+  const E a = of6(j, p.x, p.y, p.z, add(p.x, p.y, P), add(p.y, p.z, P),
+                  add(p.x, p.z, P));
+  const E b = of6(j, q.x, q.y, q.z, add(q.x, q.y, P), add(q.y, q.z, P),
+                  add(q.x, q.z, P));
+  const E m = scan_mul(a, b, P);
+  const E t0 = from_lane(m, 0), t1 = from_lane(m, 1), t2 = from_lane(m, 2);
+  const E t3 = sub(from_lane(m, 3), add(t0, t1, P), P);
+  const E t4 = sub(from_lane(m, 4), add(t1, t2, P), P);
+  const E t5 = sub(from_lane(m, 5), add(t0, t2, P), P);
+  const E t0n = add(dbl(t0, P), t0, P);
+  const E bt2 = mul_small<B3, N>(t2, P);
+  const E z3 = add(t1, bt2, P), t1n = sub(t1, bt2, P);
+  const E y3 = mul_small<B3, N>(t5, P);
+  const E r = scan_mul(of6(j, t3, t4, t1n, y3, z3, t0n),
+                       of6(j, t1n, y3, z3, t0n, t4, t3), P);
+  return Pt<E>{sub(from_lane(r, 0), from_lane(r, 1), P),
+               add(from_lane(r, 2), from_lane(r, 3), P),
+               add(from_lane(r, 4), from_lane(r, 5), P)};
+}
+
+// -- the scan ----------------------------------------------------------------
+
+#if LFF_N32 == 8
+// G2's steps: a level's products through shared memory
+struct SlotSteps {
+  using E = Fe2;
+  Slots& s;
+  const FieldParams<8>& P;
+  const Fe2& b3;
+  __device__ __forceinline__ Pt<E> dbl(const Pt<E>& q) const {
+    return scan_dbl(s, q, P, b3);
+  }
+  __device__ __forceinline__ Pt<E> add(const Pt<E>& p, const Pt<E>& q) const {
+    return scan_add(s, p, q, P, b3);
+  }
+  __device__ __forceinline__ Pt<E> identity() const {
+    return Pt<E>{E{}, Fe2{lff::one<8>(P), zero<8>()}, E{}};
+  }
+};
+#endif
+
+// G1's steps: the lane body
+template <int B3>
+struct LaneSteps {
+  using E = Fe<N>;
+  int j;
+  const FieldParams<N>& P;
+  __device__ __forceinline__ Pt<E> dbl(const Pt<E>& q) const {
+    return lane_dbl<B3>(q, j, P);
+  }
+  __device__ __forceinline__ Pt<E> add(const Pt<E>& p, const Pt<E>& q) const {
+    return lane_add<B3>(p, q, j, P);
+  }
+  __device__ __forceinline__ Pt<E> identity() const {
+    return Pt<E>{E{}, lff::one<N>(P), E{}};
+  }
+};
+
+// Window w's warp: c w doublings, then the sum tree by arrival
+template <class Steps>
+__device__ __forceinline__ void scan_window(const ScanArgs& A,
+                                            const Steps& st) {
+  using E = typename Steps::E;
   const int w = blockIdx.x;
   Pt<E> q = load_pt<E, false>(A.in, A.W, w);
   const int steps = A.c * w;
 #pragma unroll 1
-  for (int k = 0; k < steps; k++) q = scan_dbl<E, B3>(s, q, P, b3);
+  for (int k = 0; k < steps; k++) q = st.dbl(q);
   int j = w;
 #pragma unroll 1
   for (int h = A.M >> 1; h >= 1; h >>= 1) {
@@ -356,8 +459,7 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
     if (j == i && i + h >= A.W) {
       // the upper slot is padding, the identity exactly (sums of identity
       // pads stay (0, 1, 0) bit for bit)
-      const Pt<E> id{E{}, Ops<E>::one(P), E{}};
-      q = scan_add<E, B3>(s, q, id, P, b3);
+      q = st.add(q, st.identity());
       continue;
     }
     store_pt(A.slot, A.M, j, q);
@@ -370,12 +472,28 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
     if (first) return;
     __threadfence();
     const Pt<E> o = load_pt<E, true>(A.slot, A.M, j ^ h);
-    q = j == i ? scan_add<E, B3>(s, q, o, P, b3)
-               : scan_add<E, B3>(s, o, q, P, b3);
+    q = j == i ? st.add(q, o) : st.add(o, q);
     j = i;
   }
   store_pt(A.out, 1, 0, q);
 }
+
+// One warp a block, block w the window w: G1 at b3 = B3 on the lane
+// body, G2 (b3 its Fq2 constant) on the shared-memory one.
+template <int B3>
+__global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
+                                                    FieldParams<N> P) {
+  scan_window(A, LaneSteps<B3>{(int)(threadIdx.x & 31), P});
+}
+
+#if LFF_N32 == 8
+__global__ void __launch_bounds__(32) horner_g2_kernel(ScanArgs A,
+                                                       FieldParams<8> P,
+                                                       Fe2 b3) {
+  __shared__ Slots s;
+  scan_window(A, SlotSteps{s, P, b3});
+}
+#endif
 
 }  // namespace
 
@@ -411,9 +529,9 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   A.M = M;
   A.c = c;
   const FieldParams<N> P = field_params<N>(p, one_mont, inv);
-  Fe2 b3c{};
   const cudaStream_t s = (cudaStream_t)stream;
 #if LFF_N32 == 8
+  Fe2 b3c{};
   if (k == 2) {
     for (int i = 0; i < 8; i++) {
       b3c.c0.v[i] = b3_mont[i];
@@ -421,14 +539,14 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
     }
   }
   if (k == 1)
-    horner_kernel<Fe<8>, 9><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_kernel<9><<<W, 32, 0, s>>>(A, P);
   else
-    horner_kernel<Fe2, 9><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_g2_kernel<<<W, 32, 0, s>>>(A, P, b3c);
 #elif LFF_N32 == 12
   if (b3 == 12)
-    horner_kernel<Fe<12>, 12><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_kernel<12><<<W, 32, 0, s>>>(A, P);
   else
-    horner_kernel<Fe<12>, 3><<<W, 32, 0, s>>>(A, P, b3c);
+    horner_kernel<3><<<W, 32, 0, s>>>(A, P);
 #else
 #error "horner.cu is built for 8 or 12 limbs"
 #endif

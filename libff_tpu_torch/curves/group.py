@@ -22,7 +22,6 @@ the card unless the caller names another device.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -97,18 +96,21 @@ class Group:
         return type(P)(bc(P.x, el), bc(P.y, el), bc(P.z, el))
 
     def _op(self, op, points, affine=None):
-        """Flatten the batch, run kernel K3, reshape back."""
+        """Run kernel K3 on the points broadcast to their common batch (a
+        point with no batch as a batch of one); K3 reads each coordinate
+        where it lies, so a view such as half of a lane axis is not
+        copied."""
         arrays = [P.z for P in points] + ([affine.x] if affine else [])
         batch = self._batch_of(*arrays)
-        flat = self.F.el_shape + (math.prod(batch),)
+        shape = self.F.el_shape + (batch or (1,))
         coords, masks = [], []
         for P in points:
             P = self._bc_point(P, batch)
-            coords += [c.reshape(flat) for c in P]
+            coords += [c.reshape(shape) for c in P]
         if affine is not None:
             A = self._bc_point(affine, batch)
-            coords += [A.x.reshape(flat), A.y.reshape(flat)]
-            masks = [A.inf.reshape(flat[-1])]
+            coords += [A.x.reshape(shape), A.y.reshape(shape)]
+            masks = [A.inf.reshape(shape[self.F.el_ndim:])]
         outs = group_op(self, op, coords, masks)
         return [o.reshape(self.F.el_shape + batch) for o in outs]
 

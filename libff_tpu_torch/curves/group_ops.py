@@ -28,6 +28,7 @@ a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -43,10 +44,14 @@ G1_B3 = {8: (9,), 12: (12, 3)}
 # op -> (its code in csrc/group_ops.cu, coordinate inputs, masks)
 OPS = {"padd": (0, 6, 0), "pmadd": (1, 5, 1), "pdbl": (2, 3, 0),
        "add": (3, 6, 0), "madd": (4, 5, 1), "dbl": (5, 3, 0)}
-_ARGS = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), _build.VP,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, _build.U32P, _build.U32P, _build.U32P,
-         ctypes.c_uint32, ctypes.c_int, _build.VP]
+# the ops with a G1 pair body (csrc/g1_pair.cuh)
+PAIR_OPS = ("padd", "pmadd")
+_ARGS = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+         ctypes.c_longlong, ctypes.c_longlong, _build.VP,
+         ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32, ctypes.c_int,
+         _build.VP]
 _PTRS3 = ctypes.POINTER(ctypes.c_void_p)
 _SCAN_ARGS = [_PTRS3, _PTRS3, _PTRS3, _build.VP, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -106,18 +111,53 @@ def _check(G, op, coords, masks):
             "(ROADMAP Queue 1 item 10)")
     shape, dev = coords[0].shape, coords[0].device
     el = G.F.el_shape
-    if len(shape) != len(el) + 1 or tuple(shape[:-1]) != el:
-        raise ValueError(f"coordinates are {el} + (N,); got {tuple(shape)}")
+    if len(shape) <= len(el) or tuple(shape[:len(el)]) != el:
+        raise ValueError(f"coordinates are {el} + batch; got {tuple(shape)}")
     for c in coords:
         if c.shape != shape or c.device != dev or c.dtype != torch.int32:
             raise ValueError("coordinates differ in shape, device or dtype")
     for m in masks:
-        if m.shape != shape[-1:] or m.device != dev or m.dtype != torch.bool:
-            raise ValueError("masks are (N,) bool on the coordinates' device")
+        if (m.shape != shape[len(el):] or m.device != dev
+                or m.dtype != torch.bool):
+            raise ValueError("masks are batch-shaped bool on the "
+                             "coordinates' device")
+
+
+def input_layout(c: torch.Tensor, el_ndim: int, n32: int):
+    """(limb stride, row stride, cols) in words of the coordinate view c,
+    (*el, *batch), as K3 reads it: element e of the batch in row-major
+    order is row e // cols, column e % cols (cols the last batch dim
+    longer than 1), at row * row stride + column from c's first word, its
+    limbs limb stride apart (an Fq2 coefficient n32 limbs on); batch
+    rows that follow each other make one row of all n elements.  None
+    where c's strides do not have that form (a column broadcast, a
+    permuted dim): the kernel then reads a contiguous copy."""
+    st = c.stride()
+    el_st = st[:el_ndim]
+    batch = [(s, d) for s, d in zip(st[el_ndim:], c.shape[el_ndim:]) if d > 1]
+    if el_ndim == 2 and el_st[0] != n32 * el_st[1]:
+        return None
+    if not batch:
+        return el_st[-1], 1, 1
+    if batch[-1][0] != 1:
+        return None
+    # the leading batch dims collapse into rows of one stride
+    for (s, _), (s2, d2) in zip(batch[:-2], batch[1:-1]):
+        if s != s2 * d2:
+            return None
+    cols = batch[-1][1]
+    rows = batch[-2][0] if len(batch) > 1 else cols
+    if rows == cols:
+        n = math.prod(d for _, d in batch)
+        return el_st[-1], n, n
+    return el_st[-1], rows, cols
 
 
 def group_op(G, op: str, coords, masks=()):
-    """One batched group op over (*el, N) coordinates; returns [X, Y, Z]."""
+    """One batched group op over (*el, *batch) coordinates; returns [X, Y,
+    Z], each (*el, *batch).  padd reads its inputs where they lie when
+    they share one ``input_layout`` (the lane halving's halves); the
+    other ops read flat inputs, copies where they are not."""
     coords, masks = list(coords), list(masks)
     _check(G, op, coords, masks)
     dev = coords[0].device
@@ -126,23 +166,52 @@ def group_op(G, op: str, coords, masks=()):
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     k, b3, b3_mont = kernel_branch(G, "K3")
-    coords = [c.contiguous() for c in coords]
-    mask = (masks[0].to(torch.int32).contiguous() if masks else None)
-    n = coords[0].shape[-1]
-    outs = [torch.empty_like(coords[0]) for _ in range(3)]
+    Fp = G.F.prime_field
+    nd = G.F.el_ndim
+    # padd reads views in rows of one layout; otherwise the inputs are
+    # copied, unless flat (contiguous inputs, the usual case, skip the
+    # layouts: a few microseconds of host time a launch)
+    n = coords[0].shape[nd:].numel()
+    layouts = {(n, n, n)}
+    if not all(c.is_contiguous() for c in coords):
+        layouts = {input_layout(c, nd, Fp.n32) for c in coords}
+    if len(layouts) != 1 or None in layouts or (
+            op != "padd" and layouts != {(n, n, n)}):
+        coords = [c.contiguous() for c in coords]
+        layouts = {input_layout(coords[0], nd, Fp.n32)}
+    (lstride, rstride, cols), = layouts
+    mask = (masks[0].reshape(-1).to(torch.int32) if masks else None)
+    shape = coords[0].shape
+    outs = [torch.empty(shape, dtype=torch.int32, device=dev)
+            for _ in range(3)]
     ins = (ctypes.c_void_p * 6)(*([c.data_ptr() for c in coords]
                                   + [None] * (6 - len(coords))))
     ous = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
-    Fp = G.F.prime_field
     name = _build.width_name(f"K3 g{k}", Fp.n32)
-    fn = _build.function(_build.width_stem("group_ops", Fp.n32), "group_op",
-                         _ARGS)
+    fn = _build.function(_build.width_stem("group_ops", Fp.n32),
+                         "group_op_at", _ARGS)
     _build.launch(fn, f"{name} group_op {op}", dev, OPS[op][0], ins,
-                  _build.ptr(mask) if mask is not None else None, ous, n,
-                  Fp.n32, k, b3, b3_mont, Fp.p_c, Fp.one_c, Fp.inv32,
-                  coords[0].get_device(), _build.stream_ptr(coords[0]))
+                  lstride, rstride, cols, _build.ptr(mask) if mask is not None
+                  else None, ous, n, Fp.n32, k, b3, b3_mont, Fp.p_c,
+                  Fp.one_c, Fp.inv32, coords[0].get_device(),
+                  _build.stream_ptr(coords[0]))
     _build.LAUNCHES[name] += 1
     return outs
+
+
+def kernel_reads(c: torch.Tensor, el_ndim: int, n32: int) -> torch.Tensor:
+    """The (*el, n) words that K3 reads for the coordinate view c, on any
+    device: its addresses from ``input_layout`` gathered from c's storage,
+    as the kernel computes them (the CPU tests' emulation of the in-place
+    reads)."""
+    ls, rs, cols = input_layout(c, el_ndim, n32)
+    el = c.shape[:el_ndim]
+    e = torch.arange(c.shape[el_ndim:].numel())
+    at = (e // cols) * rs + e % cols
+    limb = torch.arange(math.prod(el)).reshape(el)     # c n32 + i on Fq2
+    idx = c.storage_offset() + limb[..., None] * ls + at
+    words = torch.as_strided(c, (c.untyped_storage().nbytes() // 4,), (1,), 0)
+    return words[idx.to(c.device)]
 
 
 def group_op_plain(G, op: str, coords, masks=()):
@@ -163,6 +232,78 @@ def group_op_pair_plain(G, op: str, coords, masks=()):
             "the pair schedule is built for Fq2 with nr = p - 1 (alt_bn128 "
             "G2)")
     return _group_op_over(G, PairField2(F.plain.B), op, coords, masks)
+
+
+def group_op_g1_pair_plain(G, op: str, coords, masks=()):
+    """K3's G1 pair body (csrc/g1_pair.cuh: padd and pmadd on two threads
+    an element, split by products) as the kernel schedules it, on
+    any device: each value a tensor with a trailing axis of the pair's
+    two threads, each step the kernel's, selects by thread as `pick`,
+    shuffles as flips of that axis; the outputs are the values both
+    threads end with, each checked to agree.  Gives group_op_plain's
+    bits."""
+    coords, masks = list(coords), list(masks)
+    _check(G, op, coords, masks)
+    if G.F.el_ndim != 1 or op not in PAIR_OPS:
+        raise NotImplementedError(
+            f"the G1 pair body runs {PAIR_OPS} over Fp, not {op} on {G.name}")
+    F, b3 = G.F.plain, G._b3_host
+    c1 = torch.tensor([False, True], device=coords[0].device)
+    cs = [to16(c) for c in coords]
+
+    def ld(i0, i1=None):
+        return torch.stack([cs[i0], cs[i0 if i1 is None else i1]], -1)
+
+    def pick(x, y):
+        return torch.where(c1, y, x)
+
+    def swap(x):
+        return x.flip(-1)
+
+    mul, add, sub, dbl = F.mul, F.add, F.sub, F.double
+
+    def mul_b3(x):
+        return F.mul_small_const(x, b3)
+
+    def level2(p, q, r, s):
+        pq, qr, sp = mul(p, q), mul(q, r), mul(s, p)
+        pqo, qro, spo = swap(pq), swap(qr), swap(sp)
+        return [sub(pick(pq, pqo), pick(pqo, pq)), add(qr, qro), add(sp, spo)]
+
+    if op == "padd":
+        a1, a2, y1, y2 = ld(0, 2), ld(3, 5), ld(1), ld(4)
+        m1 = mul(a1, a2)
+        m2 = mul(pick(y1, add(y1, a1)), pick(y2, add(y2, a2)))
+        x1, x2 = ld(0), ld(3)
+        m3 = mul(add(x1, pick(y1, a1)), add(x2, pick(y2, a2)))
+        o1, o2 = swap(m1), swap(m2)
+        T0, T2, T1 = pick(m1, o1), pick(o1, m1), pick(m2, o2)
+        w = sub(m3, add(T0, pick(T1, T2)))
+        bb = mul_b3(pick(T2, w))
+        zs = add(T1, pick(bb, T2))
+        q0 = sub(pick(T1, m2), pick(bb, zs))
+        tn = add(dbl(T0), T0)
+        zo = swap(zs)
+        out = level2(pick(w, q0), pick(q0, bb), pick(zs, tn), pick(tn, zo))
+    else:
+        z1, qx, qy, x1, y1 = ld(2), ld(3), ld(4), ld(0), ld(1)
+        m1 = mul(pick(x1, z1), qx)
+        m2 = mul(pick(y1, z1), qy)
+        m3 = mul(add(qx, qy), add(x1, y1))
+        u = add(m1, x1)
+        bz = mul_b3(pick(z1, u))
+        zs = add(m2, pick(bz, y1))
+        q0 = sub(m2, bz)
+        w = sub(m3, add(m1, m2))
+        tn = add(dbl(m1), m1)
+        tno, zso = swap(tn), swap(zs)
+        out = level2(pick(w, zs), pick(q0, bz), pick(zs, tno), pick(tn, zso))
+        q_inf = masks[0][None, ..., None]
+        out = [torch.where(q_inf, p, r) for p, r in zip((x1, y1, z1), out)]
+    for v in out:
+        if not torch.equal(v[..., 0], v[..., 1]):
+            raise ArithmeticError("the pair's threads end with other values")
+    return [to32(v[..., 0]) for v in out]
 
 
 def _group_op_over(G, F, op: str, coords, masks):

@@ -64,6 +64,7 @@ CHAIN_N, CHAIN_REPS = 1 << 23, 4       # K7b: T = 8192, Ls = 8; 4 x 8 = 32
 FQ2_N, FQ2_REPS = 1 << 21, 2           # K7d: T = 4096, Ls = 4; 2 x 4 = 8
 CHAINS = {1: 8, 2: 4}                  # chains an element, by el_ndim
 LONE_REPS = 2048                       # K7b lone: products of the long run
+LONE_PRODUCTS = {8: ("cios",), 12: ("cios", "eo")}   # K7b lone's, by n32
 MADDS_MULS = 11                        # products in K2's G1 mixed add
 TARGET = 1.3
 
@@ -180,34 +181,105 @@ def mul_chain_plain(F, a: torch.Tensor, b: torch.Tensor, kmul: str,
     return to32(acc, ax)
 
 
-def lone_chain(F, a: torch.Tensor, b: torch.Tensor,
-               reps: int) -> torch.Tensor:
+def lone_name(n32: int, product: str = "cios") -> str:
+    """K7b lone's launch count for `product` at n32 limbs: "K7b lone",
+    "K7b lone n12", "K7b lone eo n12"."""
+    return _build.width_name(_build.kmul_name("K7b lone", product), n32)
+
+
+def lone_chain(F, a: torch.Tensor, b: torch.Tensor, reps: int,
+               product: str = "cios") -> torch.Tensor:
     """Kernel K7b lone (F a prime field): per element one serial chain x
-    <- mul(x, b) of `reps` CIOS products from x = a; a, b canonical (n32,
-    N) arrays."""
+    <- mul(x, b) of `reps` products from x = a; a, b canonical (n32, N)
+    arrays.  `product`: "cios" (fp.cuh's, 8 and 12 limbs) or "eo"
+    (chain_mul.cuh's two-accumulator product, 12 limbs: the Horner scan's
+    at 12 limbs); both give the canonical residue."""
     _check_pair(a, b, F.el_shape)
+    if product not in LONE_PRODUCTS.get(F.n32, ()):
+        raise ValueError(f"K7b lone has no {product!r} product at {F.n32} "
+                         f"limbs; {LONE_PRODUCTS}")
     if not kernel_device(a, F.n32, "K7b lone"):
         return lone_chain_plain(F, a, b, reps)
-    if F.n32 != 8:
-        raise NotImplementedError("K7b lone is built for 8 limbs (alt_bn128)")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
-    fn = _build.function("roofline", "mul_lone_chain", _LONE_ARGS)
-    _build.launch(fn, "K7b lone", a.device, _build.ptr(out), _build.ptr(a),
-                  _build.ptr(b), a.shape[-1], reps, F.n32, F.p_c, F.inv32,
-                  a.get_device(), _build.stream_ptr(a))
-    _build.LAUNCHES["K7b lone"] += 1
+    name = lone_name(F.n32, product)
+    args = (_build.ptr(out), _build.ptr(a), _build.ptr(b), a.shape[-1], reps,
+            F.n32, F.p_c, F.inv32, a.get_device(), _build.stream_ptr(a))
+    if F.n32 == 8:
+        fn = _build.function("roofline", "mul_lone_chain", _LONE_ARGS)
+    else:
+        fn = _build.function("roofline_n12", "mul_lone_chain_n12",
+                             _CHAIN_ARGS)
+        args = (LONE_PRODUCTS[12].index(product),) + args
+    _build.launch(fn, name, a.device, *args)
+    _build.LAUNCHES[name] += 1
     return out
 
 
 def lone_chain_plain(F, a: torch.Tensor, b: torch.Tensor,
                      reps: int) -> torch.Tensor:
-    """The plain version of K7b lone on any device."""
+    """The plain version of K7b lone on any device (every product gives
+    the canonical residue, so one plain version serves all)."""
     _check_pair(a, b, F.el_shape)
     x, y = to16(a), to16(b)
     for _ in range(reps):
         x = F.plain.mul(x, y)
     return to32(x)
+
+
+def mul_eo_words(a: list[int], b: list[int], p: int, inv: int) -> list[int]:
+    """chain_mul.cuh's mul_eo as its 32-bit words go, on lists of n (even)
+    little-endian words: the two accumulators, the role swap, the merge
+    and the final subtraction; raises where a carry that the kernel drops
+    is not zero or the merged value is not below 2p.  The CPU tests hold
+    it against the CIOS product."""
+    n, M = len(a), MASK32
+    pw = [(p >> (32 * j)) & M for j in range(n)]
+
+    def chain(acc, xs, m, at=0):
+        """acc[at + 2k], acc[at + 2k + 1] += lo, hi of xs[k] m, one carry
+        chain; returns its carry out"""
+        c = 0
+        for k, x in enumerate(xs):
+            for w, part in ((at + 2 * k, x * m & M), (at + 2 * k + 1,
+                                                      x * m >> 32)):
+                s = acc[w] + part + c
+                acc[w], c = s & M, s >> 32
+        return c
+
+    def need(cond, what):
+        if not cond:
+            raise ArithmeticError(f"mul_eo: {what}")
+
+    ev, od = [0] * n, [0] * n
+    for i in range(n):
+        E, O = (ev, od) if i % 2 == 0 else (od, ev)
+        bi = b[i]
+        if i == 0:
+            chain(O, a[1::2], bi)
+            chain(E, a[0::2], bi)
+        else:
+            s = E[0] + O[1]
+            E[0], c = s & M, s >> 32
+            shifted = O[2:] + [0, 0]
+            for k, x in enumerate(a[1::2]):
+                for w, part in ((2 * k, x * bi & M),
+                                (2 * k + 1, x * bi >> 32)):
+                    s = shifted[w] + part + c
+                    shifted[w], c = s & M, s >> 32
+            need(c == 0, "the odd row's carry")
+            O[:] = shifted
+            O[n - 1] += chain(E, a[0::2], bi)
+            need(O[n - 1] <= M, "the even row's carry")
+        m = E[0] * inv & M
+        need(chain(O, pw[1::2], m) == 0, "the quotient's odd carry")
+        O[n - 1] += chain(E, pw[0::2], m)
+        need(O[n - 1] <= M and E[0] == 0, "the quotient's even row")
+    v = sum(w << (32 * i) for i, w in enumerate(ev)) + sum(
+        w << (32 * (i - 1)) for i, w in enumerate(od) if i)
+    need(v < 2 * p, "the merged value is 2p or more")
+    v = v - p if v >= p else v
+    return [(v >> (32 * j)) & M for j in range(n)]
 
 
 # -- timing on the card -------------------------------------------------------
@@ -259,13 +331,14 @@ def k1e_mul_ns(F, n: int, rng, dev) -> float:
 
 
 def lone_product_ns(F, a: torch.Tensor, b: torch.Tensor,
-                    reps: int = LONE_REPS):
+                    reps: int = LONE_REPS, product: str = "cios"):
     """K7b lone's ns per product on the one-element arrays a, b: the time
     at reps products less the time at reps / 2, over reps / 2.  Returns
     (ns, {reps: ms}, {reps: output of the timed calls})."""
     ms, outs = {}, {}
     for r in (reps, reps // 2):
-        ms[r], outs[r] = timed_output(lambda: lone_chain(F, a, b, r), 20)
+        ms[r], outs[r] = timed_output(
+            lambda: lone_chain(F, a, b, r, product), 20)
     return (ms[reps] - ms[reps // 2]) * 1e6 / (reps // 2), ms, outs
 
 

@@ -65,13 +65,17 @@ def split_args(argv: list[str], tunables: Iterable[str],
 def main(prog: str, stem: str | tuple[str, ...], tunables: Iterable[str],
          argv: list[str], defaults: list[dict], cases: Callable,
          measure: Callable, passes: int = 1,
-         ptxas: Callable = _build.ptxas_kernels) -> int:
+         ptxas: Callable = _build.ptxas_kernels,
+         stems_of: Callable | None = None) -> int:
     """`stem`: the source or sources a build compiles.  `cases(device)`
     yields (label, case, want): a dict that names the case in each JSON
     line, what `measure` takes, and the package build's outputs as a list
     of tensors.  `measure(case, rep)` times the case in pass `rep` and
     returns (a dict of its times, the outputs as a list of tensors).
-    `ptxas(log)` reads a build log's figures."""
+    `ptxas(log)` reads a build log's figures.  `stems_of(variant)`, where
+    given, names the stems a variant's macros touch: only those are built
+    again, the others are the package build's (an ``--against`` build
+    compiles every stem)."""
     if not torch.cuda.is_available():
         print(f"{prog}: needs a CUDA card", file=sys.stderr)
         return 2
@@ -79,7 +83,8 @@ def main(prog: str, stem: str | tuple[str, ...], tunables: Iterable[str],
     against, variants = split_args(argv, tunables, stems[0])
     variants = variants or defaults
     _build.build()
-    jobs = [("variant", v, s, v, None) for v in variants for s in stems]
+    jobs = [("variant", v, s, v, None) for v in variants
+            for s in (stems_of(v) if stems_of else stems)]
     jobs += [("against", f"{where}" + (f":{consts}" if consts else ""), s,
               consts, where / f"libff_tpu_torch/csrc/{s}.cu")
              for where, consts in against for s in stems]
@@ -91,7 +96,7 @@ def main(prog: str, stem: str | tuple[str, ...], tunables: Iterable[str],
             builds.append((kind, label, {}))
         builds[-1][2][s] = lib
     for kind, label, lib in builds:
-        for s in stems:
+        for s in lib:
             log = (lib[s] or _build.build_dir() / f"{s}.so").with_suffix(
                 ".log")
             print(json.dumps({kind: label, "stem": s, "ptxas": ptxas(log)}),

@@ -21,7 +21,7 @@ from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group_ops import (
     OPS, group_op, group_op_pair_plain, group_op_plain, horner_scan,
     horner_scan_plain)
-from libff_tpu_torch.curves.group import JacobianPoint
+from libff_tpu_torch.curves.group import JacobianPoint, ProjectivePoint
 from libff_tpu_torch.fields.fp import (PrimeField, fp_inv_plain, fp_op,
                                        fp_op_plain, to16, to32)
 from libff_tpu_torch.fields.tower import (ExtField, fq2_inv_plain, fq2_op,
@@ -504,13 +504,24 @@ def test_k7b_k7d_match_plain(dev, dc, field, kmul):
     assert torch.equal(got, roofline.mul_chain_plain(F, a, b, kmul, 2))
 
 
-def test_k7b_lone_matches_plain(dev, dc):
-    F = dc.fq
+@pytest.mark.parametrize("curve,product", [("alt_bn128", "cios"),
+                                           ("bls12_381", "cios"),
+                                           ("bls12_381", "eo"),
+                                           ("bls12_377", "eo")])
+def test_k7b_lone_matches_plain(dev, curve, product):
+    """K7b lone at 8 and 12 limbs, over CIOS and the scan's two-accumulator
+    product, the edge values first."""
+    F = device_curve(curve).fq
     rng = np.random.default_rng(13)
     a, b = (chip_smoke.rand_elements(F, 300, rng, dev) for _ in range(2))
-    before = _build.LAUNCHES["K7b lone"]
-    got = roofline.lone_chain(F, a, b, 9)
-    assert _build.LAUNCHES["K7b lone"] == before + 1
+    edges = workload.edge_values(F)
+    pairs = [(x, y) for x in edges for y in edges]
+    a[:, :len(pairs)] = F.plain_from_ints([x for x, _ in pairs], dev)
+    b[:, :len(pairs)] = F.plain_from_ints([y for _, y in pairs], dev)
+    name = roofline.lone_name(F.n32, product)
+    before = _build.LAUNCHES[name]
+    got = roofline.lone_chain(F, a, b, 9, product)
+    assert _build.LAUNCHES[name] == before + 1
     assert torch.equal(got, roofline.lone_chain_plain(F, a, b, 9))
 
 
@@ -729,12 +740,18 @@ def test_k1e_inv_n12_matches_plain(dev, dc12, curve, n):
 
 @pytest.mark.parametrize("curve", CURVES12)
 @pytest.mark.parametrize("op", sorted(OPS))
-def test_k3_n12_matches_plain(dev, dc12, curve, op):
-    """K3's G1 branch over 12-limb Fp (b3 = 12 and 3) with the edge lanes
-    of chip_smoke.k3_inputs."""
+@pytest.mark.parametrize("n", [1, 127, 129, 3000, 1 << 21])
+def test_k3_n12_matches_plain(dev, dc12, curve, op, n):
+    """K3's G1 branch over 12-limb Fp (b3 = 12 and 3; the projective ops
+    on the pair body, two threads an element) with the edge lanes of
+    chip_smoke.k3_inputs where n holds them: one element, a ragged last
+    block on either side of 128 (a pair body's block is 64 elements),
+    and the path's 2^21."""
     G = dc12[curve].g1
-    c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000, np.random.default_rng(72),
-                                        dev)
+    c, cm, q_inf = chip_smoke.k3_inputs(G.F, max(n, 3000),
+                                        np.random.default_rng(72), dev)
+    c, cm = [a[..., :n] for a in c], [a[..., :n] for a in cm]
+    q_inf = q_inf[:n]
     coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
                      "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
                      "madd": (list(cm), (q_inf,))}[op]
@@ -745,9 +762,43 @@ def test_k3_n12_matches_plain(dev, dc12, curve, op):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("curve,group", [("alt_bn128", "g1"),
+                                         ("alt_bn128", "g2"),
+                                         ("bls12_381", "g1"),
+                                         ("bls12_377", "g1")])
+def test_k3_reads_halves_in_place(dev, curve, group):
+    """The reduce's lane halving: padd on the two halves of (el, W, B, L)
+    buckets at every level from L = 1024 down to 1, read where they lie
+    (no copy), against the kernel on contiguous copies and against
+    group_op_plain; and Group.padd on them launches K3 once."""
+    G = getattr(device_curve(curve), group)
+    rng = np.random.default_rng(79)
+    b = [chip_smoke.rand_elements(G.F, 2 * 4 * 1024, rng, dev)
+         .reshape(G.F.el_shape + (2, 4, 1024)) for _ in range(3)]
+    while b[0].shape[-1] > 1:
+        half = b[0].shape[-1] // 2
+        hv = [a[..., :half] for a in b] + [a[..., half:] for a in b]
+        assert not hv[0].is_contiguous() or half == 1
+        got = group_op(G, "padd", hv)
+        for g, c, w in zip(got,
+                           group_op(G, "padd", [a.contiguous() for a in hv]),
+                           group_op_plain(G, "padd", hv)):
+            assert g.shape == hv[0].shape
+            assert torch.equal(g, c) and torch.equal(g, w)
+        b = got
+    name = _build.width_name(f"K3 {group}", G.F.prime_field.n32)
+    P = ProjectivePoint(*hv[:3])
+    before = _build.LAUNCHES[name]
+    G.padd(P, ProjectivePoint(*hv[3:]))
+    assert _build.LAUNCHES[name] == before + 1
+
+
 @pytest.mark.parametrize("curve", CURVES12)
-@pytest.mark.parametrize("W,c", [(32, 8), (5, 3), (1, 4)])
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("W", [1, 2, 5, 32])
 def test_k3_scan_n12_matches_plain(dev, dc12, curve, W, c):
+    """The 12-limb scan's lane body (each product's operands handed to its
+    lane, chain_mul.cuh's product) against horner_scan_plain."""
     G = dc12[curve].g1
     tot = chip_smoke.scan_inputs(G.F, W, np.random.default_rng(73 + W), dev)
     before = _build.LAUNCHES["K3 scan g1 n12"]
