@@ -43,7 +43,16 @@ and runs these paths through ``msm_pippenger``:
   K2 on BLS12-381 timed at the path's
   shape, the first K2_N12_WINDOWS windows of its timed output held
   against the plain insert on those windows (at 12 limbs the plain
-  insert takes minutes at all 32).
+  insert takes minutes at all 32);
+- the G2 MSMs of BLS12-381 and BLS12-377 at 2^18 points over 12-limb
+  Fq2 (nr = p - 1 and p - 5), held against the same structured oracle
+  with each curve's G2 generator, with default_config(n, G) (the
+  12-limb K1e, K4e, K4e inv, K2 and K3 with its scan).  Before them
+  K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's Fq2 at one
+  element and 2^18, K3's six G2 ops at 2^21 and its scan at the path's
+  (W, c) on BLS12-381, K3 and a small scan on BLS12-377, and K2 on
+  BLS12-381 as for G1, each held bit for bit against its plain version
+  on the inputs it is timed on.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
@@ -54,7 +63,7 @@ product); each bench's timed output is
 held against its plain version on the same inputs.  Their launches are
 counted from 0 over these two phases.  Last the batched-affine experiment
 K7e through its harness (``affine_experiment.measure``: the madd, affine
-and lane-inversion bodies over T = 2048 steps of 512 lanes, two waves of
+and lane-inversion bodies over T = K7E_T steps of 512 lanes, two waves of
 instances, timed at T and T/2), its launches counted from 0 over the
 harness; each body's timed output is held against its plain version on
 its inputs (madd and affine on every instance, the lane inversion's o and
@@ -64,7 +73,9 @@ time at T must be twice its time at T/2 within 10%.  The harness's JSON line com
 
 The launch counts are set to 0 just before each path's first run and read
 just after it; each default path must make one scan launch, one inverse
-launch and at most 8 (G1) or 2 (G2) K1e launches.  K2's sort rows give
+launch and at most 8 (G1) or 2 (G2) K1e launches; a 12-limb path
+launches no 8-limb kernel, and a 12-limb G2 path one K2 and one K2 sort
+and at most G2_N12_MOST K4e and K1e launches.  K2's sort rows give
 ``torch.sort(keys, stable=True)`` on the same keys as their library
 time, the one PyTorch call that computes their permutation.  Each phase
 prints one JSON line; then a
@@ -96,13 +107,23 @@ SEED = 2024
 MSM_STEADY_RUNS = 10
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 K7E_CHECKED = 4                 # lane_inv instances held against the plain
+# K7e's steps: half the harness's 2048, which halves the phase's plain
+# checks (sequential in the steps) to keep the smoke's time
+K7E_T = 1024
 SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
 INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
 # each default path's inverse kernel and the most K1e launches it may make
 INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
-# the 12-limb G1 paths, at 2^20 points like alt_bn128's G1
+# the 12-limb G1 paths, at 2^20 points like alt_bn128's G1, and G2
+# paths, at 2^18 like alt_bn128's G2
 CURVES12 = ("bls12_381", "bls12_377")
-K2_N12_WINDOWS = 8              # windows of the 12-limb K2 check
+K2_N12_WINDOWS = 8              # windows of the 12-limb K2 checks
+# the most K4e n12 and K1e n12 launches a 12-limb G2 path makes:
+# proj_to_jacobian's 3 Fq2 products and to_affine's 4; the negation of y
+# in _prepare (K1e's Fq2 branch), counted on the first card run
+G2_N12_MOST = {"K4e n12": 7, "K1e n12": 1}
+# the scan of the BLS12-377 G2 check: (W, c)
+SCAN_G2_377 = (8, 2)
 # Times under a kernel's previous design, as this script measured them
 # on an NVIDIA H100 80GB HBM3 at 700 W: K5's and K2m's under the lane
 # tree's (one warp a row through a device scratch array; K2m's tail on
@@ -164,7 +185,14 @@ MSM_VARIANTS = {
                 ("merge=True", {"merge": True}, "K2m g2")]))}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also gives at_s, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -233,7 +261,7 @@ def phase_k4e(F2, rng, dev) -> dict:
     from libff_tpu_torch.fields.tower import fq2_op, fq2_op_plain
 
     B = F2.B
-    res = {"name": "K4e", "n": 1 << LOG2N_G2,
+    res = {"name": _build.width_name("K4e", B.n32), "n": 1 << LOG2N_G2,
            "checked_n": [1, 1 << LOG2N_G2], "ops": {}, "k1e_ops": {}}
     err = {"ops": 0, "k1e_ops": 0}
     for n in res["checked_n"]:
@@ -263,14 +291,15 @@ def phase_k4e(F2, rng, dev) -> dict:
     return res
 
 
-def phase_inv(F, rng, dev) -> dict:
+def phase_inv(F, rng, dev, n: int = INV_N) -> dict:
     """K1e inv (F the prime field) or K4e inv (F the Fq2 field) at the
     main path's shape, one element (to_affine's z), on each of
     inv_edges' inputs and a random element, timed there; then at INV_N
     elements with the edge values (on Fq2 every pair of them) first, timed
-    there.  Each timed output is held against its plain version.  The
-    products are those of the kernel's ladder and, for the bounds, of the
-    shortest sliding-window chain for p - 2 (window_products)."""
+    there (n, INV_N by default).  Each timed output is held against its
+    plain version.  The products are those of the kernel's ladder and, for
+    the bounds, of the shortest sliding-window chain for p - 2
+    (window_products)."""
     from libff_tpu_torch.fields.fp import (fp_inv, fp_inv_plain,
                                            ladder_products, window_products)
     from libff_tpu_torch.fields.tower import fq2_inv, fq2_inv_plain
@@ -278,7 +307,7 @@ def phase_inv(F, rng, dev) -> dict:
     B = F.prime_field
     fq2 = F.el_ndim == 2
     inv, plain = (fq2_inv, fq2_inv_plain) if fq2 else (fp_inv, fp_inv_plain)
-    name = "K4e inv" if fq2 else _build.width_name("K1e inv", B.n32)
+    name = _build.width_name("K4e inv" if fq2 else "K1e inv", B.n32)
     # the norm's two squarings and the last two products run side by side
     def counts(steps):
         return (steps + 4, steps + 2) if fq2 else (steps, steps)
@@ -294,7 +323,6 @@ def phase_inv(F, rng, dev) -> dict:
         want, plain_ms = host_timed(lambda: plain(F, x))
         singles[key] = {"max_abs_err": max_abs_err([got], [want]), "ms": ms,
                         "plain_ms": plain_ms}
-    n = INV_N
     a = rand_elements(F, n, rng, dev)
     ev = edge_values(B)
     if fq2:
@@ -705,8 +733,8 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
 
 
 def phase_affine(dc) -> tuple[dict, dict]:
-    """K7e: the harness of affine_experiment at its defaults (T = 2048, Ls
-    = 4, two waves of instances), timed at T and T/2, then each timed
+    """K7e: the harness of affine_experiment at T = K7E_T steps (Ls = 4,
+    two waves of instances), timed at T and T/2, then each timed
     output held against its plain version on its inputs: madd's and
     affine's o of every instance, lane_inv's o and chk of K7E_CHECKED
     instances spread over all (its plain version runs ~380 products an
@@ -717,7 +745,7 @@ def phase_affine(dc) -> tuple[dict, dict]:
 
     t0 = time.perf_counter()
     _build.LAUNCHES.clear()
-    rep, (a, b), outs = ae.measure()
+    rep, (a, b), outs = ae.measure(T=K7E_T)
     launches = {k: v for k, v in _build.LAUNCHES.items()
                 if k.startswith("K7e")}
     inst = rep["instances"]
@@ -816,7 +844,8 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     No single PyTorch call computes a Montgomery product, an inverse or a
     group operation, so library_ms is null but on K2's sort rows, whose
     permutation torch.sort(stable=True) of the same keys computes.  The
-    12-limb rows (n12, from bls_paths) come from the BLS12-381 G1 path."""
+    12-limb rows (n12, from bls_paths) come from the BLS12-381 G1 and G2
+    paths."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
@@ -987,6 +1016,59 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
               imads(FP_MULS["madd"][1] * r["madds"], n32=12), rates))
     # plain_ms: insert_plain on the checked windows only
     out[-1]["checked_windows"] = r["checked_windows"]
+    # the 12-limb G2 kernels on the BLS12-381 G2 path (K3 also on
+    # BLS12-377's, nr = p - 5)
+    path, w = "bls12_381 g2", 2 * WORDS12
+    r = n12["k4e g2"]
+    n = r["n"]
+    ob = field_op_bounds({**r["ops"], **r["k1e_ops"]}, 2, n, rates, n32=12)
+    add("K4e n12", path, "fp_ops_n12.cu", "msm/pallas_insert.py:133",
+        r["ops"]["mul"]["ms"], r["ops"]["mul"]["plain_ms"], [2, 12, n],
+        max(r["max_abs_err"], r["k1e_max_abs_err"]), ob["mul"])
+    out[-1].update(op_bounds=ob, ms_by_op={k: v["ms"] for k, v in
+                                           {**r["ops"],
+                                            **r["k1e_ops"]}.items()})
+    r = n12["inv g2"]
+    n = r["n"]
+    add("K4e inv n12", path, "fp_ops_n12.cu", "msm/pallas_insert.py:133",
+        r["ms"], r["plain_ms"], [2, 12, n], r["max_abs_err"],
+        bound(2 * 4 * w * n, imads(r["bound_products"] * n, n32=12), rates))
+    out[-1].update(
+        computes=ref + "fields/tower.py:301", products=r["products"],
+        chain_products=r["chain_products"],
+        bound_products=r["bound_products"],
+        bound_chain_products=r["bound_chain_products"], ms_at_1=r["ms_at_1"],
+        plain_ms_at_1=r["plain_ms_at_1"],
+        own_latency_ms_at_1=r["bound_chain_products"] * lone12["cios"]
+        * 1e-6)
+    r, r377 = n12["k3 g2"], n12["k3 g2 bls12_377"]
+    ob = k3_op_bounds(r, 2, rates, n32=12)
+    add("K3 g2 n12", path, "group_ops_g2_n12.cu", "curves/pallas_ops.py:66",
+        r["ops"]["padd"]["ms"], r["ops"]["padd"]["plain_ms"],
+        [2, 12, r["n"]], max(r["max_abs_err"], r377["max_abs_err"]),
+        ob["padd"])
+    out[-1].update(op_bounds=ob, ms_by_op={k: v["ms"] for k, v in
+                                           r["ops"].items()},
+                   bls12_377_ms_by_op={k: v["ms"] for k, v in
+                                       r377["ops"].items()},
+                   bls12_377_scan=r377["scan"])
+    q = r["scan"]
+    sc = scan_counts(q["W"], q["c"], 2)
+    add("K3 scan g2 n12", path, "horner_n12.cu", "curves/pallas_ops.py:66",
+        q["ms"], q["plain_ms"], [q["W"], q["c"]],
+        max(q["max_abs_err"], r377["scan"]["max_abs_err"]),
+        bound(3 * 4 * w * (q["W"] + 1), imads(sc["base_products"], n32=12),
+              rates))
+    out[-1].update(sc, chain_ns_per_product=q["ms"] * 1e6
+                   / sc["chain_products"],
+                   own_latency_ms=sc["chain_products"] * lone12["eo"] * 1e-6)
+    r = n12["k2 g2"]
+    W, T, L, B = r["shape"]
+    add("K2 g2 n12", path, "insert_n12.cu", "msm/pallas_insert3.py:74",
+        r["ms"], r["plain_ms"], [W, T, L, B], r["max_abs_err"],
+        bound(4 * (W * T * L + 3 * w * T * L) + T * L + 3 * 4 * w * W * B * L,
+              imads(FP_MULS["madd"][2] * r["madds"], n32=12), rates))
+    out[-1]["checked_windows"] = r["checked_windows"]
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -1116,8 +1198,9 @@ def bls_paths(rng, dev) -> dict:
     BLS12-381 held against their plain versions, K3 and a small scan on
     BLS12-377, then each curve's G1 MSM at 2^20 points under
     default_config(n, G), with the launch checks of the alt_bn128 paths
-    and no 8-limb kernel launched.  Prints each phase's line; returns
-    the results by key."""
+    and no 8-limb kernel launched.  Then the 12-limb G2 paths
+    (``bls_g2_paths``).  Prints each phase's line; returns the results by
+    key."""
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.digits import num_signed_digits
@@ -1159,6 +1242,62 @@ def bls_paths(rng, dev) -> dict:
         if other or got.get("K3 g1 n12", 0) < 1:
             fail(f"the {curve} path launched {got}")
         out[f"msm {curve} g1"] = r
+    out.update(bls_g2_paths(rng, dev))
+    return out
+
+
+def bls_g2_paths(rng, dev) -> dict:
+    """The 12-limb G2 paths over Fq2 (nr = p - 1 on BLS12-381, p - 5 on
+    BLS12-377): K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's
+    Fq2 at the path's 2^18 elements, K3's six ops at 2^21 and its scan at
+    the path's (W, c) on BLS12-381, K3 and a small scan (SCAN_G2_377) on
+    BLS12-377, and K2 on BLS12-381 timed at the path's shape, its first
+    K2_N12_WINDOWS windows held to the plain insert; then each curve's G2
+    MSM at 2^18 points under default_config(n, G) against its oracle:
+    one K2, K2 sort, scan and K4e inv launch, at least one K3, at most
+    G2_N12_MOST K4e and K1e launches and no 8-limb kernel."""
+    from libff_tpu_torch import workload
+    from libff_tpu_torch.curves.device import device_curve
+    from libff_tpu_torch.msm.digits import num_signed_digits
+    from libff_tpu_torch.msm.pippenger import default_config
+
+    n = 1 << LOG2N_G2
+    dc = device_curve("bls12_381")
+    G = dc.g2
+    cfg = default_config(n, G, dev)
+    out = {"k4e g2": phase_k4e(dc.fq2, rng, dev)}
+    emit({"phase": "K4e bls12_381", **out["k4e g2"]})
+    out["inv g2"] = phase_inv(dc.fq2, rng, dev, n)
+    emit({"phase": "K4e inv bls12_381", **out["inv g2"]})
+    W = num_signed_digits(G.order, scalar_bits(G), cfg.c)
+    out["k3 g2"] = phase_k3(G, "g2", rng, dev, W, cfg.c)
+    emit({"phase": "K3 bls12_381 g2", **out["k3 g2"]})
+    out["k3 g2 bls12_377"] = phase_k3(device_curve("bls12_377").g2, "g2",
+                                      rng, dev, *SCAN_G2_377)
+    emit({"phase": "K3 bls12_377 g2", **out["k3 g2 bls12_377"]})
+    out["k2 g2"], inputs = phase_k2(dc, "g2", n, cfg, rng, dev,
+                                    K2_N12_WINDOWS)
+    del inputs
+    emit({"phase": "K2 bls12_381 g2", **out["k2 g2"]})
+    for curve in CURVES12:
+        dcc = device_curve(curve)
+        cfg = default_config(n, dcc.g2, dev)
+        case = workload.msm_case(dcc, "g2", LOG2N_G2, dev, SEED)
+        r = phase_msm(dcc, "g2", LOG2N_G2, case, cfg)
+        del case
+        emit({"phase": f"msm {curve} g2", **r})
+        got = r["launches"]
+        once = ("K2 g2 n12", "K2 sort g2", "K3 scan g2 n12", "K4e inv n12")
+        if any(got.get(k, 0) != 1 for k in once):
+            fail(f"the {curve} G2 path did not launch each of {once} once: "
+                 f"{got}")
+        if any(got.get(k, 0) > most for k, most in G2_N12_MOST.items()):
+            fail(f"the {curve} G2 path made more K4e or K1e launches than "
+                 f"{G2_N12_MOST}: {got}")
+        other = [k for k in got if not k.endswith(" n12") and k != "K2 sort g2"]
+        if other or got.get("K3 g2 n12", 0) < 1:
+            fail(f"the {curve} G2 path launched {got}")
+        out[f"msm {curve} g2"] = r
     return out
 
 
@@ -1185,14 +1324,27 @@ def main() -> int:
     # the redesigned K2 and K3 kernels' registers and spills (the K3 G1
     # kernels' names carry the field context, FpField<12, b3>, and the
     # op, 0-5 as in group_ops.cu)
+    # and the 12-limb G2 kernels' (Fp2Field, Fp2Pair; the scan's G2
+    # kernel is horner_g2_kernel)
     redesigned = {name: [k for k in _build.ptxas_kernels(_build.build_dir()
                                                          / log)
-                         if kernel in k["function"]]
+                         if all(s in k["function"] for s in kernel)]
                   for name, log, kernel in (
-                      ("K2 sort", "insert.log", "bucket_lists_kernel"),
-                      ("K2 g1 n12", "insert_n12.log", "chain_kernel"),
-                      ("K3 g1 n12", "group_ops_n12.log", "group_op"),
-                      ("K3 scan g1 n12", "horner_n12.log", "horner"))}
+                      ("K2 sort", "insert.log", ("bucket_lists_kernel",)),
+                      ("K2 g1 n12", "insert_n12.log",
+                       ("chain_kernel", "FpField")),
+                      ("K3 g1 n12", "group_ops_n12.log",
+                       ("group_op", "FpField")),
+                      ("K3 scan g1 n12", "horner_n12.log",
+                       ("horner_kernel",)),
+                      ("K2 g2 n12", "insert_n12.log",
+                       ("chain_kernel", "Fp2Field")),
+                      ("K3 g2 n12", "group_ops_g2_n12.log",
+                       ("group_op",)),
+                      ("K3 g2 n12 nr5", "group_ops_g2_nr5_n12.log",
+                       ("group_op",)),
+                      ("K3 scan g2 n12", "horner_n12.log",
+                       ("horner_g2_kernel",)))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_source, "redesigned_ptxas": redesigned,
           "ptxas": ptxas})

@@ -28,10 +28,12 @@ of products), "K7b lone" (one chain a thread: a product's latency; at
 "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos", "K7d sos2"
 (chains of Fq2 products), and the batched-affine experiment as
 "K7e madd", "K7e affine" and "K7e inv".  The kernels over 12-limb Fp
-(BLS12-381 and BLS12-377 G1) count under the same names with the width
-appended: "K1e n12", "K1e inv n12", "K2 g1 n12", "K3 g1 n12", "K3 scan
-g1 n12" (their sort is the width-free "K2 sort g1").  A wrapper adds one
-where it launches its kernel and nowhere else.
+(BLS12-381 and BLS12-377, G1 and G2) count under the same names with the
+width appended: "K1e n12", "K1e inv n12", "K4e n12", "K4e inv n12", "K2
+g1 n12", "K2 g2 n12", "K3 g1 n12", "K3 g2 n12", "K3 scan g1 n12", "K3
+scan g2 n12" (their sort is the width-free "K2 sort g1" or "K2 sort
+g2").  A wrapper adds one where it launches its kernel and nowhere
+else.
 
 Each width has its own sources: csrc/<stem>.cu builds the 8-limb library
 and csrc/<stem>_n12.cu the 12-limb one (:func:`width_stem`), so nvcc

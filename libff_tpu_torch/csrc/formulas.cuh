@@ -15,8 +15,10 @@
 //                compile-time constant multiplied in by mul_small's
 //                addition chain: (8, 9) for alt_bn128 G1, (12, 12) for
 //                BLS12-381 G1 (b = 4), (12, 3) for BLS12-377 G1 (b = 1).
-//   Fp2Field<M>  Fq2 over fp2.cuh (K4); b3 = 3b' of the twist is a general
-//                Fq2 element, a runtime argument in Montgomery form, and
+//   Fp2Field<N, NR, M>  Fq2 over fp2.cuh (K4), N limbs a coefficient,
+//                non-residue NR (-1: alt_bn128, BLS12-381; -5:
+//                BLS12-377); b3 = 3b' of the twist is a general Fq2
+//                element, a runtime argument in Montgomery form, and
 //                mul_b3 is one Karatsuba product.  The JAX VM multiplies
 //                by b3 coefficient-wise and the JAX kernel by Karatsuba;
 //                the values are equal and canonical, so the bits are too.
@@ -72,13 +74,13 @@ struct FpField {
   }
 };
 
-template <Mul M = Mul::Cios>
+template <int N, int NR, Mul M = Mul::Cios>
 struct Fp2Field {
-  using E = Fe2;
+  using E = Fe2<N>;
   static constexpr int kThreads = 1;
   static constexpr bool kG1 = false;
-  FieldParams<8> P;
-  Fe2 b3;  // 3b' in Montgomery form
+  FieldParams<N> P;
+  Fe2<N> b3;  // 3b' in Montgomery form
 
   __device__ __forceinline__ E add(const E& a, const E& b) const {
     return lff::add(a, b, P);
@@ -88,19 +90,19 @@ struct Fp2Field {
   }
   __device__ __forceinline__ E dbl(const E& a) const { return lff::dbl(a, P); }
   __device__ __forceinline__ E mul(const E& a, const E& b) const {
-    return lff::mul<M>(a, b, P);
+    return lff::mul2<NR, M>(a, b, P);
   }
   __device__ __forceinline__ E sqr(const E& a) const {
-    return lff::sqr<M>(a, P);
+    return lff::sqr2<NR, M>(a, P);
   }
   __device__ __forceinline__ E mul_b3(const E& a) const {
-    return lff::mul<M>(a, b3, P);
+    return lff::mul2<NR, M>(a, b3, P);
   }
   __device__ __forceinline__ E zero() const {
-    return Fe2{lff::zero<8>(), lff::zero<8>()};
+    return E{lff::zero<N>(), lff::zero<N>()};
   }
   __device__ __forceinline__ E one() const {
-    return Fe2{lff::one<8>(P), lff::zero<8>()};
+    return E{lff::one<N>(P), lff::zero<N>()};
   }
   static __device__ __forceinline__ bool is_zero(const E& a) {
     return lff::is_zero(a);
@@ -110,7 +112,7 @@ struct Fp2Field {
   }
   static __device__ __forceinline__ E load(const uint32_t* base,
                                            size_t stride, size_t e) {
-    return load2(base, stride, e);
+    return load2<N>(base, stride, e);
   }
   static __device__ __forceinline__ void store(uint32_t* base, size_t stride,
                                                size_t e, const E& a) {

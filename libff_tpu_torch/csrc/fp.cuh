@@ -574,57 +574,110 @@ __device__ __forceinline__ Fe<N> sqr(const Fe<N>& a, const FieldParams<N>& P) {
   return mul(a, a, P);
 }
 
-// t[0..7] += lo(x * y_j) and t[8] += cin, one carry chain; returns the
-// carry out of t[8].
+// t[0..N-1] += lo(x * y_j) and t[N] += cin, one carry chain; returns the
+// carry out of t[N].  N = 8 or 12 (28 operands at 12, under asm's 30).
+template <int N = 8>
 __device__ __forceinline__ uint32_t mad_lo_row(uint32_t* t, uint32_t x,
                                                const uint32_t* y,
                                                uint32_t cin) {
   uint32_t c;
-  asm volatile(
-      "mad.lo.cc.u32  %0, %10, %11, %0;\n\t"
-      "madc.lo.cc.u32 %1, %10, %12, %1;\n\t"
-      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
-      "madc.lo.cc.u32 %3, %10, %14, %3;\n\t"
-      "madc.lo.cc.u32 %4, %10, %15, %4;\n\t"
-      "madc.lo.cc.u32 %5, %10, %16, %5;\n\t"
-      "madc.lo.cc.u32 %6, %10, %17, %6;\n\t"
-      "madc.lo.cc.u32 %7, %10, %18, %7;\n\t"
-      "addc.cc.u32    %8, %8, %19;\n\t"
-      "addc.u32       %9, 0, 0;"
-      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
-        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
-      : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
-        "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(cin));
+  if constexpr (N == 8) {
+    asm volatile(
+        "mad.lo.cc.u32  %0, %10, %11, %0;\n\t"
+        "madc.lo.cc.u32 %1, %10, %12, %1;\n\t"
+        "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.lo.cc.u32 %3, %10, %14, %3;\n\t"
+        "madc.lo.cc.u32 %4, %10, %15, %4;\n\t"
+        "madc.lo.cc.u32 %5, %10, %16, %5;\n\t"
+        "madc.lo.cc.u32 %6, %10, %17, %6;\n\t"
+        "madc.lo.cc.u32 %7, %10, %18, %7;\n\t"
+        "addc.cc.u32    %8, %8, %19;\n\t"
+        "addc.u32       %9, 0, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+          "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(cin));
+  } else {
+    static_assert(N == 12, "the rows are written for 8 and 12 limbs");
+    asm volatile(
+        "mad.lo.cc.u32  %0, %14, %15, %0;\n\t"
+        "madc.lo.cc.u32 %1, %14, %16, %1;\n\t"
+        "madc.lo.cc.u32 %2, %14, %17, %2;\n\t"
+        "madc.lo.cc.u32 %3, %14, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %19, %4;\n\t"
+        "madc.lo.cc.u32 %5, %14, %20, %5;\n\t"
+        "madc.lo.cc.u32 %6, %14, %21, %6;\n\t"
+        "madc.lo.cc.u32 %7, %14, %22, %7;\n\t"
+        "madc.lo.cc.u32 %8, %14, %23, %8;\n\t"
+        "madc.lo.cc.u32 %9, %14, %24, %9;\n\t"
+        "madc.lo.cc.u32 %10, %14, %25, %10;\n\t"
+        "madc.lo.cc.u32 %11, %14, %26, %11;\n\t"
+        "addc.cc.u32    %12, %12, %27;\n\t"
+        "addc.u32       %13, 0, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "=r"(c)
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+          "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]),
+          "r"(y[10]), "r"(y[11]), "r"(cin));
+  }
   return c;
 }
 
-// t[1..8] += hi(x * y_j), one carry chain; returns the carry out of t[8].
+// t[1..N] += hi(x * y_j), one carry chain; returns the carry out of t[N].
+template <int N = 8>
 __device__ __forceinline__ uint32_t mad_hi_row(uint32_t* t, uint32_t x,
                                                const uint32_t* y) {
   uint32_t c;
-  asm volatile(
-      "mad.hi.cc.u32  %0, %9, %10, %0;\n\t"
-      "madc.hi.cc.u32 %1, %9, %11, %1;\n\t"
-      "madc.hi.cc.u32 %2, %9, %12, %2;\n\t"
-      "madc.hi.cc.u32 %3, %9, %13, %3;\n\t"
-      "madc.hi.cc.u32 %4, %9, %14, %4;\n\t"
-      "madc.hi.cc.u32 %5, %9, %15, %5;\n\t"
-      "madc.hi.cc.u32 %6, %9, %16, %6;\n\t"
-      "madc.hi.cc.u32 %7, %9, %17, %7;\n\t"
-      "addc.u32       %8, 0, 0;"
-      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
-        "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
-      : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
-        "r"(y[5]), "r"(y[6]), "r"(y[7]));
+  if constexpr (N == 8) {
+    asm volatile(
+        "mad.hi.cc.u32  %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %11, %1;\n\t"
+        "madc.hi.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.hi.cc.u32 %4, %9, %14, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %15, %5;\n\t"
+        "madc.hi.cc.u32 %6, %9, %16, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %17, %7;\n\t"
+        "addc.u32       %8, 0, 0;"
+        : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+          "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+          "r"(y[5]), "r"(y[6]), "r"(y[7]));
+  } else {
+    static_assert(N == 12, "the rows are written for 8 and 12 limbs");
+    asm volatile(
+        "mad.hi.cc.u32  %0, %13, %14, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %15, %1;\n\t"
+        "madc.hi.cc.u32 %2, %13, %16, %2;\n\t"
+        "madc.hi.cc.u32 %3, %13, %17, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %13, %19, %5;\n\t"
+        "madc.hi.cc.u32 %6, %13, %20, %6;\n\t"
+        "madc.hi.cc.u32 %7, %13, %21, %7;\n\t"
+        "madc.hi.cc.u32 %8, %13, %22, %8;\n\t"
+        "madc.hi.cc.u32 %9, %13, %23, %9;\n\t"
+        "madc.hi.cc.u32 %10, %13, %24, %10;\n\t"
+        "madc.hi.cc.u32 %11, %13, %25, %11;\n\t"
+        "addc.u32       %12, 0, 0;"
+        : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+          "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]),
+          "+r"(t[11]), "+r"(t[12]), "=r"(c)
+        : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+          "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]),
+          "r"(y[10]), "r"(y[11]));
+  }
   return c;
 }
 
 // x * y added at word k of the accumulator t: both rows, the carry `cin`
-// owed to word k + 8 taken in; returns the carry (0..2) owed to word k + 9.
+// owed to word k + N taken in; returns the carry (0..2) owed to word
+// k + N + 1.
+template <int N = 8>
 __device__ __forceinline__ uint32_t mad_row(uint32_t* t, uint32_t x,
                                             const uint32_t* y, uint32_t cin) {
-  const uint32_t c = mad_lo_row(t, x, y, cin);
-  return c + mad_hi_row(t, x, y);
+  const uint32_t c = mad_lo_row<N>(t, x, y, cin);
+  return c + mad_hi_row<N>(t, x, y);
 }
 
 // The 16-word product a*b into t[0..16] (t[16] ends 0: a*b < 2^512).

@@ -10,11 +10,13 @@
 // libff_tpu/msm/pallas_insert.py:87 _KernelField, which this kernel shares
 // through fp.cuh.
 //
-// K4e: Fq2 Karatsuba mul and complex sqr over (2, 8, n) arrays, on the
+// K4e: Fq2 Karatsuba mul and complex sqr over (2, N, n) arrays, on the
 // Fq2 layer fp2.cuh that replaces libff_tpu/msm/pallas_insert.py:133
 // _KernelField2 (K4).  It is how K4 is held against its plain version on
 // the card; on the MSM path it runs in the G2 to_affine and
-// proj_to_jacobian.
+// proj_to_jacobian.  The caller passes the non-residue nr as a small
+// negative integer, checked against those the width is built for (-1 at
+// 8 limbs; -1 and -5 at 12, BLS12-381's and BLS12-377's Fq2).
 //
 // K1e inv and K4e inv: the Fermat inverse a^(p-2) of n Fp elements
 // (libff_tpu/fields/fp.py:465-468, the lax.scan of pow_static at :447-463
@@ -29,12 +31,12 @@
 // elements the multiplies bound it (362 products an element against 64
 // bytes moved).
 //
-// Widths: this file builds the 8-limb library (alt_bn128's Fq, every
-// entry); fp_ops_n12.cu builds K1e and K1e inv again at LFF_N32 = 12
-// (BLS12-381's and BLS12-377's Fq), its own translation unit.  The Fq2
-// entries are 8-limb only.  At 12 limbs a product is 588 IMADs (about
-// 52 ps of the card) against 144 bytes (43 ps), and the inverse's ladder
-// is 608 (BLS12-381) or 554 (BLS12-377) dependent products.
+// Widths: this file builds the 8-limb library (alt_bn128's Fq and Fq2,
+// every entry); fp_ops_n12.cu builds every entry again at LFF_N32 = 12
+// (BLS12-381's and BLS12-377's Fq and Fq2), its own translation unit.
+// At 12 limbs a product is 588 IMADs (about 52 ps of the card) against
+// 144 bytes (43 ps), and the inverse's ladder is 608 (BLS12-381) or 554
+// (BLS12-377) dependent products.
 //
 // Bound on an H100: memory for Fp add/sub/mul and Fq2 add/sub, multiply
 // issue for the Fq2 products.  At the issue rates K7c measures
@@ -81,18 +83,22 @@ __global__ void __launch_bounds__(256)
   store<N>(out + off, n, e, r);
 }
 
-template <bool SQR>
+// the Fq2 non-residues of this width's kernels: nr = -1 (alt_bn128,
+// BLS12-381) at both widths, -5 (BLS12-377) at 12 limbs
+constexpr bool nr_built(int nr) { return nr == -1 || (N == 12 && nr == -5); }
+
+template <bool SQR, int NR>
 __global__ void __launch_bounds__(256)
     fp2_elementwise(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                    long long n, FieldParams<8> P) {
+                    long long n, FieldParams<N> P) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const Fe2 x = load2(a, n, e);
-  Fe2 r;
+  const Fe2<N> x = load2<N>(a, n, e);
+  Fe2<N> r;
   if constexpr (SQR) {
-    r = sqr(x, P);
+    r = sqr2<NR>(x, P);
   } else {
-    r = mul(x, load2(b, n, e), P);
+    r = mul2<NR>(x, load2<N>(b, n, e), P);
   }
   store2(out, n, e, r);
 }
@@ -117,22 +123,21 @@ __global__ void __launch_bounds__(kInvThreads)
   store<N>(out, n, e, pow_ladder(load<N>(a, n, e), q.e, q.top, q.P));
 }
 
-#if LFF_N32 == 8
-
-// K4e inv with nr = -1: t = a0^2 - nr a1^2 = a0^2 + a1^2, ti = t^(p-2),
-// out = (a0 ti, -a1 ti)
+// K4e inv: t = a0^2 - nr a1^2 = a0^2 + |nr| a1^2, ti = t^(p-2), out =
+// (a0 ti, -a1 ti)
+template <int NR>
 __global__ void __launch_bounds__(kInvThreads)
     fq2_inv_kernel(uint32_t* out, const uint32_t* a, long long n,
                    const __grid_constant__ InvParams q) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const FieldParams<8>& P = q.P;
-  const Fe2 x = load2(a, n, e);
-  const Fe<8> t = add(mul(x.c0, x.c0, P), mul(x.c1, x.c1, P), P);
-  const Fe<8> ti = pow_ladder(t, q.e, q.top, P);
-  store2(out, n, e, Fe2{mul(x.c0, ti, P), neg(mul(x.c1, ti, P), P)});
+  const FieldParams<N>& P = q.P;
+  const Fe2<N> x = load2<N>(a, n, e);
+  const Fe<N> t = add(mul(x.c0, x.c0, P),
+                      mul_small<-NR, N>(mul(x.c1, x.c1, P), P), P);
+  const Fe<N> ti = pow_ladder(t, q.e, q.top, P);
+  store2(out, n, e, Fe2<N>{mul(x.c0, ti, P), neg(mul(x.c1, ti, P), P)});
 }
-#endif
 
 template <int OP>
 int launch(void* out, const void* a, const void* b, long long n, int groups,
@@ -151,28 +156,38 @@ int launch(void* out, const void* a, const void* b, long long n, int groups,
   return (int)cudaGetLastError();
 }
 
-#if LFF_N32 == 8
 template <bool SQR>
 int launch2(void* out, const void* a, const void* b, long long n, int n32,
-            const uint32_t* p, uint32_t inv, int device, void* stream) {
-  if (n32 != 8 || n < 0) return (int)cudaErrorInvalidValue;
+            int nr, const uint32_t* p, uint32_t inv, int device,
+            void* stream) {
+  if (n32 != N || n < 0 || !nr_built(nr)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
   const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  fp2_elementwise<SQR><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, n,
-      field_params(p, nullptr, inv));
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const FieldParams<N> P = field_params<N>(p, nullptr, inv);
+  auto* o = (uint32_t*)out;
+  auto* x = (const uint32_t*)a;
+  auto* y = (const uint32_t*)b;
+  if (nr == -1) {
+    fp2_elementwise<SQR, -1><<<blocks, threads, 0, s>>>(o, x, y, n, P);
+  } else {
+#if LFF_N32 == 12
+    fp2_elementwise<SQR, -5><<<blocks, threads, 0, s>>>(o, x, y, n, P);
+#endif
+  }
   return (int)cudaGetLastError();
 }
-#endif
 
+// FQ2: nr is the Fq2's non-residue (nr_built); otherwise unused
 template <bool FQ2>
-int launch_inv(void* out, const void* a, long long n, int n32,
+int launch_inv(void* out, const void* a, long long n, int n32, int nr,
                const uint32_t* p, uint32_t inv, const uint32_t* e, int top,
                int device, void* stream) {
-  if (n32 != N || n < 0 || top < 1 || top >= 32 * N)
+  if (n32 != N || n < 0 || top < 1 || top >= 32 * N ||
+      (FQ2 && !nr_built(nr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -186,9 +201,13 @@ int launch_inv(void* out, const void* a, long long n, int n32,
   auto* x = (const uint32_t*)a;
   const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (FQ2) {
-#if LFF_N32 == 8
-    fq2_inv_kernel<<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
+    if (nr == -1) {
+      fq2_inv_kernel<-1><<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
+    } else {
+#if LFF_N32 == 12
+      fq2_inv_kernel<-5><<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
 #endif
+    }
   } else {
     fp_inv_kernel<<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
   }
@@ -218,35 +237,35 @@ int fp_mul(void* out, const void* a, const void* b, long long n, int groups,
   return launch<kMul>(out, a, b, n, groups, n32, p, inv, device, stream);
 }
 
-#if LFF_N32 == 8
-// K4e: n Fq2 elements, (2, 8, n) arrays; fq2_sqr ignores b
+// K4e: n Fq2 elements, (2, N, n) arrays, over Fq[u]/(u^2 - nr), nr = -1
+// or -5 (nr_built); fq2_sqr ignores b
 int fq2_mul(void* out, const void* a, const void* b, long long n, int n32,
-            const uint32_t* p, uint32_t inv, int device, void* stream) {
-  return launch2<false>(out, a, b, n, n32, p, inv, device, stream);
+            int nr, const uint32_t* p, uint32_t inv, int device,
+            void* stream) {
+  return launch2<false>(out, a, b, n, n32, nr, p, inv, device, stream);
 }
 
 int fq2_sqr(void* out, const void* a, const void* b, long long n, int n32,
-            const uint32_t* p, uint32_t inv, int device, void* stream) {
-  return launch2<true>(out, a, b, n, n32, p, inv, device, stream);
+            int nr, const uint32_t* p, uint32_t inv, int device,
+            void* stream) {
+  return launch2<true>(out, a, b, n, n32, nr, p, inv, device, stream);
 }
-
-#endif
 
 // K1e inv: the inverses of n Fp elements, (N, n) arrays; e holds p - 2's
 // N words and top the index of its leading bit
 int fp_inv(void* out, const void* a, long long n, int n32, const uint32_t* p,
            uint32_t inv, const uint32_t* e, int top, int device,
            void* stream) {
-  return launch_inv<false>(out, a, n, n32, p, inv, e, top, device, stream);
+  return launch_inv<false>(out, a, n, n32, 0, p, inv, e, top, device,
+                           stream);
 }
 
-#if LFF_N32 == 8
-// K4e inv: the inverses of n Fq2 elements, (2, 8, n) arrays
-int fq2_inv(void* out, const void* a, long long n, int n32, const uint32_t* p,
-            uint32_t inv, const uint32_t* e, int top, int device,
-            void* stream) {
-  return launch_inv<true>(out, a, n, n32, p, inv, e, top, device, stream);
+// K4e inv: the inverses of n Fq2 elements, (2, N, n) arrays, nr as K4e's
+int fq2_inv(void* out, const void* a, long long n, int n32, int nr,
+            const uint32_t* p, uint32_t inv, const uint32_t* e, int top,
+            int device, void* stream) {
+  return launch_inv<true>(out, a, n, n32, nr, p, inv, e, top, device,
+                          stream);
 }
-#endif
 
 }  // extern "C"

@@ -18,11 +18,15 @@
 // every limb load of a warp is one 128-byte transaction.
 //
 // Widths: this file builds the 8-limb library (alt_bn128: G1 with b3 = 9,
-// G2); group_ops_n12.cu builds it again with LFF_N32 = 12, the G1 branch
-// over 12-limb Fp (BLS12-381 with b3 = 12, BLS12-377 with b3 = 3), each
-// width its own translation unit, so nvcc compiles them in parallel.  At
-// 12 limbs a padd is 12 products of 588 IMADs (7,056) against 6 x 48
-// bytes in and 3 x 48 out: still the multiplies.
+// G2 with nr = -1); group_ops_n12.cu builds it again with LFF_N32 = 12,
+// the G1 branch over 12-limb Fp (BLS12-381 with b3 = 12, BLS12-377 with
+// b3 = 3), and group_ops_g2_n12.cu and group_ops_g2_nr5_n12.cu the G2
+// branch over their Fq2 (BLS12-381's, nr = -1, and BLS12-377's, nr = -5;
+// b3 a runtime Fq2 constant either way), each its own translation unit,
+// so nvcc compiles them in parallel (LFF_K3_BRANCHES).  At 12 limbs a
+// padd is 12 products of 588 IMADs (7,056) against 6 x 48 bytes in and 3
+// x 48 out, a G2 padd 42 (24,696) against twice the bytes: still the
+// multiplies.
 //
 // G2 runs its formulas over fp2_pair.cuh's Fp2Pair: the two threads of a
 // pair each hold one coefficient of every Fq2 value and swap operands by
@@ -52,7 +56,7 @@
 
 // __launch_bounds__'s blocks an SM for the G2 kernels (128 threads a
 // block): the projective ops (padd, pmadd, pdbl) and the Jacobian ones
-// (add, madd, dbl), chosen with tune_group_ops
+// (add, madd, dbl), chosen with tune_group_ops at 8 limbs
 #ifndef LFF_K3_MIN_BLOCKS_G2_PROJ
 #define LFF_K3_MIN_BLOCKS_G2_PROJ 4
 #endif
@@ -75,6 +79,14 @@
 // sets it before including this file)
 #ifndef LFF_N32
 #define LFF_N32 8
+#endif
+// the branches the library holds, bits of 1 (G1), 2 (G2 with nr = -1)
+// and 4 (G2 with nr = -5, 12 limbs only): every one by default; the
+// 12-limb sources split them (group_ops_n12.cu G1, group_ops_g2_n12.cu
+// and group_ops_g2_nr5_n12.cu G2 for each nr): in one translation unit
+// the 12-limb kernels kept nvcc busy four minutes
+#ifndef LFF_K3_BRANCHES
+#define LFF_K3_BRANCHES 7
 #endif
 
 using namespace lff;
@@ -207,10 +219,20 @@ __global__ void __launch_bounds__(128, LFF_K3_MIN_BLOCKS_G1_N12_PAIR)
   }
 }
 
-// G2: two threads an element (a pair leaves together: same e)
+// G2: two threads an element (a pair leaves together: same e).  At 12
+// limbs a thread's 12-word coefficients need ptxas's whole 255 registers
+// (its spills are in the build log), so no minimum of blocks an SM: two
+// blocks of 128 fit at 255 anyway.
+#if LFF_N32 == 12
+#define LFF_K3_G2_PROJ 1
+#define LFF_K3_G2_JAC 1
+#else
+#define LFF_K3_G2_PROJ LFF_K3_MIN_BLOCKS_G2_PROJ
+#define LFF_K3_G2_JAC LFF_K3_MIN_BLOCKS_G2_JAC
+#endif
 template <class F, int OP, bool kRows>
-__global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_MIN_BLOCKS_G2_PROJ
-                                                    : LFF_K3_MIN_BLOCKS_G2_JAC))
+__global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_G2_PROJ
+                                                    : LFF_K3_G2_JAC))
     group_op_g2_kernel(const __grid_constant__ OpArgs A, F f) {
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long e = t >> 1;
@@ -263,10 +285,12 @@ int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
 
 }  // namespace
 
-// n32 must be the library's width.  At 8 limbs k = 1 needs b3 = 9
-// (alt_bn128 G1) and leaves b3_mont unused; k = 2: b3_mont holds the 16
-// Montgomery limbs of the Fq2 constant b3 (c0 then c1).  At 12 limbs k
-// must be 1, with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).  Every
+// n32 must be the library's width N.  k = 1: b3 must be 9 at 8 limbs
+// (alt_bn128 G1), 12 (BLS12-381 G1) or 3 (BLS12-377 G1) at 12, and
+// b3_mont is unused.  k = 2: b3 is the Fq2's non-residue nr, -1 at 8
+// limbs (alt_bn128 G2), -1 (BLS12-381 G2) or -5 (BLS12-377 G2) at 12, and
+// b3_mont holds the 2N Montgomery limbs of the Fq2 constant b3 (c0 then
+// c1).  Every
 // input (its limb 0 of element 0 at in[i]) has its limbs lstride words
 // apart and its rows of `cols` elements rstride words apart; any op but
 // padd needs them flat (cols = lstride = n).
@@ -279,9 +303,13 @@ extern "C" int group_op_at(int op, void* const* in, long long lstride,
   constexpr int N = LFF_N32;
   if (n32 != N || n < 0 || (n > 0 && cols < 1))
     return (int)cudaErrorInvalidValue;
-  if (N == 8 ? !(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr)
-             : !(k == 1 && (b3 == 12 || b3 == 3)))
-    return (int)cudaErrorInvalidValue;
+  constexpr int kBranches = LFF_K3_BRANCHES;
+  const bool g1 = (kBranches & 1) && k == 1 &&
+                  (N == 8 ? b3 == 9 : b3 == 12 || b3 == 3);
+  const bool g2 = k == 2 && b3_mont != nullptr &&
+                  (((kBranches & 2) && b3 == -1) ||
+                   ((kBranches & 4) && N == 12 && b3 == -5));
+  if (!g1 && !g2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
@@ -297,15 +325,20 @@ extern "C" int group_op_at(int op, void* const* in, long long lstride,
   const cudaStream_t s = (cudaStream_t)stream;
 #if LFF_N32 == 8
   if (k == 1) return launch_op(op, A, FpField<8, 9>{P}, s);
-  Fe2 b3c;
-  for (int i = 0; i < 8; i++) {
-    b3c.c0.v[i] = b3_mont[i];
-    b3c.c1.v[i] = b3_mont[8 + i];
-  }
-  return launch_op(op, A, Fp2Pair{P, b3c}, s);
+  return launch_op(op, A, fp2_pair<8, -1>(P, b3_mont), s);
 #elif LFF_N32 == 12
+#if LFF_K3_BRANCHES & 2
+  if (k == 2 && b3 == -1)
+    return launch_op(op, A, fp2_pair<12, -1>(P, b3_mont), s);
+#endif
+#if LFF_K3_BRANCHES & 4
+  if (k == 2) return launch_op(op, A, fp2_pair<12, -5>(P, b3_mont), s);
+#endif
+#if LFF_K3_BRANCHES & 1
   if (b3 == 12) return launch_op(op, A, FpField<12, 12>{P}, s);
   return launch_op(op, A, FpField<12, 3>{P}, s);
+#endif
+  return (int)cudaErrorInvalidValue;
 #else
 #error "group_ops.cu is built for 8 or 12 limbs"
 #endif

@@ -37,7 +37,8 @@
 //     CIOS's 1.28 us a lone product on an H100, K7b lone n12);
 //   - on G2 lane j takes its operands from shared memory, runs one
 //     Montgomery product and writes it back, and every lane does the
-//     formula's additions itself;
+//     formula's additions itself; at 12 limbs that product too is
+//     chain_mul.cuh's two-accumulator one;
 //   - the sum tree runs by arrival: a window's block, when done, publishes
 //     its point and counts itself in at its pair; the second of a pair adds
 //     the two (lower slot first, as proj_sum_tree does) and goes on to the
@@ -46,10 +47,11 @@
 //     A pair whose upper slot is padding adds the identity itself, as the
 //     padded tree does.
 //
-// Widths: this file builds the 8-limb library (alt_bn128 G1 and G2);
-// horner_n12.cu builds it again at LFF_N32 = 12, the G1 branch over
-// 12-limb Fp with b3 = 12 (BLS12-381) or 3 (BLS12-377), its own
-// translation unit.
+// Widths: this file builds the 8-limb library (alt_bn128 G1, and G2 with
+// nr = -1); horner_n12.cu builds it again at LFF_N32 = 12, its own
+// translation unit: the G1 branch over 12-limb Fp with b3 = 12
+// (BLS12-381) or 3 (BLS12-377), and the G2 branch over their Fq2 with nr
+// = -1 (BLS12-381) or -5 (BLS12-377), b3 a runtime Fq2 constant.
 #include "chain_mul.cuh"
 #include "fp2.cuh"
 
@@ -70,7 +72,6 @@ struct Pt {
   E x, y, z;
 };
 
-#if LFF_N32 == 8
 // -- G2's body: a level's base products through shared memory --------------
 
 // 16-byte words of a base-field element
@@ -111,6 +112,17 @@ __device__ __forceinline__ void operands(Slots& s, int j, const Fe<N>& x,
   put(s.b[j], y);
 }
 
+// The scan's product at this width: chain_mul.cuh's two-accumulator
+// product at 12 limbs, fp.cuh's CIOS at 8
+__device__ __forceinline__ Fe<N> scan_mul(const Fe<N>& a, const Fe<N>& b,
+                                          const FieldParams<N>& P) {
+#if LFF_N32 == 12
+  return mul_eo(a, b, P);
+#else
+  return mul(a, b, P);
+#endif
+}
+
 // The level's n base products: every lane has written the same operands;
 // lane j < n multiplies pair j, and after the second barrier every lane
 // reads every product.
@@ -118,62 +130,68 @@ __device__ __forceinline__ void level(Slots& s, int n,
                                       const FieldParams<N>& P) {
   __syncwarp();
   const int lane = threadIdx.x & 31;
-  if (lane < n) put(s.r[lane], mul(get(s.a[lane]), get(s.b[lane]), P));
+  if (lane < n) put(s.r[lane], scan_mul(get(s.a[lane]), get(s.b[lane]), P));
   __syncwarp();
 }
 
-// A field's products as base products: kMul a product, kSqr a square,
-// written at slot j and read back from the products at j.
-template <class E>
-struct Ops;
+using E2 = Fe2<N>;
 
-// Fq2 (nr = p - 1): fp2.cuh's Karatsuba product (v0, v1, (a0+a1)(b0+b1))
-// and complex square (a0 a1, (a0+a1)(a0-a1)), recombined as there
-template <>
-struct Ops<Fe2> {
+// Fq2 over Fq[u]/(u^2 - nr), nr = NR: fp2.cuh's Karatsuba product (v0,
+// v1, (a0+a1)(b0+b1)) and complex square (a0 a1, (a0+a1)(a0+nr a1)),
+// written at slot j and recombined as there from the products at j
+template <int NR>
+struct Ops {
+  using E = E2;
   static constexpr int kMul = 3, kSqr = 2;
-  static __device__ __forceinline__ void mul(Slots& s, int j, const Fe2& x,
-                                             const Fe2& y,
-                                             const FieldParams<8>& P) {
+  static __device__ __forceinline__ void mul(Slots& s, int j, const E& x,
+                                             const E& y,
+                                             const FieldParams<N>& P) {
     operands(s, j, x.c0, y.c0);
     operands(s, j + 1, x.c1, y.c1);
     operands(s, j + 2, add(x.c0, x.c1, P), add(y.c0, y.c1, P));
   }
-  static __device__ __forceinline__ void sqr(Slots& s, int j, const Fe2& x,
-                                             const FieldParams<8>& P) {
+  static __device__ __forceinline__ void sqr(Slots& s, int j, const E& x,
+                                             const FieldParams<N>& P) {
     operands(s, j, x.c0, x.c1);
-    operands(s, j + 1, add(x.c0, x.c1, P), sub(x.c0, x.c1, P));
+    operands(s, j + 1, add(x.c0, x.c1, P), add_nr<NR>(x.c0, x.c1, P));
   }
-  static __device__ __forceinline__ Fe2 mul_out(const Slots& s, int j,
-                                                const FieldParams<8>& P) {
-    const Fe<8> v0 = get(s.r[j]), v1 = get(s.r[j + 1]);
-    return Fe2{sub(v0, v1, P), sub(sub(get(s.r[j + 2]), v0, P), v1, P)};
+  static __device__ __forceinline__ E mul_out(const Slots& s, int j,
+                                              const FieldParams<N>& P) {
+    const Fe<N> v0 = get(s.r[j]), v1 = get(s.r[j + 1]);
+    return E{add_nr<NR>(v0, v1, P), sub(sub(get(s.r[j + 2]), v0, P), v1, P)};
   }
-  static __device__ __forceinline__ Fe2 sqr_out(const Slots& s, int j,
-                                                const FieldParams<8>& P) {
-    return Fe2{get(s.r[j + 1]), dbl(get(s.r[j]), P)};
+  // c0 = t - v - nr v (t with nr = -1), c1 = 2v
+  static __device__ __forceinline__ E sqr_out(const Slots& s, int j,
+                                              const FieldParams<N>& P) {
+    const Fe<N> v = get(s.r[j]), t = get(s.r[j + 1]);
+    if constexpr (NR == -1) {
+      return E{t, dbl(v, P)};
+    } else {
+      return E{sub(t, add_nr<NR>(v, v, P), P), dbl(v, P)};
+    }
   }
 };
 
 // b3 times a (and times b): the twist's Fq2 constant, one level of
 // Karatsuba products
-__device__ __forceinline__ void times_b3(Slots& s, const Fe2& a,
-                                         const Fe2& b, Fe2& ra, Fe2& rb,
-                                         int both, const FieldParams<8>& P,
-                                         const Fe2& b3) {
-  Ops<Fe2>::mul(s, 0, a, b3, P);
-  if (both) Ops<Fe2>::mul(s, 3, b, b3, P);
+template <class O>
+__device__ __forceinline__ void times_b3(Slots& s, const E2& a,
+                                         const E2& b, E2& ra, E2& rb,
+                                         int both, const FieldParams<N>& P,
+                                         const E2& b3) {
+  O::mul(s, 0, a, b3, P);
+  if (both) O::mul(s, 3, b, b3, P);
   level(s, both ? 6 : 3, P);
-  ra = Ops<Fe2>::mul_out(s, 0, P);
-  if (both) rb = Ops<Fe2>::mul_out(s, 3, P);
+  ra = O::mul_out(s, 0, P);
+  if (both) rb = O::mul_out(s, 3, P);
 }
 
 // rcb_dbl (formulas.cuh; formulas.py:124-138) with its products by level
-template <class E>
-__device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
-                                          const FieldParams<N>& P,
-                                          const Fe2& b3) {
-  using O = Ops<E>;
+template <class O>
+__device__ __forceinline__ Pt<E2> scan_dbl(Slots& s, const Pt<E2>& p,
+                                           const FieldParams<N>& P,
+                                           const E2& b3) {
+  using E = E2;
   constexpr int M = O::kMul, S = O::kSqr;
   O::sqr(s, 0, p.y, P);                    // t0 = y^2
   O::mul(s, S, p.y, p.z, P);               // t1 = y z
@@ -185,7 +203,7 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
   const E xy = O::mul_out(s, 2 * S + M, P);
   const E rz = dbl(dbl(dbl(t0, P), P), P);
   E t2;
-  times_b3(s, zz, zz, t2, t2, 0, P, b3);
+  times_b3<O>(s, zz, zz, t2, t2, 0, P, b3);
   const E ry = add(t0, t2, P);
   t0 = sub(t0, add(dbl(t2, P), t2, P), P);
   O::mul(s, 0, t2, rz, P);                 // x3 = t2 z3
@@ -201,12 +219,12 @@ __device__ __forceinline__ Pt<E> scan_dbl(Slots& s, const Pt<E>& p,
 }
 
 // rcb_add (formulas.cuh; formulas.py:77-100) with its products by level
-template <class E>
-__device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
-                                          const Pt<E>& q,
-                                          const FieldParams<N>& P,
-                                          const Fe2& b3) {
-  using O = Ops<E>;
+template <class O>
+__device__ __forceinline__ Pt<E2> scan_add(Slots& s, const Pt<E2>& p,
+                                           const Pt<E2>& q,
+                                           const FieldParams<N>& P,
+                                           const E2& b3) {
+  using E = E2;
   constexpr int M = O::kMul;
   O::mul(s, 0, p.x, q.x, P);
   O::mul(s, M, p.y, q.y, P);
@@ -222,7 +240,7 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   const E t5 = sub(O::mul_out(s, 5 * M, P), add(t0, t2, P), P);
   t0 = add(dbl(t0, P), t0, P);
   E ry;
-  times_b3(s, t2, t5, t2, ry, 1, P, b3);
+  times_b3<O>(s, t2, t5, t2, ry, 1, P, b3);
   const E rz = add(t1, t2, P);
   t1 = sub(t1, t2, P);
   O::mul(s, 0, t3, t1, P);
@@ -238,7 +256,6 @@ __device__ __forceinline__ Pt<E> scan_add(Slots& s, const Pt<E>& p,
   r.z = add(O::mul_out(s, 4 * M, P), O::mul_out(s, 5 * M, P), P);
   return r;
 }
-#endif
 
 // A point of limb-major (k, N, n) coordinate arrays: coefficient c's limb
 // i at base[(c * N + i) * n + e].  ld.global.cg where another block wrote
@@ -264,19 +281,17 @@ __device__ __forceinline__ void store_as(uint32_t* base, long long n,
   store<N>(base, n, e, a);
 }
 
-#if LFF_N32 == 8
 template <bool kCg>
-__device__ __forceinline__ void load_as(Fe2& r, const uint32_t* base,
+__device__ __forceinline__ void load_as(E2& r, const uint32_t* base,
                                         long long n, long long e) {
   r.c0 = load_el<kCg>(base, n, e);
-  r.c1 = load_el<kCg>(base + 8 * n, n, e);
+  r.c1 = load_el<kCg>(base + N * n, n, e);
 }
 
 __device__ __forceinline__ void store_as(uint32_t* base, long long n,
-                                         long long e, const Fe2& a) {
+                                         long long e, const E2& a) {
   store2(base, n, e, a);
 }
-#endif
 
 struct ScanArgs {
   const uint32_t* in[3];  // the totals' X, Y, Z, each (k, N, W)
@@ -308,17 +323,6 @@ __device__ __forceinline__ void store_pt(uint32_t* const* base, long long n,
 }
 
 // -- G1's lane body: each product's operands handed to its lane ------------
-
-// The scan's product at this width: chain_mul.cuh's two-accumulator
-// product at 12 limbs, fp.cuh's CIOS at 8
-__device__ __forceinline__ Fe<N> scan_mul(const Fe<N>& a, const Fe<N>& b,
-                                          const FieldParams<N>& P) {
-#if LFF_N32 == 12
-  return mul_eo(a, b, P);
-#else
-  return mul(a, b, P);
-#endif
-}
 
 // lane src's a, on every lane
 __device__ __forceinline__ Fe<N> from_lane(const Fe<N>& a, int src) {
@@ -406,24 +410,23 @@ __device__ __forceinline__ Pt<Fe<N>> lane_add(const Pt<Fe<N>>& p,
 
 // -- the scan ----------------------------------------------------------------
 
-#if LFF_N32 == 8
-// G2's steps: a level's products through shared memory
+// G2's steps over nr = NR: a level's products through shared memory
+template <int NR>
 struct SlotSteps {
-  using E = Fe2;
+  using E = E2;
   Slots& s;
-  const FieldParams<8>& P;
-  const Fe2& b3;
+  const FieldParams<N>& P;
+  const E2& b3;
   __device__ __forceinline__ Pt<E> dbl(const Pt<E>& q) const {
-    return scan_dbl(s, q, P, b3);
+    return scan_dbl<Ops<NR>>(s, q, P, b3);
   }
   __device__ __forceinline__ Pt<E> add(const Pt<E>& p, const Pt<E>& q) const {
-    return scan_add(s, p, q, P, b3);
+    return scan_add<Ops<NR>>(s, p, q, P, b3);
   }
   __device__ __forceinline__ Pt<E> identity() const {
-    return Pt<E>{E{}, Fe2{lff::one<8>(P), zero<8>()}, E{}};
+    return Pt<E>{E{}, E2{lff::one<N>(P), zero<N>()}, E{}};
   }
 };
-#endif
 
 // G1's steps: the lane body
 template <int B3>
@@ -486,24 +489,24 @@ __global__ void __launch_bounds__(32) horner_kernel(ScanArgs A,
   scan_window(A, LaneSteps<B3>{(int)(threadIdx.x & 31), P});
 }
 
-#if LFF_N32 == 8
+template <int NR>
 __global__ void __launch_bounds__(32) horner_g2_kernel(ScanArgs A,
-                                                       FieldParams<8> P,
-                                                       Fe2 b3) {
+                                                       FieldParams<N> P,
+                                                       E2 b3) {
   __shared__ Slots s;
-  scan_window(A, SlotSteps{s, P, b3});
+  scan_window(A, SlotSteps<NR>{s, P, b3});
 }
-#endif
 
 }  // namespace
 
 // The scan over W totals (limb-major (k, N, W) each) into out, with c
 // doublings a window step.  slot: (k, N, M) scratch for each coordinate,
 // M the tree's width (1 for W = 1, else the power of two >= W, at least
-// 2); arrivals: (M,) int32 zeros.  n32 must be the library's width N.  At
-// 8 limbs k = 1 needs b3 = 9 (alt_bn128 G1); k = 2: b3_mont holds the
-// Fq2 constant's 16 Montgomery limbs (c0, c1).  At 12 limbs k must be 1,
-// with b3 = 12 (BLS12-381 G1) or 3 (BLS12-377 G1).
+// 2); arrivals: (M,) int32 zeros.  n32 must be the library's width N.
+// k = 1: b3 must be 9 at 8 limbs (alt_bn128 G1), 12 (BLS12-381 G1) or 3
+// (BLS12-377 G1) at 12.  k = 2: b3 is the Fq2's non-residue nr, -1 at 8
+// limbs (alt_bn128 G2), -1 (BLS12-381 G2) or -5 (BLS12-377 G2) at 12, and
+// b3_mont holds the Fq2 constant's 2N Montgomery limbs (c0, c1).
 extern "C" int horner_scan(void* const* in, void* const* slot,
                            void* const* out, void* arrivals, int W, int M,
                            int c, int n32, int k, int b3,
@@ -513,9 +516,10 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   if (n32 != N || W < 1 || c < 0 || M < W || (M & (M - 1)) ||
       (W > 1 && M >= 2 * W) || (W == 1 && M != 1))
     return (int)cudaErrorInvalidValue;
-  if (N == 8 ? !(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr)
-             : !(k == 1 && (b3 == 12 || b3 == 3)))
-    return (int)cudaErrorInvalidValue;
+  const bool g1 = k == 1 && (N == 8 ? b3 == 9 : b3 == 12 || b3 == 3);
+  const bool g2 = k == 2 && b3_mont != nullptr &&
+                  (b3 == -1 || (N == 12 && b3 == -5));
+  if (!g1 && !g2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   ScanArgs A{};
@@ -530,18 +534,19 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   A.c = c;
   const FieldParams<N> P = field_params<N>(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
-#if LFF_N32 == 8
-  Fe2 b3c{};
   if (k == 2) {
-    for (int i = 0; i < 8; i++) {
-      b3c.c0.v[i] = b3_mont[i];
-      b3c.c1.v[i] = b3_mont[8 + i];
+    const E2 b3c = fe2_from<N>(b3_mont);
+    if (b3 == -1) {
+      horner_g2_kernel<-1><<<W, 32, 0, s>>>(A, P, b3c);
+    } else {
+#if LFF_N32 == 12
+      horner_g2_kernel<-5><<<W, 32, 0, s>>>(A, P, b3c);
+#endif
     }
+    return (int)cudaGetLastError();
   }
-  if (k == 1)
-    horner_kernel<9><<<W, 32, 0, s>>>(A, P);
-  else
-    horner_g2_kernel<<<W, 32, 0, s>>>(A, P, b3c);
+#if LFF_N32 == 8
+  horner_kernel<9><<<W, 32, 0, s>>>(A, P);
 #elif LFF_N32 == 12
   if (b3 == 12)
     horner_kernel<12><<<W, 32, 0, s>>>(A, P);

@@ -116,6 +116,14 @@
 // at 3 blocks an SM it lost to registers; so the bucket stays in
 // registers.
 //
+// The G2 of BLS12-381 and BLS12-377 (insert_n12.cu, Fp2Field<12, NR> with
+// nr = -1 and -5) runs the same one-thread chain kernel with G2's
+// constants (kEntriesG2, kMinBlocksG2: S = 1 on its 2^18-point path, T =
+// 256): a bucket is 72 words and a point 48, more than a thread's 255
+// registers hold beside the Karatsuba temporaries, so it spills; its
+// registers and spills are in the smoke's build line.  Two threads a
+// chain (Fp2Pair) is ROADMAP's next design for K2's G2 chains.
+//
 // The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
 // totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
 // raw buckets lane-major as for K2, and merge.cuh's tree runs on them as
@@ -426,9 +434,10 @@ __device__ __forceinline__ void store_words(uint32_t* p, const Fe<N>& a) {
                                 a.v[4 * q + 3]);
 }
 
-__device__ __forceinline__ void store_words(uint32_t* p, const Fe2& a) {
+template <int N>
+__device__ __forceinline__ void store_words(uint32_t* p, const Fe2<N>& a) {
   store_words(p, a.c0);
-  store_words(p + 8, a.c1);
+  store_words(p + N, a.c1);
 }
 
 // The words of one coordinate of a bucket in the chain kernels'
@@ -589,11 +598,12 @@ int chain_launch(const void* off, const void* ent, int wide, const void* rec,
 // the point records (T * L, 3, K) words, lane three (W, L, B, K) scratch
 // arrays for the raw buckets.  kmul: the product this library was built
 // for ((int)M), checked; k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont
-// is unused; k = 2: b3_mont holds the 16 Montgomery limbs of the Fq2
-// constant b3 (c0 then c1).  m null: the raw buckets into bx, by, bz (K,
-// W, B, L); else K2m, the lane totals into the three (K, W, B, 1) arrays
-// of m, merge.cuh's tree over `lane` (bx, by, bz unused) with `far`, W *
-// B * merge_far_words(k, L) words of scratch (null when that is 0).
+// is unused; k = 2: b3 is the Fq2's non-residue, -1, and b3_mont holds
+// the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).  m null:
+// the raw buckets into bx, by, bz (K, W, B, L); else K2m, the lane totals
+// into the three (K, W, B, 1) arrays of m, merge.cuh's tree over `lane`
+// (bx, by, bz unused) with `far`, W * B * merge_far_words(k, L) words of
+// scratch (null when that is 0).
 template <Mul M>
 int insert_entry(int kmul, const void* off, const void* ent, int wide,
                  const void* rec, void* const* lane, void* bx, void* by,
@@ -604,7 +614,7 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
   if (kmul != (int)M || n32 != 8 || W < 0 || T < 0 || L < 0 || B <= 0 ||
       (wide != 0 && wide != 1) || lane == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
+  if (!(k == 1 && b3 == 9) && !(k == 2 && b3 == -1 && b3_mont != nullptr))
     return (int)cudaErrorInvalidValue;
   if (m == nullptr && (bx == nullptr || by == nullptr || bz == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -620,13 +630,8 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
     rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
                       FpField<8, 9, M>{P}, s);
   } else {
-    Fp2Field<M> f{P, {}};
-    for (int i = 0; i < 8; i++) {
-      f.b3.c0.v[i] = b3_mont[i];
-      f.b3.c1.v[i] = b3_mont[8 + i];
-    }
-    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B, f,
-                      s);
+    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
+                      Fp2Field<8, -1, M>{P, fe2_from<8>(b3_mont)}, s);
   }
   if (rc != 0 || m == nullptr) return rc;
   const long long n = (long long)W * B;

@@ -128,9 +128,10 @@ __device__ __forceinline__ void load_words(const uint32_t* p, Fe<N>& r) {
   }
 }
 
-__device__ __forceinline__ void load_words(const uint32_t* p, Fe2& r) {
+template <int N>
+__device__ __forceinline__ void load_words(const uint32_t* p, Fe2<N>& r) {
   load_words(p, r.c0);
-  load_words(p + 8, r.c1);
+  load_words(p + N, r.c1);
 }
 
 template <class F, bool kLaneMajor>
@@ -164,7 +165,7 @@ __device__ __forceinline__ void put(uint32_t* s, int st, const Fe<8>& a) {
 #pragma unroll
   for (int k = 0; k < 8; k++) s[k * st] = a.v[k];
 }
-__device__ __forceinline__ void put(uint32_t* s, int st, const Fe2& a) {
+__device__ __forceinline__ void put(uint32_t* s, int st, const Fe2<8>& a) {
   put(s, st, a.c0);
   put(s + 8 * st, st, a.c1);
 }
@@ -172,7 +173,7 @@ __device__ __forceinline__ void get(const uint32_t* s, int st, Fe<8>& a) {
 #pragma unroll
   for (int k = 0; k < 8; k++) a.v[k] = s[k * st];
 }
-__device__ __forceinline__ void get(const uint32_t* s, int st, Fe2& a) {
+__device__ __forceinline__ void get(const uint32_t* s, int st, Fe2<8>& a) {
   get(s, st, a.c0);
   get(s + 8 * st, st, a.c1);
 }
@@ -183,7 +184,7 @@ __device__ __forceinline__ void shfl_down(Fe<8>& a, int d) {
   for (int k = 0; k < 8; k++)
     a.v[k] = __shfl_down_sync(0xffffffffu, a.v[k], d);
 }
-__device__ __forceinline__ void shfl_down(Fe2& a, int d) {
+__device__ __forceinline__ void shfl_down(Fe2<8>& a, int d) {
   shfl_down(a.c0, d);
   shfl_down(a.c1, d);
 }
@@ -326,15 +327,12 @@ int merge_rows(int k, const LaneRows& in, const Rows& out, uint32_t* far,
                cudaStream_t s) {
   if (k == 1)
     return merge_launch<kLaneMajor>(in, out, far, FpField<8, 9, M>{P}, s);
-  Fe2 b3;
-  for (int i = 0; i < 8; i++) {
-    b3.c0.v[i] = b3_mont[i];
-    b3.c1.v[i] = b3_mont[8 + i];
-  }
   if constexpr (M == Mul::Cios) {
-    return merge_launch<kLaneMajor>(in, out, far, Fp2Pair{P, b3}, s);
+    return merge_launch<kLaneMajor>(in, out, far,
+                                    fp2_pair<8, -1>(P, b3_mont), s);
   } else {
-    return merge_launch<kLaneMajor>(in, out, far, Fp2Field<M>{P, b3}, s);
+    return merge_launch<kLaneMajor>(
+        in, out, far, Fp2Field<8, -1, M>{P, fe2_from<8>(b3_mont)}, s);
   }
 }
 
@@ -346,17 +344,18 @@ int merge_far_words(int k, int L) {
   if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
   if (k == 1) return MergeShape<FpField<8, 9, M>>::far_words(L);
   if constexpr (M == Mul::Cios) {
-    return MergeShape<Fp2Pair>::far_words(L);
+    return MergeShape<Fp2Pair<8, -1>>::far_words(L);
   } else {
-    return MergeShape<Fp2Field<M>>::far_words(L);
+    return MergeShape<Fp2Field<8, -1, M>>::far_words(L);
   }
 }
 
 // K5.  kmul: the product this library was built for ((int)M), checked;
 // b: the three input coordinates (K, n, L); o: three outputs (K, n, 1);
 // far: n * merge_far_words(k, L) words of scratch (null when that is 0).
-// k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3_mont
-// holds the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).
+// k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3 is
+// the Fq2's non-residue, which must be -1 (alt_bn128), and b3_mont holds
+// the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).
 template <Mul M>
 int merge_entry(int kmul, void* const* b, void* const* o, void* far,
                 long long n, int L, int n32, int k, int b3,
@@ -365,7 +364,7 @@ int merge_entry(int kmul, void* const* b, void* const* o, void* far,
                 void* stream) {
   if (kmul != (int)M || n32 != 8 || n < 0 || L < 1 || (L & (L - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3_mont != nullptr))
+  if (!(k == 1 && b3 == 9) && !(k == 2 && b3 == -1 && b3_mont != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

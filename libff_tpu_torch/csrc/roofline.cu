@@ -148,17 +148,17 @@ __global__ void __launch_bounds__(kThreads)
                   long long n, int reps, FieldParams<8> P) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const Fe2 x = load2(a, n, e), y = load2(b, n, e);
-  Fe2 xs[kChains2];
+  const Fe2<8> x = load2<8>(a, n, e), y = load2<8>(b, n, e);
+  Fe2<8> xs[kChains2];
   xs[0] = add(x, y, P);
 #pragma unroll
   for (int k = 1; k < kChains2; k++) xs[k] = add(x, add(y, x, P), P);
 #pragma unroll 1
   for (int r = 0; r < reps; r++) {
 #pragma unroll
-    for (int k = 0; k < kChains2; k++) xs[k] = mul<M>(xs[k], y, P);
+    for (int k = 0; k < kChains2; k++) xs[k] = mul2<-1, M>(xs[k], y, P);
   }
-  Fe2 acc = xs[0];
+  Fe2<8> acc = xs[0];
 #pragma unroll
   for (int k = 1; k < kChains2; k++) acc = add(acc, xs[k], P);
   store2(out, n, e, acc);

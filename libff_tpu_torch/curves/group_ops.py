@@ -14,9 +14,10 @@ size gate (``kernel_op_eligible``: N % 1024 == 0 and N >= 2^13) follows the
 TPU's tiling; this kernel takes any N.
 
 Both entries are built for alt_bn128's 8-limb G1 and G2 and for the G1
-of BLS12-381 and BLS12-377 over 12-limb Fp (:func:`kernel_branch`), each
-width from its own sources (``csrc/group_ops_n12.cu``,
-``csrc/horner_n12.cu``).
+and G2 of BLS12-381 and BLS12-377 over 12-limb Fp (:func:`kernel_branch`),
+each width from its own sources (``csrc/group_ops_n12.cu``,
+``csrc/horner_n12.cu``), and K3's 12-limb G2 from one source for each
+non-residue (:func:`k3_stem`).
 
 :func:`horner_scan` is K3's scan entry: the Horner phase of the MSM
 (libff_tpu/msm/pippenger.py:419-433, a scan of masked pdbl steps and a sum
@@ -34,7 +35,7 @@ import torch
 
 from .. import _build
 from ..fields.fp import KERNEL_WIDTHS, _carry, to16, to32
-from ..fields.tower import PlainField2
+from ..fields.tower import PlainField2, kernel_nr
 from ..host import mont as hm
 from . import formulas as fml
 
@@ -63,29 +64,41 @@ def kernel_branch(G, what: str):
     """The CUDA kernels' branch for group G as (k, b3, b3's Montgomery
     limbs): k = 1 for a G1 whose b3 is a small constant of the kernels
     (an addition chain): alt_bn128's (8 limbs, b3 = 9), BLS12-381's (12
-    limbs, b3 = 12) and BLS12-377's (12 limbs, b3 = 3); k = 2 for
-    alt_bn128 G2 (Fq2 over 8-limb Fp with nr = p - 1, b3 a runtime
-    constant).  The library is the width's (``_build.width_stem``).
-    Raises for any other group: 12-limb G2 waits for ROADMAP Queue 1 item
-    9b, other widths for item 9d."""
+    limbs, b3 = 12) and BLS12-377's (12 limbs, b3 = 3), with no limbs;
+    k = 2 for a G2 over an Fq2 whose non-residue the kernels are built for
+    (``tower.FQ2_NRS``, the G2 branches' counterpart of ``G1_B3``:
+    alt_bn128's nr = p - 1 at 8 limbs, BLS12-381's p - 1 and BLS12-377's
+    p - 5 at 12), with nr - p in place of b3 and the limbs of
+    b3 = (c0, c1), a runtime constant.  The library is the width's
+    (``_build.width_stem``).  Raises for any other group: other widths
+    wait for ROADMAP Queue 1 item 9d."""
     F = G.F
     n32 = F.prime_field.n32
     if n32 not in KERNEL_WIDTHS:
         raise NotImplementedError(
             f"{what} is built for 8 and 12 limbs, not {n32} ({G.name}): "
             "wider fields wait for ROADMAP Queue 1 item 9d")
-    if F.el_ndim == 2 and n32 != 8:
-        raise NotImplementedError(
-            f"{what} over a {n32}-limb Fq2 ({G.name}) waits for ROADMAP "
-            "Queue 1 item 9b")
     if F.el_ndim == 1 and G._b3_host in G1_B3[n32]:
         return 1, G._b3_host, None
-    if n32 == 8 and F.el_ndim == 2 and F.nr == F.B.p - 1:
-        return 2, 0, _build.u32_array(F.mont_limbs(G._b3_host))
+    nr = kernel_nr(F) if F.el_ndim == 2 else None
+    if nr is not None:
+        return 2, nr, _build.u32_array(F.mont_limbs(G._b3_host))
     raise NotImplementedError(
         f"{what} is built for alt_bn128 G1 (b3 = 9) and G2 (Fq2 with nr = "
-        f"p - 1) and for BLS12-381 and BLS12-377 G1 (b3 = 12, 3), not "
-        f"{G.name}")
+        f"p - 1), BLS12-381 and BLS12-377 G1 (b3 = 12, 3) and their G2 "
+        f"(nr = p - 1, p - 5), not {G.name}")
+
+
+def k3_stem(n32: int, k: int, b3: int) -> str:
+    """The library of K3 for :func:`kernel_branch`'s (k, b3) at n32
+    limbs: the width's (``csrc/group_ops.cu``, ``group_ops_n12.cu``), and
+    at 12 limbs the G2 branch's own for each non-residue
+    (``group_ops_g2_n12.cu`` for nr = -1, ``group_ops_g2_nr5_n12.cu`` for
+    -5), which nvcc builds in parallel."""
+    if k == 1 or n32 == 8:
+        return _build.width_stem("group_ops", n32)
+    return _build.width_stem(
+        "group_ops_g2" + ("" if b3 == -1 else f"_nr{-b3}"), n32)
 
 
 def width_only_8(G, what: str) -> None:
@@ -188,8 +201,7 @@ def group_op(G, op: str, coords, masks=()):
                                   + [None] * (6 - len(coords))))
     ous = (ctypes.c_void_p * 3)(*[o.data_ptr() for o in outs])
     name = _build.width_name(f"K3 g{k}", Fp.n32)
-    fn = _build.function(_build.width_stem("group_ops", Fp.n32),
-                         "group_op_at", _ARGS)
+    fn = _build.function(k3_stem(Fp.n32, k, b3), "group_op_at", _ARGS)
     _build.launch(fn, f"{name} group_op {op}", dev, OPS[op][0], ins,
                   lstride, rstride, cols, _build.ptr(mask) if mask is not None
                   else None, ous, n, Fp.n32, k, b3, b3_mont, Fp.p_c,
@@ -227,11 +239,11 @@ def group_op_pair_plain(G, op: str, coords, masks=()):
     group_op_plain's bits, or raises where a lane's sum breaks the bound
     its single reduction needs."""
     F = G.F
-    if F.el_ndim != 2 or F.nr != F.B.p - 1:
+    if F.el_ndim != 2 or kernel_nr(F) is None:
         raise NotImplementedError(
-            "the pair schedule is built for Fq2 with nr = p - 1 (alt_bn128 "
-            "G2)")
-    return _group_op_over(G, PairField2(F.plain.B), op, coords, masks)
+            "the pair schedule is built for the G2 branches' Fq2 (nr = p - 1 "
+            "or p - 5, tower.FQ2_NRS)")
+    return _group_op_over(G, PairField2(F.plain.B, F.nr), op, coords, masks)
 
 
 def group_op_g1_pair_plain(G, op: str, coords, masks=()):
@@ -358,18 +370,20 @@ def _group_op_over(G, F, op: str, coords, masks):
 
 
 class PairField2(PlainField2):
-    """Fq2 (nr = p - 1) on (2, n16, *batch) int64 tensors as the two
-    threads of csrc/fp2_pair.cuh compute it: coefficient c of a product is
-    lane c's REDC(x0 y0 + x1 y1), with (x0, y0, x1, y1) = (a0, b0, a1, p -
-    b1) on lane 0 and (a1, b0, a0, b1) on lane 1, each row of the
-    reduction adding both products' row before its quotient (CIOS, in
-    16-bit rows where the kernel takes 32-bit ones: the same residue); a
-    square is one product a lane, (a0 + a1)(a0 - a1) and a0 (2 a1); the
-    product by b3 is the product by its Montgomery constant.  Both lanes
+    """Fq2 (nr = p - 1 or p - 5) on (2, n16, *batch) int64 tensors as the
+    two threads of csrc/fp2_pair.cuh compute it: coefficient c of a
+    product is lane c's REDC(x0 y0 + x1 y1), with (x0, y0, x1, y1) = (a0,
+    b0, a1, nr b1) on lane 0 and (a1, b0, a0, b1) on lane 1, nr b1
+    canonical, each row of the reduction adding both products' row before
+    its quotient (CIOS, in 16-bit rows where the kernel takes 32-bit ones:
+    the same residue); a square is one product a lane, (a0 + a1)(a0 - a1)
+    and a0 (2 a1) with nr = p - 1, with another nr (a0 + a1)(a0 + nr a1) =
+    t and a1 a0 = v, swapped into t - v - nr v and 2v; the product by b3 is
+    the product by its Montgomery constant.  Both lanes
     run as one stacked batch.  Additions are PlainField2's."""
 
-    def __init__(self, B):
-        super().__init__(B, B.p - 1)
+    def __init__(self, B, nr: int | None = None):
+        super().__init__(B, B.p - 1 if nr is None else nr)
         self._p = hm.int_to_limbs(B.p, B.n)
 
     def _redc_of_sums(self, x0, y0, x1, y1):
@@ -394,13 +408,21 @@ class PairField2(PlainField2):
 
     def mul(self, a, b):
         a, b = torch.broadcast_tensors(a, b)
-        nb1 = self.B.neg(b[1])
+        nb1 = self.mul_by_nr(b[1])
         lanes = [torch.stack(v, -1) for v in ((a[0], a[1]), (b[0], b[0]),
                                               (a[1], a[0]), (nb1, b[1]))]
         return self._redc_of_sums(*lanes).movedim(-1, 0)
 
     def sqr(self, a):
         B = self.B
+        if self.nr != B.p - 1:
+            # lane 0 t = (a0 + a1)(a0 + nr a1), lane 1 v = a1 a0; swapped,
+            # c0 = t - v - nr v, c1 = 2v
+            x = torch.stack([B.add(a[0], a[1]), a[1]], -1)
+            y = torch.stack([B.add(a[0], self.mul_by_nr(a[1])), a[0]], -1)
+            t, v = B.mul(x, y).unbind(-1)
+            return torch.stack([B.sub(t, B.add(v, self.mul_by_nr(v))),
+                                B.double(v)])
         x = torch.stack([B.add(a[0], a[1]), a[0]], -1)
         y = torch.stack([B.sub(a[0], a[1]), B.double(a[1])], -1)
         return B.mul(x, y).movedim(-1, 0)

@@ -358,6 +358,8 @@ def fp_op_plain(F: "PrimeField", op: str, a: torch.Tensor,
 _INV_ARGS = [_build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
              _build.U32P, ctypes.c_uint32, _build.U32P, ctypes.c_int,
              ctypes.c_int, _build.VP]
+# fq2_inv's: the Fq2's non-residue after n32
+_INV2_ARGS = _INV_ARGS[:4] + [ctypes.c_int] + _INV_ARGS[4:]
 
 
 def ladder(sqr, mul, a, e: int):
@@ -404,20 +406,21 @@ def window_products(e: int, widths=range(1, 9)) -> int:
     return best
 
 
-def launch_inv(B: "PrimeField", entry: str, name: str,
-               a: torch.Tensor) -> torch.Tensor:
+def launch_inv(B: "PrimeField", entry: str, name: str, a: torch.Tensor,
+               nr: int | None = None) -> torch.Tensor:
     """One launch of K1e inv (entry "fp_inv", a an Fp array) or K4e inv
-    ("fq2_inv", a an Fq2 array) over the CUDA array a, with B's p - 2 as
-    the exponent; counted as `name`."""
+    ("fq2_inv", a an Fq2 array over Fq[u]/(u^2 - nr), nr given as nr - p)
+    over the CUDA array a, with B's p - 2 as the exponent; counted as
+    `name`."""
     a = a.contiguous()
     out = torch.empty_like(a)
-    per_element = B.n32 * (2 if entry == "fq2_inv" else 1)
+    fq2 = entry == "fq2_inv"
     fn = _build.function(_build.width_stem("fp_ops", B.n32), entry,
-                         _INV_ARGS)
+                         _INV2_ARGS if fq2 else _INV_ARGS)
     _build.launch(fn, name, a.device, _build.ptr(out), _build.ptr(a),
-                  a.numel() // per_element, B.n32, B.p_c, B.inv32,
-                  B.inv_exp_c, B.inv_exp_top, a.get_device(),
-                  _build.stream_ptr(a))
+                  a.numel() // (B.n32 * (2 if fq2 else 1)), B.n32,
+                  *((nr,) if fq2 else ()), B.p_c, B.inv32, B.inv_exp_c,
+                  B.inv_exp_top, a.get_device(), _build.stream_ptr(a))
     _build.LAUNCHES[name] += 1
     return out
 

@@ -9,8 +9,11 @@ int32 layout, so the port's array is the JAX package's ``(2, n16,
 On a CUDA tensor ``add`` and ``sub`` launch kernel K1e on the ``(2*n32,
 N)`` view, because they act coefficient-wise, and ``mul`` and ``sqr``
 launch kernel K4e (``csrc/fp_ops.cu`` over the Fq2 layer ``csrc/fp2.cuh``,
-kernel K4), built for alt_bn128's nr = p - 1; ``inv`` launches K4e inv,
-the norm, its Fermat inverse and the two products in one launch.  On a
+kernel K4); ``inv`` launches K4e inv, the norm, its Fermat inverse and
+the two products in one launch.  The Fq2 kernels are built for the
+non-residues of ``FQ2_NRS`` (alt_bn128's nr = p - 1 at 8 limbs,
+BLS12-381's p - 1 and BLS12-377's p - 5 at 12), each width from its own
+library (``_build.width_stem``).  On a
 CPU tensor they run the plain version, :class:`PlainField2`, the JAX
 formulas over the prime field's plain version in 16-bit limbs.  Every
 result is a canonical residue, so the bits equal the JAX package's.
@@ -117,24 +120,40 @@ def mul_const2(B, nr: int, a, c) -> torch.Tensor:
 # -- kernel K4e --------------------------------------------------------------
 
 _K4E_ARGS = [_build.VP, _build.VP, _build.VP, ctypes.c_longlong, ctypes.c_int,
-             _build.U32P, ctypes.c_uint32, ctypes.c_int, _build.VP]
+             ctypes.c_int, _build.U32P, ctypes.c_uint32, ctypes.c_int,
+             _build.VP]
+# the Fq2 non-residues the kernels are built for, by width, as nr - p:
+# alt_bn128's p - 1 at 8 limbs; BLS12-381's p - 1 and BLS12-377's p - 5
+# at 12 (fp2.cuh's NR)
+FQ2_NRS = {8: (-1,), 12: (-1, -5)}
 
 
 def check_fq2_width(F: "ExtField", what: str) -> None:
-    """Raise unless F's base field has 8 limbs: the Fq2 kernels (K1e's
-    Fq2 branch, K4, K4e, K4e inv) are built for alt_bn128's."""
-    if F.n32 != 8:
+    """Raise unless F's base field has a width the Fq2 kernels (K1e's Fq2
+    branch, K4, K4e, K4e inv) are built for (``FQ2_NRS``)."""
+    if F.n32 not in FQ2_NRS:
         raise NotImplementedError(
             f"{what} over a {F.n32}-limb Fq2 waits for ROADMAP Queue 1 "
-            "item 9b")
+            "item 9d")
 
 
-def check_nr(F: "ExtField", what: str) -> None:
-    """Raise unless F's non-residue is p - 1, the one K4 is built for."""
-    if F.nr != F.B.p - 1:
+def kernel_nr(F: "ExtField") -> int | None:
+    """F's non-residue as the kernels take it, nr - p (-1 or -5), or
+    None if they are not built for it at F's width."""
+    small = F.nr - F.B.p
+    return small if small in FQ2_NRS.get(F.n32, ()) else None
+
+
+def check_nr(F: "ExtField", what: str) -> int:
+    """F's non-residue as the kernels take it (``kernel_nr``); raises
+    unless they are built for it."""
+    nr = kernel_nr(F)
+    if nr is None:
+        built = ", ".join(f"p - {-v}" for v in FQ2_NRS.get(F.n32, ()))
         raise NotImplementedError(
-            f"{what} is built for the non-residue p - 1 (alt_bn128), not "
-            f"{F.nr}")
+            f"{what} at {F.n32} limbs is built for the non-residues "
+            f"{built}, not {F.nr}")
+    return nr
 
 
 def fq2_op(F: "ExtField", op: str, a: torch.Tensor,
@@ -153,15 +172,18 @@ def fq2_op(F: "ExtField", op: str, a: torch.Tensor,
     check_fq2_width(F, "K1e" if lin else "K4e")
     if lin:
         return launch_k1e(F.B, op, a, b, groups=2)
-    check_nr(F, "K4")
+    nr = check_nr(F, "K4")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
-    fn = _build.function("fp_ops", f"fq2_{op}", _K4E_ARGS)
     B = F.B
-    _build.launch(fn, f"K4e fq2_{op}", a.device, _build.ptr(out),
+    name = _build.width_name("K4e", B.n32)
+    fn = _build.function(_build.width_stem("fp_ops", B.n32), f"fq2_{op}",
+                         _K4E_ARGS)
+    _build.launch(fn, f"{name} fq2_{op}", a.device, _build.ptr(out),
                   _build.ptr(a), _build.ptr(b), a.numel() // (2 * B.n32),
-                  B.n32, B.p_c, B.inv32, a.get_device(), _build.stream_ptr(a))
-    _build.LAUNCHES["K4e"] += 1
+                  B.n32, nr, B.p_c, B.inv32, a.get_device(),
+                  _build.stream_ptr(a))
+    _build.LAUNCHES[name] += 1
     return out
 
 
@@ -186,13 +208,15 @@ def fq2_inv(F: "ExtField", a: torch.Tensor) -> torch.Tensor:
     """The inverse of every element of the (2, n32, *batch) int32 array a;
     0 maps to 0.  A CPU tensor takes :func:`inv2` over the port's prime
     field (its inverse pow_static), the plain version; a CUDA tensor
-    launches kernel K4e inv once."""
+    launches kernel K4e inv once (counted as "K4e inv", or "K4e inv n12"
+    at 12 limbs)."""
     check_operands(F, a, a)
     if not kernel_device(a, F.n32, "K4e inv"):
         return inv2(F.B, F.mul_by_nr, F.B.inv, a)
     check_fq2_width(F, "K4e inv")
-    check_nr(F, "K4e inv")
-    return launch_inv(F.B, "fq2_inv", "K4e inv", a)
+    nr = check_nr(F, "K4e inv")
+    return launch_inv(F.B, "fq2_inv", _build.width_name("K4e inv", F.n32), a,
+                      nr)
 
 
 def fq2_inv_plain(F: "ExtField", a: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,9 @@ on G1, refused on G2 as there.  ``kmul`` chooses the Montgomery product
 inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
 ``csrc/insert.cu``, "sos" and "sos2" from ``csrc/insert_sos.cu`` and
 ``csrc/insert_sos2.cu``; every product gives the same buckets.  Over
-12-limb Fp (BLS12-381 and BLS12-377 G1) K2 builds from
-``csrc/insert_n12.cu``, CIOS and raw buckets only: on a CUDA tensor the
-fused merge, an SOS product and K6 raise there (ROADMAP Queue 1 item
+12-limb Fp (BLS12-381 and BLS12-377, G1 and their G2 over Fq2) K2 builds
+from ``csrc/insert_n12.cu``, CIOS and raw buckets only: on a CUDA tensor
+the fused merge, an SOS product and K6 raise there (ROADMAP Queue 1 item
 9c), and the CPU's plain versions run every setting.
 
 On the card K2 is the sort :func:`bucket_lists`, which lists each

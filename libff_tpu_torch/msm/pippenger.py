@@ -29,8 +29,8 @@ path's bucket update and the formula VM, which ROADMAP Queue 1 item 18
 ports.  ``tb`` (the TPU kernel's time rows per grid step) is accepted
 and has no effect on the card.
 
-The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 of
-BLS12-381 and BLS12-377 (12 limbs); at 12 limbs the card runs K2 over
+The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 and G2
+of BLS12-381 and BLS12-377 (12 limbs); at 12 limbs the card runs K2 over
 CIOS with K3's lane tree (merge False), and the other settings raise
 there (ROADMAP Queue 1 item 9c).
 """

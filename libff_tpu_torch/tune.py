@@ -75,7 +75,7 @@ def main(prog: str, stem: str | tuple[str, ...], tunables: Iterable[str],
     `ptxas(log)` reads a build log's figures.  `stems_of(variant)`, where
     given, names the stems a variant's macros touch: only those are built
     again, the others are the package build's (an ``--against`` build
-    compiles every stem)."""
+    compiles every stem the other checkout has a source of)."""
     if not torch.cuda.is_available():
         print(f"{prog}: needs a CUDA card", file=sys.stderr)
         return 2
@@ -85,9 +85,11 @@ def main(prog: str, stem: str | tuple[str, ...], tunables: Iterable[str],
     _build.build()
     jobs = [("variant", v, s, v, None) for v in variants
             for s in (stems_of(v) if stems_of else stems)]
+    # a stem the other checkout has no source of keeps the package build
     jobs += [("against", f"{where}" + (f":{consts}" if consts else ""), s,
               consts, where / f"libff_tpu_torch/csrc/{s}.cu")
-             for where, consts in against for s in stems]
+             for where, consts in against for s in stems
+             if (where / f"libff_tpu_torch/csrc/{s}.cu").exists()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         libs = list(ex.map(lambda j: _build.build_variant(*j[2:]), jobs))
     builds = [("build", None, {s: None for s in stems})]

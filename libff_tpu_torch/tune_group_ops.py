@@ -24,7 +24,7 @@ through its own ``group_op`` on contiguous copies.
 
 On ``workload.k3_inputs`` at 2^21 elements (the first lane-halving padd of
 each MSM path) it times the six ops on alt_bn128 G1 and G2 and on the G1
-of BLS12-381 and BLS12-377 (12 limbs); then the lane halving's 2^21 padd
+and G2 of BLS12-381 and BLS12-377 (12 limbs); then the lane halving's 2^21 padd
 on each path's bucket shape (W, 128, 1024), its two halves read in place
 and as contiguous copies (the copies timed with the op); then the scan at
 each path's (W, c) = (32, 8) on ``workload.scan_inputs``, in two passes.
@@ -44,11 +44,12 @@ import torch
 from . import _build, tune, workload
 from .curves.device import device_curve
 from .curves.group_ops import (OPS, group_op, group_op_plain, horner_scan,
-                               horner_scan_plain, kernel_branch)
+                               horner_scan_plain, k3_stem, kernel_branch)
 from .msm.digits import num_signed_digits
 from .timing import event_ms
 
-STEMS = ("group_ops", "group_ops_n12", "horner", "horner_n12")
+STEMS = ("group_ops", "group_ops_n12", "group_ops_g2_n12",
+         "group_ops_g2_nr5_n12", "horner", "horner_n12")
 MACRO_STEMS = {"LFF_K3_MIN_BLOCKS_G2_PROJ": ("group_ops",),
                "LFF_K3_MIN_BLOCKS_G2_JAC": ("group_ops",),
                "LFF_K3_PAIR_OPS_G1_N12": ("group_ops_n12",),
@@ -64,7 +65,7 @@ DEFAULT_VARIANTS = [
     {"LFF_K3_MIN_BLOCKS_G1_N12_PAIR": 3},
     {"LFF_K3_MIN_BLOCKS_G1_N12_PAIR": 5}]
 GROUPS = (("alt_bn128", "g1"), ("alt_bn128", "g2"), ("bls12_381", "g1"),
-          ("bls12_377", "g1"))
+          ("bls12_377", "g1"), ("bls12_381", "g2"), ("bls12_377", "g2"))
 N = 1 << 21
 HALVING = (128, 1024)           # (B, L) of the first lane-halving level
 REPS = 20
@@ -91,10 +92,10 @@ def k3(G, op, coords, masks=()):
     """K3 through the loaded library: the package's wrapper, or, for a
     library with no ``group_op_at`` (an earlier checkout's), its
     ``group_op`` entry on contiguous copies."""
-    stem = _build.width_stem("group_ops", G.F.prime_field.n32)
+    k, b3, b3_mont = kernel_branch(G, "K3")
+    stem = k3_stem(G.F.prime_field.n32, k, b3)
     if hasattr(_build.library(stem), "group_op_at"):
         return group_op(G, op, coords, masks)
-    k, b3, b3_mont = kernel_branch(G, "K3")
     coords = [c.contiguous() for c in coords]
     mask = masks[0].to(torch.int32) if masks else None
     outs = [torch.empty_like(coords[0]) for _ in range(3)]

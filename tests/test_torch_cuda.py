@@ -100,8 +100,9 @@ def test_k1e_fq2_matches_plain(dev, dc, op):
 
 
 def test_k4e_refuses_another_non_residue(dev, dc):
-    """K4 is written for nr = p - 1; an Fq2 with another non-residue runs
-    only on the plain version and is refused on the card."""
+    """K4 is built for nr = p - 1 at 8 limbs (and p - 1, p - 5 at 12); an
+    Fq2 with another non-residue runs only on the plain version and is
+    refused on the card."""
     F2 = ExtField(dc.fq, hf.Ext(dc.cd.fq, 2, 2))
     a = F2.from_host_batch([(1, 2), (3, 4)], dev)
     with pytest.raises(NotImplementedError):
@@ -614,8 +615,9 @@ def test_to_affine_makes_one_inverse_launch(dev, dc, group):
 
 
 def test_inverses_refuse_what_the_kernels_do_not_take(dev, dc):
-    """The kernels are built for 8 and 12 limbs and, on Fq2, nr = p - 1:
-    a CUDA tensor of another field raises, never falls back."""
+    """The kernels are built for 8 and 12 limbs and, on Fq2, nr = p - 1
+    (and p - 5 at 12 limbs): a CUDA tensor of another field raises, never
+    falls back."""
     from tests.test_pallas_interpret import P_TOY
 
     T = PrimeField(P_TOY, name="toy_Fp")
@@ -863,24 +865,152 @@ def test_msm_n12_matches_oracle(dev, dc12, curve):
     assert not [k for k in n if not k.endswith("n12") and k != "K2 sort g1"]
 
 
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("op", ["mul", "sqr", "add", "sub", "neg"])
+def test_k4e_n12_matches_plain(dev, dc12, curve, op):
+    """K4e (mul, sqr) and K1e's Fq2 branch (add, sub, neg) over 12-limb
+    Fq2, nr = p - 1 (BLS12-381) and p - 5 (BLS12-377), every pair of edge
+    coefficients first: one launch, counted as "K4e n12" or "K1e n12"."""
+    F2 = dc12[curve].fq2
+    B = F2.B
+    rng = np.random.default_rng(80)
+    a, b = (chip_smoke.rand_elements(F2, 4099, rng, dev) for _ in range(2))
+    edges = workload.edge_values(B)
+    pairs = [(x, y) for x in edges for y in edges]
+    for i, j in ((0, 1), (1, 0)):
+        a[i, :, :len(pairs)] = B.plain_from_ints([q[i] for q in pairs], dev)
+        b[j, :, :len(pairs)] = B.plain_from_ints([q[i] for q in pairs], dev)
+    if op == "neg":
+        op, a = "sub", torch.zeros_like(a)
+    name = "K4e n12" if op in ("mul", "sqr") else "K1e n12"
+    before = dict(_build.LAUNCHES)
+    got = fq2_op(F2, op, a, b)
+    assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+    assert torch.equal(got, fq2_op_plain(F2, op, a, b))
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("n", [1, 4099])
+def test_k4e_inv_n12_matches_plain(dev, dc12, curve, n):
+    """K4e inv over 12-limb Fq2, one launch, on the edge values (0, 1, u,
+    p - 1 + (p - 1) u, R): at one element each, and at 4099 with them
+    first."""
+    F2 = dc12[curve].fq2
+    for a in _inv_inputs(F2, n, 81, dev):
+        before = dict(_build.LAUNCHES)
+        got = F2.inv(a)
+        assert _build.LAUNCHES["K4e inv n12"] == \
+            before.get("K4e inv n12", 0) + 1
+        assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(got, fq2_inv_plain(F2, a))
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("n", [1, 129, 3000])
+def test_k3_g2_n12_matches_plain(dev, dc12, curve, op, n):
+    """K3's G2 branch over 12-limb Fq2 (two threads an element; nr = -1
+    and -5) with the edge lanes of chip_smoke.k3_inputs where n holds
+    them: one element, a ragged last block (64 elements a block) and
+    3000."""
+    G = dc12[curve].g2
+    c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000,
+                                        np.random.default_rng(82), dev)
+    c, cm = [a[..., :n] for a in c], [a[..., :n] for a in cm]
+    q_inf = q_inf[:n]
+    coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
+                     "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
+                     "madd": (list(cm), (q_inf,))}[op]
+    before = _build.LAUNCHES["K3 g2 n12"]
+    got = group_op(G, op, coords, masks)
+    assert _build.LAUNCHES["K3 g2 n12"] == before + 1
+    for g, w in zip(got, group_op_plain(G, op, coords, masks)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_k3_g2_n12_reads_halves_in_place(dev, dc12, curve):
+    """The 12-limb G2 padd on the two halves of (2, 12, 2, 4, L) buckets
+    at every lane-halving level, read in place, against group_op_plain."""
+    G = dc12[curve].g2
+    rng = np.random.default_rng(83)
+    b = [chip_smoke.rand_elements(G.F, 2 * 4 * 256, rng, dev)
+         .reshape(G.F.el_shape + (2, 4, 256)) for _ in range(3)]
+    while b[0].shape[-1] > 1:
+        half = b[0].shape[-1] // 2
+        hv = [a[..., :half] for a in b] + [a[..., half:] for a in b]
+        got = group_op(G, "padd", hv)
+        for g, w in zip(got, group_op_plain(G, "padd", hv)):
+            assert torch.equal(g, w)
+        b = got
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("W", [1, 2, 5, 32])
+def test_k3_scan_g2_n12_matches_plain(dev, dc12, curve, W, c):
+    """The 12-limb G2 scan (each level's base products through shared
+    memory, chain_mul.cuh's product) against horner_scan_plain."""
+    G = dc12[curve].g2
+    tot = chip_smoke.scan_inputs(G.F, W, np.random.default_rng(84 + W), dev)
+    before = _build.LAUNCHES["K3 scan g2 n12"]
+    got = horner_scan(G, tot, c)
+    assert _build.LAUNCHES["K3 scan g2 n12"] == before + 1
+    for g, w in zip(got, horner_scan_plain(G, tot, c)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_k2_g2_n12_matches_plain(dev, dc12, curve):
+    """K2 over 12-limb Fq2 on 4 windows of distinct points, some at
+    infinity, and on chip_smoke.skewed's digits (one bucket a lane, zero
+    digits, the last bucket, every point at infinity)."""
+    dc = dc12[curve]
+    d, pts, B = chip_smoke.k2_inputs(dc, "g2", 1 << 12,
+                                     MsmConfig(c=8, lanes=256),
+                                     np.random.default_rng(85), dev)
+    d = d[:4].contiguous()
+    assert bool(pts[3].any())
+    for dd, pp in ((d, pts), chip_smoke.skewed(d, pts, B)):
+        before = _build.LAUNCHES["K2 g2 n12"]
+        got = insert(dc.g2, dd, pp, B)
+        assert _build.LAUNCHES["K2 g2 n12"] == before + 1
+        for g, w in zip(got, insert_plain(dc.g2, dd, pp, B)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_msm_g2_n12_matches_oracle(dev, dc12, curve):
+    """The 12-limb G2 MSM through default_config(n, G): the oracle's
+    point, one scan, one K2 and one inverse launch, every 12-limb G2
+    kernel launched and no 8-limb one."""
+    dc = dc12[curve]
+    s, A, want = workload.msm_case(dc, "g2", 10, dev, 86)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(dc.g2, s, A,
+                                 default_config(1 << 10, dc.g2, dev))
+    assert got == want
+    n = _build.LAUNCHES
+    assert n["K3 scan g2 n12"] == 1 and n["K4e inv n12"] == 1
+    assert n["K2 g2 n12"] == 1 and n["K2 sort g2"] == 1
+    assert n["K3 g2 n12"] > 0 and n["K4e n12"] > 0 and n["K1e n12"] > 0
+    assert not [k for k in n if not k.endswith("n12") and k != "K2 sort g2"]
+
+
 def test_n12_refuses_what_waits(dev, dc12):
-    """On a CUDA tensor the 12-limb G2 kernels raise (ROADMAP item 9b),
-    and so do the fused merge, K5, K6 and the SOS products at 12 limbs
-    (item 9c): none falls back to a plain version."""
+    """On a CUDA tensor the fused merge, K5, K6 and the SOS products raise
+    at 12 limbs (ROADMAP item 9c), on G1 and on G2: none falls back to a
+    plain version."""
     from libff_tpu_torch.msm.pippenger import msm_pippenger
 
     dc = dc12["bls12_381"]
-    G2 = dc.g2
-    x = chip_smoke.rand_elements(G2.F, 8, np.random.default_rng(76), dev)
-    with pytest.raises(NotImplementedError, match="9b"):
-        group_op(G2, "pdbl", [x, x, x])
-    with pytest.raises(NotImplementedError, match="9b"):
-        fq2_op(G2.F, "mul", x, x)
-    with pytest.raises(NotImplementedError, match="9b"):
-        G2.F.inv(x)
-    s, A, _ = workload.msm_case(dc, "g1", 8, dev, 77)
-    for fields in ({"merge": True}, {"merge": "kernel"},
-                   {"engine": "pallas"}, {"kmul": "sos"}, {"kmul": "sos2"}):
+    for group, fields in (("g1", {"merge": True}), ("g1", {"merge": "kernel"}),
+                          ("g1", {"engine": "pallas"}), ("g1", {"kmul": "sos"}),
+                          ("g1", {"kmul": "sos2"}), ("g2", {"merge": True}),
+                          ("g2", {"merge": "kernel"}), ("g2", {"kmul": "sos"})):
+        G = getattr(dc, group)
+        s, A, _ = workload.msm_case(dc, group, 8, dev, 77)
         cfg = MsmConfig(c=4, lanes=128, **fields)
         with pytest.raises(NotImplementedError, match="9c"):
-            msm_pippenger(dc.g1, s, A, 255, config=cfg)
+            msm_pippenger(G, s, A, 255, config=cfg)

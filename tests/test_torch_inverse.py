@@ -96,16 +96,20 @@ def test_launch_arguments(dc, monkeypatch, field, shape):
     a = torch.zeros(F.el_shape + shape, dtype=torch.int32)
     name = "K1e inv" if field == "fq" else "K4e inv"
     entry = "fp_inv" if field == "fq" else "fq2_inv"
+    # fq2_inv takes the Fq2's non-residue, nr - p, after the width
+    nr = () if field == "fq" else (-1,)
     before = _build.LAUNCHES[name]
-    out = tfp.launch_inv(B, entry, name, a)
+    out = tfp.launch_inv(B, entry, name, a, *nr)
     assert out.shape == a.shape
     assert _build.LAUNCHES[name] == before + 1
     (fn, what, args), = calls
-    assert fn == ("fp_ops", entry, 10) and what == name
+    assert fn == ("fp_ops", entry, 10 + len(nr)) and what == name
     n = 1
     for s in shape:
         n *= s
-    assert args[2:6] == (n, 8, B.p_c, B.inv32)
+    assert args[2:4] == (n, 8) and args[4:4 + len(nr)] == nr
+    args = args[:4] + args[4 + len(nr):]
+    assert args[4:6] == (B.p_c, B.inv32)
     assert list(args[6]) == list(B.inv_exp_c) and args[7] == B.inv_exp_top
 
 
