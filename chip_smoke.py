@@ -51,8 +51,9 @@ and runs these paths through ``msm_pippenger``:
   K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's Fq2 at one
   element and 2^18, K3's six G2 ops at 2^21 and its scan at the path's
   (W, c) on BLS12-381, K3 and a small scan on BLS12-377, and K2 on
-  BLS12-381 as for G1, each held bit for bit against its plain version
-  on the inputs it is timed on.
+  BLS12-381 as for G1 and on BLS12-377 (its first K2_G2_377_WINDOWS
+  windows checked), each held bit for bit against its plain version on
+  the inputs it is timed on.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
@@ -118,6 +119,7 @@ INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
 # paths, at 2^18 like alt_bn128's G2
 CURVES12 = ("bls12_381", "bls12_377")
 K2_N12_WINDOWS = 8              # windows of the 12-limb K2 checks
+K2_G2_377_WINDOWS = 2           # of BLS12-377's G2 K2 check
 # the most K4e n12 and K1e n12 launches a 12-limb G2 path makes:
 # proj_to_jacobian's 3 Fq2 products and to_affine's 4; the negation of y
 # in _prepare (K1e's Fq2 branch), counted on the first card run
@@ -128,18 +130,21 @@ SCAN_G2_377 = (8, 2)
 # on an NVIDIA H100 80GB HBM3 at 700 W: K5's and K2m's under the lane
 # tree's (one warp a row through a device scratch array; K2m's tail on
 # each window's last block), K2's sort's under one thread a lane, the
-# 12-limb K2's under the 8-limb chain kernel with the bucket in
-# registers, the 12-limb K3's padd (2^21) under one thread an element and
+# 12-limb G1 K2's under the 8-limb chain kernel with the bucket in
+# registers, the 12-limb G1 K3's padd (2^21) under one thread an element and
 # its scan (W = 32, c = 8) with each level's products through shared
-# memory.  They are not measured here: the merge, K2 and K3 phases' lines
-# set them beside this run's times as before_ms, and the kernels line
-# leaves them out (it holds only what this run measured).
+# memory; the 12-limb G2 K2's under one thread a chain (Fp2Field) and its
+# K3 padd under two threads an element (the pair body).  They are not
+# measured here: the merge, K2 and K3 phases' lines set them beside this
+# run's times as before_ms, and the kernels line leaves them out (it
+# holds only what this run measured).
 BEFORE_MS = {"K5 g1": 2.344, "K5 g1 sos": 2.536, "K5 g1 sos2": 2.572,
              "K5 g2": 14.15, "K5 g2 sos": 14.96, "K5 g2 sos2": 15.28,
              "K2m g1": 40.57, "K2m g1 sos": 46.88, "K2m g1 sos2": 45.87,
              "K2m g2": 145.82, "K2m g2 sos": 159.97, "K2m g2 sos2": 160.99,
              "K2 sort g1": 1.029, "K2 sort g2": 0.277, "K2 g1 n12": 59.19,
-             "K3 g1 n12": 2.875, "K3 scan g1 n12": 1.073}
+             "K3 g1 n12": 2.875, "K3 scan g1 n12": 1.073,
+             "K2 g2 n12": 94.13, "K3 g2 n12": 13.41}
 
 
 def inv_edges(F) -> dict[str, tuple]:
@@ -1016,7 +1021,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
               imads(FP_MULS["madd"][1] * r["madds"], n32=12), rates))
     # plain_ms: insert_plain on the checked windows only
     out[-1]["checked_windows"] = r["checked_windows"]
-    # the 12-limb G2 kernels on the BLS12-381 G2 path (K3 also on
+    # the 12-limb G2 kernels on the BLS12-381 G2 path (K3 and K2 also on
     # BLS12-377's, nr = p - 5)
     path, w = "bls12_381 g2", 2 * WORDS12
     r = n12["k4e g2"]
@@ -1062,13 +1067,16 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     out[-1].update(sc, chain_ns_per_product=q["ms"] * 1e6
                    / sc["chain_products"],
                    own_latency_ms=sc["chain_products"] * lone12["eo"] * 1e-6)
-    r = n12["k2 g2"]
+    r, r377 = n12["k2 g2"], n12["k2 g2 bls12_377"]
     W, T, L, B = r["shape"]
     add("K2 g2 n12", path, "insert_n12.cu", "msm/pallas_insert3.py:74",
-        r["ms"], r["plain_ms"], [W, T, L, B], r["max_abs_err"],
+        r["ms"], r["plain_ms"], [W, T, L, B],
+        max(r["max_abs_err"], r377["max_abs_err"]),
         bound(4 * (W * T * L + 3 * w * T * L) + T * L + 3 * 4 * w * W * B * L,
               imads(FP_MULS["madd"][2] * r["madds"], n32=12), rates))
-    out[-1]["checked_windows"] = r["checked_windows"]
+    out[-1].update(checked_windows=r["checked_windows"],
+                   bls12_377_ms=r377["ms"],
+                   bls12_377_checked_windows=r377["checked_windows"])
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -1251,8 +1259,9 @@ def bls_g2_paths(rng, dev) -> dict:
     BLS12-377): K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's
     Fq2 at the path's 2^18 elements, K3's six ops at 2^21 and its scan at
     the path's (W, c) on BLS12-381, K3 and a small scan (SCAN_G2_377) on
-    BLS12-377, and K2 on BLS12-381 timed at the path's shape, its first
-    K2_N12_WINDOWS windows held to the plain insert; then each curve's G2
+    BLS12-377, and K2 on both timed at the path's shape, its first
+    K2_N12_WINDOWS (BLS12-381) and K2_G2_377_WINDOWS (BLS12-377) windows
+    held to the plain insert; then each curve's G2
     MSM at 2^18 points under default_config(n, G) against its oracle:
     one K2, K2 sort, scan and K4e inv launch, at least one K3, at most
     G2_N12_MOST K4e and K1e launches and no 8-limb kernel."""
@@ -1279,6 +1288,12 @@ def bls_g2_paths(rng, dev) -> dict:
                                     K2_N12_WINDOWS)
     del inputs
     emit({"phase": "K2 bls12_381 g2", **out["k2 g2"]})
+    dc377 = device_curve("bls12_377")
+    out["k2 g2 bls12_377"], inputs = phase_k2(
+        dc377, "g2", n, default_config(n, dc377.g2, dev), rng, dev,
+        K2_G2_377_WINDOWS)
+    del inputs
+    emit({"phase": "K2 bls12_377 g2", **out["k2 g2 bls12_377"]})
     for curve in CURVES12:
         dcc = device_curve(curve)
         cfg = default_config(n, dcc.g2, dev)
@@ -1324,8 +1339,9 @@ def main() -> int:
     # the redesigned K2 and K3 kernels' registers and spills (the K3 G1
     # kernels' names carry the field context, FpField<12, b3>, and the
     # op, 0-5 as in group_ops.cu)
-    # and the 12-limb G2 kernels' (Fp2Field, Fp2Pair; the scan's G2
-    # kernel is horner_g2_kernel)
+    # and the 12-limb G2 kernels' (Fp2Pair: K2's chains on pairs, K3 on
+    # pairs and its split kernel on quads; the scan's G2 kernel is
+    # horner_g2_kernel)
     redesigned = {name: [k for k in _build.ptxas_kernels(_build.build_dir()
                                                          / log)
                          if all(s in k["function"] for s in kernel)]
@@ -1338,7 +1354,7 @@ def main() -> int:
                       ("K3 scan g1 n12", "horner_n12.log",
                        ("horner_kernel",)),
                       ("K2 g2 n12", "insert_n12.log",
-                       ("chain_kernel", "Fp2Field")),
+                       ("chain_kernel", "Fp2Pair")),
                       ("K3 g2 n12", "group_ops_g2_n12.log",
                        ("group_op",)),
                       ("K3 g2 n12 nr5", "group_ops_g2_nr5_n12.log",

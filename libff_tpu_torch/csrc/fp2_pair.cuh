@@ -28,9 +28,11 @@
 // multiply-adds; per pair the same count as Karatsuba's three products.  The product by b3 takes nr b3.c1 as a constant made on
 // the host (the context's nb3, host_mul_nr).
 //
-// K3's G2 branch and the lane tree's CIOS G2 branch run on it.  K2's
-// chains keep fp2.cuh's one-thread layer through formulas.cuh, and so do
-// the lane tree's SOS and SOS2 G2 branches: this layer has CIOS rows only.
+// K3's G2 branch (at 12 limbs padd and pmadd on two pairs an element,
+// split_ops.cuh), the lane tree's CIOS G2 branch and K2's 12-limb G2
+// chains run on it.  K2's 8-limb G2 chains keep fp2.cuh's one-thread
+// layer through formulas.cuh, and so do the lane tree's SOS and SOS2 G2
+// branches: this layer has CIOS rows only.
 // The lane tree shuffles whole partials between pairs (kThreads * h lanes
 // down, so each thread meets its own coefficient) with the full warp's
 // mask; every product here shuffles within its pair alone.

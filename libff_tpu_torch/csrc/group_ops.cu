@@ -1,5 +1,6 @@
 // group_ops.cu -- kernel K3: one batched group formula, one thread per
-// element on G1, two per element on G2.
+// element on G1, two per element on G2 (at 12 limbs padd and pmadd two
+// on G1 and four on G2, split by products).
 //
 // Replaces libff_tpu/curves/pallas_ops.py:66 _op_kernel (entry point
 // group_op_pallas, :160), both branches: k = 1 (G1 over Fp, b3 = 9) and
@@ -36,11 +37,19 @@
 // products' carry chains.  A pair's lanes are adjacent, so a warp's limb
 // loads are two 64-byte runs, one a coefficient.
 //
-// G1 at 12 limbs runs padd and pmadd on two threads an element too, split
-// by products (g1_pair.cuh): the pair body, for the ops whose bit is set
-// in LFF_K3_PAIR_OPS_G1_N12; the others keep the one-thread body, which
-// ran them faster than a pair body on the card.
-//
+// At 12 limbs padd and pmadd run split by products (split_ops.cuh), for
+// the ops whose bit is set in LFF_K3_PAIR_OPS_G1_N12 (G1: two threads an
+// element, a value a thread) and LFF_K3_QUAD_OPS_G2_N12 (G2: four
+// threads an element, a value a pair).  On G2 a pair element's thread
+// keeps 12-word coefficients of both points and the formula's
+// temporaries in the whole 255 registers, so only 2 blocks of 128 fit an
+// SM (8 warps); the quad splits each level's Fq2 products between its
+// two pairs, each pair holding what its own products need, and runs
+// LFF_K3_MIN_BLOCKS_G2_N12_QUAD = 4 blocks an SM (128 registers, 16-112
+// bytes of spills; at 3, 168 registers, and at 5, 96, it ran 25% and
+// 50% slower on an H100, PERF.md).  The other ops keep the one-thread
+// (G1) or pair (G2) body.
+
 // padd reads its inputs where they lie: element e is row e / cols,
 // column e % cols, at row * rstride + column from each input's first
 // word, its limbs lstride apart (an Fq2 coefficient 8 limbs on), one
@@ -52,7 +61,7 @@
 // at 128 registers).  The outputs are flat.
 #include "formulas.cuh"
 #include "fp2_pair.cuh"
-#include "g1_pair.cuh"
+#include "split_ops.cuh"
 
 // __launch_bounds__'s blocks an SM for the G2 kernels (128 threads a
 // block): the projective ops (padd, pmadd, pdbl) and the Jacobian ones
@@ -74,6 +83,14 @@
 #endif
 #ifndef LFF_K3_MIN_BLOCKS_G1_N12
 #define LFF_K3_MIN_BLOCKS_G1_N12 0
+#endif
+// G2 at 12 limbs: the ops (bits as above) that run the quad body, and
+// its blocks an SM, chosen with tune_group_ops
+#ifndef LFF_K3_QUAD_OPS_G2_N12
+#define LFF_K3_QUAD_OPS_G2_N12 3
+#endif
+#ifndef LFF_K3_MIN_BLOCKS_G2_N12_QUAD
+#define LFF_K3_MIN_BLOCKS_G2_N12_QUAD 4
 #endif
 // the limb count of the library's field (8 unless a width's own source
 // sets it before including this file)
@@ -188,28 +205,33 @@ __global__ void LFF_K3_G1_BOUNDS
   group_op_body<F, OP, kRows>(A, f, e);
 }
 
-// G1's pair body (g1_pair.cuh): two threads an element, each storing half
-// of every output coordinate's limbs
+// the split body (split_ops.cuh): two halves of 2 F::kThreads threads an
+// element (G1 a pair, G2 a quad), each thread storing half of its
+// coefficient of every output coordinate's limbs
 template <class F, int OP, bool kRows>
-__global__ void __launch_bounds__(128, LFF_K3_MIN_BLOCKS_G1_N12_PAIR)
-    group_op_g1_pair_kernel(const __grid_constant__ OpArgs A, F f) {
-  constexpr int N = sizeof(typename F::E) / 4;
+__global__ void __launch_bounds__(128, F::kG1
+                                           ? LFF_K3_MIN_BLOCKS_G1_N12_PAIR
+                                           : LFF_K3_MIN_BLOCKS_G2_N12_QUAD)
+    group_op_split_kernel(const __grid_constant__ OpArgs A, F f) {
+  constexpr int N = sizeof(typename F::E) / 4;  // limbs a coefficient
+  constexpr int kGroup = 2 * F::kThreads;       // threads an element
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long e = t >> 1;
+  const long long e = t / kGroup;
   if (e >= A.n) return;
-  const bool c1 = (threadIdx.x & 1u) != 0;
+  const bool c1 = half_of<F>();
   const InputAt<F, kRows> ld(A, e);
   Pt<F> r;
   if constexpr (OP == kPadd) {
-    r = pair_add(f, c1, ld);
+    r = split_add(f, c1, ld);
   } else {
-    static_assert(OP == kPmadd, "the pair body runs padd and pmadd");
-    r = pair_madd(f, c1, ld);
+    static_assert(OP == kPmadd, "the split body runs padd and pmadd");
+    r = split_madd(f, c1, ld);
     if (A.mask[e] != 0) r = Pt<F>{ld(0), ld(1), ld(2)};
   }
-  // limb k0 + k by selects on fixed limbs: an index into r that varies
-  // by thread would put r in local memory
-  const int k0 = c1 ? N / 2 : 0;
+  // limb k0 + k of the thread's coefficient by selects on fixed limbs: an
+  // index into r that varies by thread would put r in local memory
+  const long long k0 =
+      (F::kThreads == 2 ? (threadIdx.x & 1u) * N : 0) + (c1 ? N / 2 : 0);
 #pragma unroll
   for (int k = 0; k < N / 2; k++) {
     const long long at = (k0 + k) * A.n + e;
@@ -240,19 +262,22 @@ __global__ void __launch_bounds__(128, (OP <= kPdbl ? LFF_K3_G2_PROJ
   group_op_body<F, OP, kRows>(A, f, e);
 }
 
-// whether op OP of field context F runs the pair body
+// whether op OP of field context F runs the split body: padd and pmadd
+// at 12 limbs, by the G1 and G2 bits
 template <class F, int OP>
-constexpr bool pair_body() {
-  return F::kG1 && sizeof(typename F::E) == 48 && OP <= kPmadd &&
-         ((LFF_K3_PAIR_OPS_G1_N12 >> OP) & 1);
+constexpr bool split_body() {
+  constexpr int ops = F::kG1 ? LFF_K3_PAIR_OPS_G1_N12
+                             : F::kThreads == 2 ? LFF_K3_QUAD_OPS_G2_N12 : 0;
+  return sizeof(typename F::E) == 48 && OP <= kPmadd && ((ops >> OP) & 1);
 }
 
 template <class F, int OP, bool kRows>
 void launch_one(const OpArgs& A, const F& f, cudaStream_t s) {
   constexpr int threads = 128;
-  if constexpr (pair_body<F, OP>()) {
-    const int blocks = (int)((2 * A.n + threads - 1) / threads);
-    group_op_g1_pair_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);
+  if constexpr (split_body<F, OP>()) {
+    const long long all = 2 * F::kThreads * A.n;
+    const int blocks = (int)((all + threads - 1) / threads);
+    group_op_split_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);
   } else if constexpr (F::kG1) {
     const int blocks = (int)((A.n + threads - 1) / threads);
     group_op_kernel<F, OP, kRows><<<blocks, threads, 0, s>>>(A, f);

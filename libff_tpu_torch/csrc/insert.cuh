@@ -116,13 +116,27 @@
 // at 3 blocks an SM it lost to registers; so the bucket stays in
 // registers.
 //
-// The G2 of BLS12-381 and BLS12-377 (insert_n12.cu, Fp2Field<12, NR> with
-// nr = -1 and -5) runs the same one-thread chain kernel with G2's
-// constants (kEntriesG2, kMinBlocksG2: S = 1 on its 2^18-point path, T =
-// 256): a bucket is 72 words and a point 48, more than a thread's 255
-// registers hold beside the Karatsuba temporaries, so it spills; its
-// registers and spills are in the smoke's build line.  Two threads a
-// chain (Fp2Pair) is ROADMAP's next design for K2's G2 chains.
+// The G2 of BLS12-381 and BLS12-377 (insert_n12.cu, nr = -1 and -5)
+// runs the chain kernel on two threads a chain, over fp2_pair.cuh's
+// Fp2Pair<12, NR>: thread c of a pair (adjacent lanes, chains' lanes next
+// fastest) holds coefficient c of the bucket and of the point, 36 + 24
+// words, close to the 12-limb G1 thread's load, and each Fq2 product is
+// redc_pair's two lazy sums, a pair's multiply-adds as many as
+// Karatsuba's three products (so the bound is unchanged).  Both threads
+// read the same list entry and walk the same list, so they never
+// diverge; each loads its own 12 words of a point record's coordinates
+// and stores its own 12 words of a bucket's lane-major coordinate (24
+// words, no pad), at the same step as its partner, so the pair's 96
+// bytes fill whole sectors.  Its constants are its own, chosen with
+// tune_insert.py on an H100: 3 blocks an SM (168 registers, 228 and 408
+// bytes of spills for nr = -1 and -5; at 2, 241-248 registers and no
+// spills, and at 4, 128 registers and 4 KB of spills, ran slower) and
+// kEntriesG2N12 = 86, so that the path's T = 256 steps take S = 3 pairs
+// a lane: 1536 blocks, 3.9 waves of 3 x 132 (S = 1, 2 and 4 ran 11-37%
+// slower).  On one thread a chain (Fp2Field<12, NR>) a 72-word bucket
+// and a 48-word point beside the Karatsuba temporaries took 255
+// registers and spilled 680 and 952 bytes on the inner loop, and ran
+// 2.5 times as long (PERF.md).
 //
 // The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
 // totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
@@ -180,6 +194,12 @@ namespace lff {
 #ifndef LFF_MIN_BLOCKS_G1_N12
 #define LFF_MIN_BLOCKS_G1_N12 3
 #endif
+#ifndef LFF_ENTRIES_G2_N12
+#define LFF_ENTRIES_G2_N12 86
+#endif
+#ifndef LFF_MIN_BLOCKS_G2_N12
+#define LFF_MIN_BLOCKS_G2_N12 3
+#endif
 
 // The sort: the steps of a lane that a block holds in shared memory, its
 // warps, the lanes it owns (one 128-byte line of digits), the buckets a
@@ -192,14 +212,17 @@ constexpr int kSortBins = 256;
 constexpr int kSortBatch = 16;
 static_assert(kSortTile > 0 && kSortTile % 32 == 0, "whole groups of 32");
 constexpr int kChainThreads = 128;
-// list entries a chain thread walks: G1 at 8 and at 12 limbs, G2
+// list entries a chain thread walks (on the 12-limb G2 a pair of
+// threads): G1 and G2, each at 8 and at 12 limbs
 constexpr int kEntriesG1 = LFF_ENTRIES_G1;
 constexpr int kEntriesG1N12 = LFF_ENTRIES_G1_N12;
 constexpr int kEntriesG2 = LFF_ENTRIES_G2;
+constexpr int kEntriesG2N12 = LFF_ENTRIES_G2_N12;
 // __launch_bounds__'s blocks an SM
 constexpr int kMinBlocksG1 = LFF_MIN_BLOCKS_G1;
 constexpr int kMinBlocksG1N12 = LFF_MIN_BLOCKS_G1_N12;
 constexpr int kMinBlocksG2 = LFF_MIN_BLOCKS_G2;
+constexpr int kMinBlocksG2N12 = LFF_MIN_BLOCKS_G2_N12;
 constexpr int kLayoutThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -458,15 +481,25 @@ __device__ __forceinline__ void store_lane(uint32_t* p, const E& a) {
     ((uint4*)p)[q] = make_uint4(0, 0, 0, 0);
 }
 
-// The chain kernel's share of a lane and occupancy target by branch.
+// The chain kernel's shape by branch: the threads of a chain (1, or 2
+// on fp2_pair.cuh's Fp2Pair, a coefficient a thread), the words of an
+// element (all its threads') and of one coordinate in the lane-major
+// arrays, the share of a lane and the occupancy target.
 template <class F>
 struct ChainShape {
+  static constexpr int kThreads = F::kThreads;
+  static constexpr int kPart = sizeof(typename F::E) / sizeof(uint32_t);
+  static constexpr int kWords = kThreads * kPart;
+  static constexpr int kLaneWords = (kWords + 7) / 8 * 8;
   static constexpr bool kG1 = F::kG1;
-  static constexpr bool kN12 = kG1 && sizeof(typename F::E) == 48;
-  static constexpr int kEntries =
-      kN12 ? kEntriesG1N12 : kG1 ? kEntriesG1 : kEntriesG2;
+  static constexpr bool kN12 = kWords / (kG1 ? 1 : 2) == 12;  // limbs
+  static constexpr int kEntries = kG1 ? (kN12 ? kEntriesG1N12 : kEntriesG1)
+                                      : (kN12 ? kEntriesG2N12 : kEntriesG2);
   static constexpr int kMinBlocks =
-      kN12 ? kMinBlocksG1N12 : kG1 ? kMinBlocksG1 : kMinBlocksG2;
+      kG1 ? (kN12 ? kMinBlocksG1N12 : kMinBlocksG1)
+          : (kN12 ? kMinBlocksG2N12 : kMinBlocksG2);
+  // a pair's two parts fill whole sectors together: no pad to zero
+  static_assert(kThreads == 1 || kWords == kLaneWords, "whole sectors");
 };
 
 // Threads per (w, l) for T steps.
@@ -498,9 +531,15 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
                  uint32_t* by, uint32_t* bz, int W, int T, int L, int B,
                  F f) {
   using E = typename F::E;
-  constexpr int K = sizeof(E) / sizeof(uint32_t);
+  using Shape = ChainShape<F>;
+  constexpr int K = Shape::kWords;
   const int S = chain_threads<F>(T);
-  const long long gid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  // a chain's threads are adjacent lanes (both walk the same list, so
+  // they never diverge); thread c holds coefficient c, words c kPart on
+  const long long gid =
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) / Shape::kThreads;
+  const int part = Shape::kThreads == 2 ? (threadIdx.x & 1) * Shape::kPart
+                                        : 0;
   if (gid >= (long long)W * S * L) return;
   const int l = (int)(gid % L);
   const int s = (int)(gid / L % S);
@@ -523,10 +562,16 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
     Pt<F> acc{z, one, z};
     for (;;) {
       while (i == next) {  // bucket b's list has ended: store it once
-        const size_t e = (row * B + b) * lane_words<E>();  // whole sectors
-        store_lane(bx + e, acc.x);
-        store_lane(by + e, acc.y);
-        store_lane(bz + e, acc.z);
+        const size_t e = (row * B + b) * Shape::kLaneWords;  // sectors
+        if constexpr (Shape::kThreads == 1) {
+          store_lane(bx + e, acc.x);
+          store_lane(by + e, acc.y);
+          store_lane(bz + e, acc.z);
+        } else {  // the pair stores at the same step
+          store_words(bx + e + part, acc.x);
+          store_words(by + e + part, acc.y);
+          store_words(bz + e + part, acc.z);
+        }
         if (++b == b1) break;
         next = o[b + 1];
         acc = Pt<F>{z, one, z};
@@ -536,8 +581,8 @@ __global__ void __launch_bounds__(kChainThreads, ChainShape<F>::kMinBlocks)
       i++;
       const uint32_t* q = rec + ((size_t)(en >> 1) * L + l) * (3 * K);
       E qx, qy;
-      load_words(q, qx);
-      load_words(q + (1 + (en & 1)) * K, qy);
+      load_words(q + part, qx);
+      load_words(q + (1 + (en & 1)) * K + part, qy);
       acc = rcb_madd(f, acc, qx, qy);
     }
   }
@@ -576,8 +621,9 @@ template <class F>
 int chain_launch(const void* off, const void* ent, int wide, const void* rec,
                  void* const* lane, void* bx, void* by, void* bz, int W,
                  int T, int L, int B, const F& f, cudaStream_t s) {
-  constexpr int K = sizeof(typename F::E) / sizeof(uint32_t);
-  const long long threads = (long long)W * chain_threads<F>(T) * L;
+  using Shape = ChainShape<F>;
+  const long long threads =
+      (long long)W * chain_threads<F>(T) * L * Shape::kThreads;
   const long long blocks = (threads + kChainThreads - 1) / kChainThreads;
   chain_kernel<F><<<(unsigned)blocks, kChainThreads, 0, s>>>(
       (const int32_t*)off, ent, wide, (const uint32_t*)rec,
@@ -586,7 +632,7 @@ int chain_launch(const void* off, const void* ent, int wide, const void* rec,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || bx == nullptr) return (int)err;
   const dim3 grid((unsigned)((long long)W * B), (unsigned)((L + 31) / 32), 3);
-  limb_major_kernel<K, lane_words<typename F::E>()>
+  limb_major_kernel<Shape::kWords, Shape::kLaneWords>
       <<<grid, kLayoutThreads, 0, s>>>(
       (const uint32_t*)lane[0], (const uint32_t*)lane[1],
       (const uint32_t*)lane[2], (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,

@@ -7,8 +7,9 @@
 // chain_kernel over FpField<12, b3> (G1: a bucket is 36 words, 48 in the
 // lane-major arrays, each coordinate padded to whole sectors, a point
 // record 36, with the 12-limb kEntries and blocks an SM) or over
-// Fp2Field<12, NR> (G2: a bucket 72 words, a point record 72, with G2's
-// kEntries and blocks an SM).
+// fp2_pair.cuh's Fp2Pair<12, NR> (G2: two threads a chain, each holding
+// one coefficient of the 72-word bucket and of the point, with the
+// 12-limb G2 kEntries and blocks an SM).
 // K2's sort (insert.cu bucket_lists) does not depend on the width and is
 // launched from insert.cu's library.
 #include "insert.cuh"
@@ -35,12 +36,11 @@ extern "C" int insert(int kmul, const void* off, const void* ent, int wide,
   const lff::FieldParams<12> P = lff::field_params<12>(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
   if (g2) {
-    const lff::Fe2<12> c = lff::fe2_from<12>(b3_mont);
     if (b3 == -1)
       return lff::chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L,
-                               B, lff::Fp2Field<12, -1>{P, c}, s);
+                               B, lff::fp2_pair<12, -1>(P, b3_mont), s);
     return lff::chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L,
-                             B, lff::Fp2Field<12, -5>{P, c}, s);
+                             B, lff::fp2_pair<12, -5>(P, b3_mont), s);
   }
   if (b3 == 12)
     return lff::chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L,

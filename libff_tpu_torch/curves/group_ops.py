@@ -45,7 +45,8 @@ G1_B3 = {8: (9,), 12: (12, 3)}
 # op -> (its code in csrc/group_ops.cu, coordinate inputs, masks)
 OPS = {"padd": (0, 6, 0), "pmadd": (1, 5, 1), "pdbl": (2, 3, 0),
        "add": (3, 6, 0), "madd": (4, 5, 1), "dbl": (5, 3, 0)}
-# the ops with a G1 pair body (csrc/g1_pair.cuh)
+# the ops with a split body at 12 limbs (csrc/split_ops.cuh: the G1 pair,
+# the G2 quad)
 PAIR_OPS = ("padd", "pmadd")
 _ARGS = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_longlong, _build.VP,
@@ -246,22 +247,27 @@ def group_op_pair_plain(G, op: str, coords, masks=()):
     return _group_op_over(G, PairField2(F.plain.B, F.nr), op, coords, masks)
 
 
-def group_op_g1_pair_plain(G, op: str, coords, masks=()):
-    """K3's G1 pair body (csrc/g1_pair.cuh: padd and pmadd on two threads
-    an element, split by products) as the kernel schedules it, on
-    any device: each value a tensor with a trailing axis of the pair's
-    two threads, each step the kernel's, selects by thread as `pick`,
-    shuffles as flips of that axis; the outputs are the values both
-    threads end with, each checked to agree.  Gives group_op_plain's
-    bits."""
+def group_op_split_plain(G, op: str, coords, masks=()):
+    """K3's split body (csrc/split_ops.cuh: padd and pmadd at 12 limbs,
+    each level's products split between two halves of an element's
+    threads) as the kernel schedules it, on any device: the G1 pair (a
+    value a thread, over the plain field) or the G2 quad (a value a pair,
+    over :class:`PairField2`, each Fq2 product as the pair's lazy sums).
+    Each value is a tensor with a trailing axis of the two halves, each
+    step the kernel's, selects by half as `pick`, swaps between the halves
+    as flips of that axis; the outputs are the values both halves end
+    with, each checked to agree.  Gives group_op_plain's bits."""
     coords, masks = list(coords), list(masks)
     _check(G, op, coords, masks)
-    if G.F.el_ndim != 1 or op not in PAIR_OPS:
+    nd = G.F.el_ndim
+    if op not in PAIR_OPS or (nd == 2 and kernel_nr(G.F) is None):
         raise NotImplementedError(
-            f"the G1 pair body runs {PAIR_OPS} over Fp, not {op} on {G.name}")
-    F, b3 = G.F.plain, G._b3_host
+            f"the split body runs {PAIR_OPS} over Fp and over the G2 "
+            f"branches' Fq2, not {op} on {G.name}")
+    F = G.F.plain if nd == 1 else PairField2(G.F.plain.B, G.F.nr)
+    b3, ax = G._b3_host, nd - 1
     c1 = torch.tensor([False, True], device=coords[0].device)
-    cs = [to16(c) for c in coords]
+    cs = [to16(c, ax) for c in coords]
 
     def ld(i0, i1=None):
         return torch.stack([cs[i0], cs[i0 if i1 is None else i1]], -1)
@@ -310,12 +316,12 @@ def group_op_g1_pair_plain(G, op: str, coords, masks=()):
         tn = add(dbl(m1), m1)
         tno, zso = swap(tn), swap(zs)
         out = level2(pick(w, zs), pick(q0, bz), pick(zs, tno), pick(tn, zso))
-        q_inf = masks[0][None, ..., None]
+        q_inf = masks[0][(None,) * nd + (..., None)]
         out = [torch.where(q_inf, p, r) for p, r in zip((x1, y1, z1), out)]
     for v in out:
         if not torch.equal(v[..., 0], v[..., 1]):
-            raise ArithmeticError("the pair's threads end with other values")
-    return [to32(v[..., 0]) for v in out]
+            raise ArithmeticError("the halves end with other values")
+    return [to32(v[..., 0], ax) for v in out]
 
 
 def _group_op_over(G, F, op: str, coords, masks):

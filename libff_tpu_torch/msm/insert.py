@@ -44,8 +44,9 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import kernel_branch, width_only_8
+from ..curves.group_ops import PairField2, kernel_branch, width_only_8
 from ..fields.fp import KMULS, check_kmul, to16, to32
+from ..fields.tower import kernel_nr
 from .merge import far_scratch, merge_lanes_plain
 
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
@@ -349,7 +350,8 @@ def insert_plain(G, d: torch.Tensor, pts, B: int,
 
 
 def insert_from_lists_plain(G, lists, pts, B: int, entries: int,
-                            kmul: str = "cios") -> ProjectivePoint:
+                            kmul: str = "cios",
+                            pair: bool = False) -> ProjectivePoint:
     """K2's chain walk as plain torch ops: the raw buckets (*el, W, B, L)
     from the sort's lists (off, ent) and the points, walked as the chain
     kernel walks them with `entries` (its kEntries) list entries a
@@ -358,9 +360,18 @@ def insert_from_lists_plain(G, lists, pts, B: int, entries: int,
     the lane's list, and takes one entry a step: an accumulator that
     starts at the identity takes the madd of each entry and is stored when
     the entry's bucket changes.  Vectorised over the threads, one step at
-    a time."""
+    a time.  `pair`: the 12-limb G2 chain kernel, whose "thread" is a
+    pair (fp2_pair.cuh's Fp2Pair, a coefficient a thread), each Fq2
+    product as the pair's lazy sums (:class:`PairField2`, which raises
+    where a sum breaks its bound)."""
     check_kmul(kmul)
-    F = G.F.plain.with_kmul(kmul)
+    if pair:
+        if G.F.el_ndim != 2 or kernel_nr(G.F) is None or kmul != "cios":
+            raise NotImplementedError(
+                "the pair chains run CIOS over the G2 branches' Fq2")
+        F = PairField2(G.F.plain.B, G.F.nr)
+    else:
+        F = G.F.plain.with_kmul(kmul)
     ax = G.F.el_ndim - 1                                # the limb axis
     off, ent = lists
     W, L, T = ent.shape

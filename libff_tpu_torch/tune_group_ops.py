@@ -13,9 +13,12 @@ LFF_K3_PAIR_OPS_G1_N12: the 12-limb G1 ops that run the pair body
 (bit 0 padd, bit 1 pmadd; 0 runs every op on the one-thread body);
 LFF_K3_MIN_BLOCKS_G1_N12_PAIR and LFF_K3_MIN_BLOCKS_G1_N12: the pair
 body's and the one-thread body's blocks an SM at 12 limbs (0: no
-minimum).  A variant rebuilds only the sources its macros touch
-(``MACRO_STEMS``); the scans (``csrc/horner.cu``, ``horner_n12.cu``)
-are the package build's in every variant.  With no argument the
+minimum); LFF_K3_QUAD_OPS_G2_N12 and LFF_K3_MIN_BLOCKS_G2_N12_QUAD: the
+12-limb G2 ops that run the quad body (bits as for G1; 0 runs them on
+the pair body) and its blocks an SM.  A variant rebuilds only the
+sources its macros touch (``MACRO_STEMS``); the scans
+(``csrc/horner.cu``, ``horner_n12.cu``) are the package build's in
+every variant.  With no argument the
 variants are DEFAULT_VARIANTS.  ``--against DIR`` adds the K3 sources of
 another checkout at DIR (``git archive`` of an earlier commit into ``_tree/``),
 built from its own sources; a checkout whose group_ops.cu has no
@@ -54,16 +57,21 @@ MACRO_STEMS = {"LFF_K3_MIN_BLOCKS_G2_PROJ": ("group_ops",),
                "LFF_K3_MIN_BLOCKS_G2_JAC": ("group_ops",),
                "LFF_K3_PAIR_OPS_G1_N12": ("group_ops_n12",),
                "LFF_K3_MIN_BLOCKS_G1_N12_PAIR": ("group_ops_n12",),
-               "LFF_K3_MIN_BLOCKS_G1_N12": ("group_ops_n12",)}
+               "LFF_K3_MIN_BLOCKS_G1_N12": ("group_ops_n12",),
+               "LFF_K3_QUAD_OPS_G2_N12": ("group_ops_g2_n12",
+                                          "group_ops_g2_nr5_n12"),
+               "LFF_K3_MIN_BLOCKS_G2_N12_QUAD": ("group_ops_g2_n12",
+                                                 "group_ops_g2_nr5_n12")}
 TUNABLES = tuple(MACRO_STEMS)
-# every 12-limb op on the one-thread body (the design before the pair) with no
-# minimum of blocks an SM and at 2 and 4, the pair body at 3 and 5
+# every 12-limb G1 op on the one-thread body (the design before the
+# pair), the G1 pair body at 3 blocks an SM; every 12-limb G2 op on the
+# pair body (the design before the quad), the quad body at 3 and 5
 DEFAULT_VARIANTS = [
     {"LFF_K3_PAIR_OPS_G1_N12": 0},
-    {"LFF_K3_PAIR_OPS_G1_N12": 0, "LFF_K3_MIN_BLOCKS_G1_N12": 2},
-    {"LFF_K3_PAIR_OPS_G1_N12": 0, "LFF_K3_MIN_BLOCKS_G1_N12": 4},
     {"LFF_K3_MIN_BLOCKS_G1_N12_PAIR": 3},
-    {"LFF_K3_MIN_BLOCKS_G1_N12_PAIR": 5}]
+    {"LFF_K3_QUAD_OPS_G2_N12": 0},
+    {"LFF_K3_MIN_BLOCKS_G2_N12_QUAD": 3},
+    {"LFF_K3_MIN_BLOCKS_G2_N12_QUAD": 5}]
 GROUPS = (("alt_bn128", "g1"), ("alt_bn128", "g2"), ("bls12_381", "g1"),
           ("bls12_377", "g1"), ("bls12_381", "g2"), ("bls12_377", "g2"))
 N = 1 << 21

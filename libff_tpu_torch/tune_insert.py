@@ -5,16 +5,18 @@
 
 Each argument is one variant: macros of ``csrc/insert.cuh`` (``TUNABLES``)
 set to other values, such as ``LFF_ENTRIES_G1_N12=512,
-LFF_MIN_BLOCKS_G1_N12=4``.  LFF_ENTRIES_G1, LFF_ENTRIES_G2 and
-LFF_ENTRIES_G1_N12: the list entries a chain thread walks on G1 at 8 and
-at 12 limbs and on G2; LFF_MIN_BLOCKS_G1, LFF_MIN_BLOCKS_G2 and
-LFF_MIN_BLOCKS_G1_N12: ``__launch_bounds__``'s blocks an SM;
+LFF_MIN_BLOCKS_G1_N12=4``.  LFF_ENTRIES_G1, LFF_ENTRIES_G2,
+LFF_ENTRIES_G1_N12 and LFF_ENTRIES_G2_N12: the list entries a chain
+thread (on the 12-limb G2, a pair of threads) walks on G1 and G2 at 8
+and at 12 limbs; LFF_MIN_BLOCKS_G1, LFF_MIN_BLOCKS_G2,
+LFF_MIN_BLOCKS_G1_N12 and LFF_MIN_BLOCKS_G2_N12: ``__launch_bounds__``'s
+blocks an SM;
 LFF_SORT_TILE: the steps of a lane the sort holds in shared memory;
 LFF_SORT_WARPS: the sort's warps a block, which share its 32 lanes.  A
 variant builds both K2 sources, ``insert.cu`` (8 limbs, and the sort) and
 ``insert_n12.cu`` (12 limbs).  With no argument the variants are
-DEFAULT_VARIANTS.  On the insert inputs of the three G1 paths and the G2
-path (alt_bn128 G1 and BLS12-381 G1 at 2^20 points, alt_bn128 G2 at 2^18,
+DEFAULT_VARIANTS.  On the insert inputs of four paths (alt_bn128 G1 and
+BLS12-381 G1 at 2^20 points, alt_bn128 G2 and BLS12-381 G2 at 2^18,
 ``default_config``: c = 8, 1024 lanes) it times ``insert`` (the sort,
 the point records and the chain kernel), the sort alone and the point
 records, on the path's digits, on even digits (step t of window w in
@@ -42,15 +44,18 @@ from .timing import event_ms
 STEMS = ("insert", "insert_n12")
 TUNABLES = ("LFF_ENTRIES_G1", "LFF_ENTRIES_G2", "LFF_MIN_BLOCKS_G1",
             "LFF_MIN_BLOCKS_G2", "LFF_ENTRIES_G1_N12",
-            "LFF_MIN_BLOCKS_G1_N12", "LFF_SORT_TILE", "LFF_SORT_WARPS")
-# the 12-limb chain kernel at 4 and 2 blocks an SM, each with a share of
-# a lane that fills whole waves at the path's shape; the sort at 8 warps
-# a block
+            "LFF_MIN_BLOCKS_G1_N12", "LFF_ENTRIES_G2_N12",
+            "LFF_MIN_BLOCKS_G2_N12", "LFF_SORT_TILE", "LFF_SORT_WARPS")
+# the 12-limb G1 chain kernel at 4 blocks an SM with a share of a lane
+# that fills whole waves at the path's shape; the 12-limb G2 pair chains
+# at 2 blocks an SM (no spills) and at 2 pairs a lane (S = 2 at T = 256);
+# the sort at 8 warps a block
 DEFAULT_VARIANTS = [{"LFF_MIN_BLOCKS_G1_N12": 4, "LFF_ENTRIES_G1_N12": 512},
-                    {"LFF_MIN_BLOCKS_G1_N12": 2, "LFF_ENTRIES_G1_N12": 256},
+                    {"LFF_MIN_BLOCKS_G2_N12": 2},
+                    {"LFF_ENTRIES_G2_N12": 128},
                     {"LFF_SORT_WARPS": 8}]
 PATHS = (("alt_bn128", "g1", 20), ("alt_bn128", "g2", 18),
-         ("bls12_381", "g1", 20))
+         ("bls12_381", "g1", 20), ("bls12_381", "g2", 18))
 REPS = 5
 
 

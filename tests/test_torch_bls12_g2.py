@@ -16,12 +16,16 @@ repository root writes it again).  No JAX program is compiled here.
 - K3's padd, pmadd, pdbl, add, madd and dbl on lanes with P = 0, Q = 0,
   Q = P (scaled), Q = -P and Q at infinity, also as the card's pair
   schedule computes them (``group_op_pair_plain``, each product's lazy
-  sum held to its bound);
+  sum held to its bound), and padd and pmadd as its quad body does
+  (``group_op_split_plain``: each level's Fq2 products split between two
+  pairs);
 - the scan (Horner's phase) at W = 4, c = 2;
 - the signed Pippenger G2 MSM at n = 33 with MsmConfig(c=4, lanes=8):
   its affine point equal to the golden's and to the host oracle
-  ``E.msm``; and ``workload.msm_case``'s structured oracle against
-  ``E.msm`` at 16 points;
+  ``E.msm``, and its insert's first two windows walked as the card's
+  pair chains (K2 on two threads a chain) against ``insert_plain``;
+  and ``workload.msm_case``'s structured oracle against ``E.msm`` at 16
+  points;
 - ``convert``'s round trip of 12-limb Fq2 arrays, (2, 24, n) 16-bit <->
   (2, 12, n) 32-bit, on the JAX package's own arrays;
 - the kernels' branch for each G2 and the non-residues they are built
@@ -42,10 +46,14 @@ import torch
 from libff_tpu_torch import convert, workload
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group import AffinePoint, JacobianPoint
-from libff_tpu_torch.curves.group_ops import (group_op, group_op_pair_plain,
+from libff_tpu_torch.curves.group_ops import (PAIR_OPS, group_op,
+                                              group_op_pair_plain,
+                                              group_op_split_plain,
                                               horner_scan, kernel_branch)
 from libff_tpu_torch.fields.tower import FQ2_NRS, ExtField, kernel_nr
 from libff_tpu_torch.host import field as hf
+from libff_tpu_torch.msm.insert import (bucket_lists_plain,
+                                        insert_from_lists_plain, insert_plain)
 from libff_tpu_torch.msm.pippenger import MsmConfig, msm_pippenger
 
 torch.set_num_threads(1)
@@ -147,8 +155,9 @@ def test_fq2_ops_match_jax(golden, curve):
 
 @pytest.mark.parametrize("curve", CURVES)
 def test_group_ops_and_scan_match_jax(golden, curve):
-    """K3's six G2 ops (plain, and on the card's pair schedule) on every
-    lane; then the scan at W = 4, c = 2."""
+    """K3's six G2 ops (plain, and on the card's pair schedule; padd and
+    pmadd also on its quad schedule) on every lane; then the scan at W =
+    4, c = 2."""
     g = golden[curve]
     G = device_curve(curve).g2
     P = [_field(G.F, c) for c in g["P"]]
@@ -162,6 +171,9 @@ def test_group_ops_and_scan_match_jax(golden, curve):
         assert _host(G.F, group_op(G, op, coords, masks)) == g["ops"][op], op
         assert _host(G.F, group_op_pair_plain(G, op, coords, masks)) == \
             g["ops"][op], op
+        if op in PAIR_OPS:
+            assert _host(G.F, group_op_split_plain(G, op, coords, masks)) \
+                == g["ops"][op], op
     T = [_field(G.F, c) for c in g["scan"]]
     got = horner_scan(G, T, 2)
     assert [list(G.F.to_host(a)) for a in got] == g["scan_sum"]
@@ -170,8 +182,11 @@ def test_group_ops_and_scan_match_jax(golden, curve):
 @pytest.mark.parametrize("curve", CURVES)
 def test_msm_matches_jax_and_the_host_oracle(golden, curve):
     """The signed G2 MSM at n = 33, MsmConfig(c=4, lanes=8), with the
-    curve's Fr bits: the JAX package's affine point and the host
-    oracle."""
+    curve's Fr bits: the JAX package's affine point and the host oracle.
+    Its insert's first two windows (T = 5 steps, 8 lanes) also walked as
+    the card's pair chains (``insert_from_lists_plain(pair=True)``: each
+    Fq2 product as a pair's lazy sums) with 2 entries a thread, so 3
+    threads a lane: insert_plain's raw buckets."""
     g = golden[curve]["msm"]
     dc = device_curve(curve)
     cd, G = dc.cd, dc.g2
@@ -179,8 +194,16 @@ def test_msm_matches_jax_and_the_host_oracle(golden, curve):
     A = AffinePoint(G.F.from_host_batch([q[0] for q in pts], "cpu"),
                     G.F.from_host_batch([q[1] for q in pts], "cpu"),
                     torch.zeros(MSM_N, dtype=torch.bool))
-    out = msm_pippenger(G, dc.fr.plain_from_ints(ks, "cpu"), A,
-                        cd.fr.mp.bits, config=MsmConfig(c=4, lanes=8))
+    scalars = dc.fr.plain_from_ints(ks, "cpu")
+    d, ipts, B = workload.insert_inputs(G, scalars, A,
+                                        MsmConfig(c=4, lanes=8))
+    d = d[:2].contiguous()
+    got = insert_from_lists_plain(G, bucket_lists_plain(d, ipts[3], B), ipts,
+                                  B, 2, pair=True)
+    for a, b in zip(got, insert_plain(G, d, ipts, B)):
+        assert torch.equal(a, b)
+    out = msm_pippenger(G, scalars, A, cd.fr.mp.bits,
+                        config=MsmConfig(c=4, lanes=8))
     Aff = G.to_affine(out)
     got = (G.F.to_host(Aff.x), G.F.to_host(Aff.y))
     assert [list(v) for v in got] == g["affine"]

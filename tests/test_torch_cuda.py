@@ -849,6 +849,27 @@ def test_k2_n12_matches_plain_with_several_chain_threads(dev, dc12, curve):
 
 
 @pytest.mark.parametrize("curve", CURVES12)
+def test_k2_g2_n12_matches_plain_with_several_chain_threads(dev, dc12,
+                                                            curve):
+    """K2 over 12-limb Fq2 (a chain thread on a pair of threads) at T =
+    200 steps of 16 lanes (3 chain threads a lane at the default 86
+    entries), 3 windows: 144 pairs, so the last block of 128 threads is a
+    quarter full; on distinct points and on chip_smoke.skewed's
+    digits."""
+    dc = dc12[curve]
+    d, pts, B = chip_smoke.k2_inputs(dc, "g2", 200 * 16,
+                                     MsmConfig(c=8, lanes=16),
+                                     np.random.default_rng(79), dev)
+    d = d[:3].contiguous()
+    for dd, pp in ((d, pts), chip_smoke.skewed(d, pts, B)):
+        before = _build.LAUNCHES["K2 g2 n12"]
+        got = insert(dc.g2, dd, pp, B)
+        assert _build.LAUNCHES["K2 g2 n12"] == before + 1
+        for g, w in zip(got, insert_plain(dc.g2, dd, pp, B)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
 def test_msm_n12_matches_oracle(dev, dc12, curve):
     """The 12-limb G1 MSM through default_config(n, G): the oracle's
     point, one scan and one inverse launch, every 12-limb kernel launched
@@ -908,12 +929,12 @@ def test_k4e_inv_n12_matches_plain(dev, dc12, curve, n):
 
 @pytest.mark.parametrize("curve", CURVES12)
 @pytest.mark.parametrize("op", sorted(OPS))
-@pytest.mark.parametrize("n", [1, 129, 3000])
+@pytest.mark.parametrize("n", [1, 2, 35, 129, 3000])
 def test_k3_g2_n12_matches_plain(dev, dc12, curve, op, n):
-    """K3's G2 branch over 12-limb Fq2 (two threads an element; nr = -1
-    and -5) with the edge lanes of chip_smoke.k3_inputs where n holds
-    them: one element, a ragged last block (64 elements a block) and
-    3000."""
+    """K3's G2 branch over 12-limb Fq2 (two threads an element, padd and
+    pmadd four; nr = -1 and -5) with the edge lanes of
+    chip_smoke.k3_inputs where n holds them: one element, ragged last
+    blocks (64 elements a block on pairs, 32 on quads) and 3000."""
     G = dc12[curve].g2
     c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000,
                                         np.random.default_rng(82), dev)

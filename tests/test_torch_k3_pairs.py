@@ -1,7 +1,7 @@
 """K3's 12-limb redesigns on the CPU: the G1 pair schedule, the scan's
 two-accumulator product and the lane halving's in-place reads.
 
-- ``group_op_g1_pair_plain`` (csrc/g1_pair.cuh's schedule of padd and
+- ``group_op_split_plain`` (csrc/split_ops.cuh's schedule of padd and
   pmadd on two threads an element, step by step) against
   ``group_op_plain`` on the toy curve of tests/test_pallas_interpret.py
   (p = 65539, b = 11, b3 = 33: the addition chain of a b3 that is
@@ -32,7 +32,7 @@ import torch
 from libff_tpu_torch.curves.curvedef import GroupDef
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group import Group
-from libff_tpu_torch.curves.group_ops import (PAIR_OPS, group_op_g1_pair_plain,
+from libff_tpu_torch.curves.group_ops import (PAIR_OPS, group_op_split_plain,
                                               group_op_plain, input_layout,
                                               kernel_reads)
 from libff_tpu_torch.fields.fp import PrimeField
@@ -95,7 +95,7 @@ def _toy_inputs(G, n, rng):
 @pytest.mark.parametrize("op", PAIR_OPS)
 def test_g1_pair_schedule_matches_plain(toy, op):
     coords, masks = _toy_inputs(toy, 1200, np.random.default_rng(81))[op]
-    for g, w in zip(group_op_g1_pair_plain(toy, op, coords, masks),
+    for g, w in zip(group_op_split_plain(toy, op, coords, masks),
                     group_op_plain(toy, op, coords, masks)):
         assert torch.equal(g, w)
 
@@ -110,7 +110,7 @@ def test_g1_pair_schedule_matches_jax_golden_at_12_limbs(curve):
     inf = torch.tensor(g["A"][2])
     args = {"padd": (P + Q, ()), "pmadd": (P + A, (inf,))}
     for op, (coords, masks) in args.items():
-        got = group_op_g1_pair_plain(G, op, coords, masks)
+        got = group_op_split_plain(G, op, coords, masks)
         assert [G.F.to_ints(c) for c in got] == g["ops"][op], op
 
 
