@@ -35,24 +35,30 @@ and runs these paths through ``msm_pippenger``:
 - the G1 MSMs of BLS12-381 and BLS12-377 at 2^20 points over 12-limb Fp,
   their scalars of 255 and 253 bits, held against the same structured
   oracle with each curve's generator, with default_config(n, G) (the
-  12-limb K1e, K1e inv, K2 and K3 with its scan).  Before them the
+  12-limb K1e, K1e inv, K2 and K3 with its scan) and with every setting
+  of MSM_VARIANTS, as on alt_bn128 (the 12-limb K5, K2m, K6 and K2, K2m
+  and K5 over the SOS products).  Before them the
   12-limb kernels are held bit for bit against their plain versions on
   the inputs they are timed on: K1e and K1e inv on BLS12-381's Fq at one
   element and 2^20, K3's six ops at 2^21 and its scan at the path's
   (W, c) on BLS12-381 and on BLS12-377 (its b3 = 3 instantiation), and
-  K2 on BLS12-381 timed at the path's
-  shape, the first K2_N12_WINDOWS windows of its timed output held
-  against the plain insert on those windows (at 12 limbs the plain
-  insert takes minutes at all 32);
+  K2 on both timed at the path's
+  shape, the first K2_N12_WINDOWS windows of BLS12-381's timed output
+  held against the plain insert on those windows (at 12 limbs the plain
+  insert takes about a minute, its steps one after another; BLS12-377's
+  G1 K2 is held to the oracle through its MSMs); then K5, K2m, K6 and the
+  SOS branches of K2, K2m and K5 at the path's shape on both curves
+  (``phase_merge``: K5 and K2m against merge_lanes_plain of K2's raw
+  buckets, K6 and the SOS K2 against those buckets);
 - the G2 MSMs of BLS12-381 and BLS12-377 at 2^18 points over 12-limb
   Fq2 (nr = p - 1 and p - 5), held against the same structured oracle
   with each curve's G2 generator, with default_config(n, G) (the
-  12-limb K1e, K4e, K4e inv, K2 and K3 with its scan).  Before them
+  12-limb K1e, K4e, K4e inv, K2 and K3 with its scan) and with every
+  setting of MSM_VARIANTS.  Before them
   K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's Fq2 at one
   element and 2^18, K3's six G2 ops at 2^21 and its scan at the path's
-  (W, c) on BLS12-381, K3 and a small scan on BLS12-377, and K2 on
-  BLS12-381 as for G1 and on BLS12-377 (its first K2_G2_377_WINDOWS
-  windows checked), each held bit for bit against its plain version on
+  (W, c) on both curves, K2 on both as for G1, and the merges as for G1,
+  each held bit for bit against its plain version on
   the inputs it is timed on.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
@@ -75,8 +81,10 @@ time at T must be twice its time at T/2 within 10%.  The harness's JSON line com
 The launch counts are set to 0 just before each path's first run and read
 just after it; each default path must make one scan launch, one inverse
 launch and at most 8 (G1) or 2 (G2) K1e launches; a 12-limb path
-launches no 8-limb kernel, and a 12-limb G2 path one K2 and one K2 sort
-and at most G2_N12_MOST K4e and K1e launches.  K2's sort rows give
+launches no 8-limb kernel but K2's sort, and a 12-limb G2 path one K2
+and one K2 sort and at most G2_N12_MOST K4e and K1e launches; each
+setting of MSM_VARIANTS must launch its kernel (at 12 limbs under its
+12-limb name, ``n12_name``).  K2's sort rows give
 ``torch.sort(keys, stable=True)`` on the same keys as their library
 time, the one PyTorch call that computes their permutation.  Each phase
 prints one JSON line; then a
@@ -108,9 +116,10 @@ SEED = 2024
 MSM_STEADY_RUNS = 10
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 K7E_CHECKED = 4                 # lane_inv instances held against the plain
-# K7e's steps: half the harness's 2048, which halves the phase's plain
-# checks (sequential in the steps) to keep the smoke's time
-K7E_T = 1024
+# K7e's steps: a quarter of the harness's 2048, which quarters the
+# phase's plain checks (sequential in the steps) to keep the smoke's time
+# (the 12-limb merge phases and MSM settings took its room)
+K7E_T = 512
 SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
 INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
 # each default path's inverse kernel and the most K1e launches it may make
@@ -119,13 +128,12 @@ INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
 # paths, at 2^18 like alt_bn128's G2
 CURVES12 = ("bls12_381", "bls12_377")
 K2_N12_WINDOWS = 8              # windows of the 12-limb K2 checks
-K2_G2_377_WINDOWS = 2           # of BLS12-377's G2 K2 check
+K2_377_WINDOWS = 2              # of BLS12-377's G2 K2 check (its G1 K2's
+                                # plain insert, a minute, is not run)
 # the most K4e n12 and K1e n12 launches a 12-limb G2 path makes:
 # proj_to_jacobian's 3 Fq2 products and to_affine's 4; the negation of y
 # in _prepare (K1e's Fq2 branch), counted on the first card run
 G2_N12_MOST = {"K4e n12": 7, "K1e n12": 1}
-# the scan of the BLS12-377 G2 check: (W, c)
-SCAN_G2_377 = (8, 2)
 # Times under a kernel's previous design, as this script measured them
 # on an NVIDIA H100 80GB HBM3 at 700 W: K5's and K2m's under the lane
 # tree's (one warp a row through a device scratch array; K2m's tail on
@@ -188,6 +196,16 @@ MSM_VARIANTS = {
                 ("engine=pallas", {"engine": "pallas"}, "K6 g1")]),
         ("g2", [("merge=kernel", {"merge": "kernel"}, "K5 g2"),
                 ("merge=True", {"merge": True}, "K2m g2")]))}
+
+
+
+
+def n12_name(name: str) -> str:
+    """A launch count's name at 12 limbs: the width after the group, before
+    any product ("K2 g1 sos" -> "K2 g1 n12 sos", "K6 g1" -> "K6 g1
+    n12")."""
+    parts = name.split()
+    return " ".join(parts[:2] + ["n12"] + parts[2:])
 
 
 T_START = time.perf_counter()
@@ -490,10 +508,11 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     `windows`, K2 is timed at the path's shape and the first `windows`
     windows of its timed output are held against the plain version on
     those windows (a bucket depends on its own window's digits only; the
-    plain insert at 12 limbs takes minutes at all of them, and the 12-limb
-    skewed check runs in tests/test_torch_cuda.py at a small shape).
-    Returns the result and, for phase_merge, the inputs and the plain
-    buckets (of the checked windows)."""
+    plain insert at 12 limbs takes about a minute however few the
+    windows, its T steps one after another, and the 12-limb skewed check
+    runs in tests/test_torch_cuda.py at a small shape); with windows = 0
+    none is.  Returns the result and, for phase_merge, the inputs and the
+    plain buckets (of the checked windows; None for none)."""
     from libff_tpu_torch.msm.insert import (bucket_keys, bucket_lists,
                                             bucket_lists_plain, insert,
                                             insert_plain)
@@ -502,13 +521,15 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     d, pts, B = k2_inputs(dc, group, n, cfg, rng, dev)
     checked = d.shape[0] if windows is None else windows
     dw = d[:checked].contiguous()
-    want, plain_ms = host_timed(lambda: insert_plain(G, dw, pts, B))
+    want, plain_ms = (None, None) if checked == 0 else host_timed(
+        lambda: insert_plain(G, dw, pts, B))
     if windows is None:
         err = max_abs_err(insert(G, d, pts, B), want)
         ms = event_ms(lambda: insert(G, d, pts, B), 3)
     else:
         ms, got = timed_output(lambda: insert(G, d, pts, B), 3)
-        err = max_abs_err([c[..., :checked, :, :] for c in got], want)
+        err = 0 if want is None else max_abs_err(
+            [c[..., :checked, :, :] for c in got], want)
         del got
     madds = int(((d != 0) & ~pts[3][None]).sum())
     lists = bucket_lists(G, d, pts[3], B)
@@ -541,67 +562,95 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     if err or sort["max_abs_err"] or (skew and skew["max_abs_err"]):
         fail(f"{res['name']} or its sort disagrees with its plain version "
              f"on {G.name}: {res}")
-    return res, (dw, pts, B, want)
+    return res, (d, pts, B, want)
 
 
 def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
     """K5, K2's fused merge (K2m), on G1 K6, and K2, K2m and K5 over each
     SOS product against their plain versions at the path's shape, on
     phase_k2's inputs and plain buckets: K5 runs on K2's raw buckets and
-    K2m on the inputs, both held against merge_lanes_plain of the plain
-    buckets; K2 and K6 are held against the plain buckets.  Every product
-    gives the same buckets, so the CIOS plain versions serve all of them
-    (a plain insert takes tens of seconds at this shape).  K2m's plain
-    version is insert_plain then merge_lanes_plain, and K6's is
-    insert_plain, so their plain times add up phase_k2's.  Each K2m's
-    tail is its time less K2's over the same product on the same inputs,
-    set beside K5's; "ptxas" gives the registers and spills of the lane
-    tree in every merge and insert build."""
+    K2m on the inputs, both held against merge_lanes_plain of the raw
+    buckets; K2 and K6 are held against the raw buckets.  The raw buckets
+    are the plain insert's where phase_k2 ran it on every window (8
+    limbs), else K2's own, whose windows phase_k2 held to the plain insert
+    (the first K2_N12_WINDOWS at 12 limbs; a bucket depends on its own
+    window only, and the plain insert takes minutes at all 32).  Every
+    product gives the same buckets, so the CIOS plain versions serve all
+    of them (a plain insert takes tens of seconds at this shape).  K2m's
+    plain version is insert_plain then merge_lanes_plain, and K6's is
+    insert_plain, so their plain times add up phase_k2's (on its checked
+    windows).  Each K2m's tail is its time less K2's over the same
+    product on the same inputs, set beside K5's; "ptxas" gives the
+    registers and spills of the lane tree in every merge and insert build
+    of the width.  Names are the launch counts' ("K5 g1 n12 sos" at 12
+    limbs)."""
     from libff_tpu_torch.msm.insert import insert, insert_v1
     from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
 
     G = getattr(dc, group)
+    n32 = G.F.prime_field.n32
     d, pts, B, raw_plain = inputs
-    want, merge_ms = host_timed(lambda: merge_lanes_plain(G, raw_plain))
     raw = insert(G, d, pts, B)
-    fused_ms = k2["plain_ms"] + merge_ms
-    runs = {f"K5 {group}": (lambda: merge_lanes(G, raw), want, merge_ms, 20),
-            f"K2m {group}": (lambda: insert(G, d, pts, B, merge=True), want,
-                             fused_ms, 3)}
+    checked = 0 if raw_plain is None else raw_plain[0].shape[-3]
+    if checked == d.shape[0]:
+        ref_raw = raw_plain
+    else:
+        ref_raw = raw
+        if checked and max_abs_err([c[..., :checked, :, :] for c in raw],
+                                   raw_plain):
+            fail(f"K2 on {G.name} disagrees with its plain version")
+    want, merge_ms = host_timed(lambda: merge_lanes_plain(G, ref_raw))
+    fused_ms = None if k2["plain_ms"] is None else k2["plain_ms"] + merge_ms
+
+    def name(kernel, kmul="cios"):
+        return _build.kmul_name(_build.width_name(f"{kernel} {group}", n32),
+                                kmul)
+
+    runs = {name("K5"): (lambda: merge_lanes(G, raw), want, merge_ms, 20),
+            name("K2m"): (lambda: insert(G, d, pts, B, merge=True), want,
+                          fused_ms, 3)}
     if group == "g1":
-        runs["K6 g1"] = (lambda: insert_v1(G, d, pts, B), raw_plain,
-                         k2["plain_ms"], 3)
+        runs[name("K6")] = (lambda: insert_v1(G, d, pts, B), ref_raw,
+                            k2["plain_ms"], 3)
     for k in SOS_KMULS:
-        runs[f"K2 {group} {k}"] = (
-            lambda k=k: insert(G, d, pts, B, kmul=k), raw_plain,
+        runs[name("K2", k)] = (
+            lambda k=k: insert(G, d, pts, B, kmul=k), ref_raw,
             k2["plain_ms"], 3)
-        runs[f"K2m {group} {k}"] = (
+        runs[name("K2m", k)] = (
             lambda k=k: insert(G, d, pts, B, merge=True, kmul=k), want,
             fused_ms, 3)
-        runs[f"K5 {group} {k}"] = (lambda k=k: merge_lanes(G, raw, k), want,
-                                   merge_ms, 20)
-    res = {"name": f"merge {group}", "shape": k2["shape"], "kernels": {},
+        runs[name("K5", k)] = (lambda k=k: merge_lanes(G, raw, k), want,
+                               merge_ms, 20)
+    res = {"name": f"merge {group}", "curve": dc.name,
+           "shape": k2["shape"], "checked_windows": checked,
+           "reference": "merge_lanes_plain of the plain insert's raw buckets"
+           if ref_raw is raw_plain else
+           f"merge_lanes_plain of K2's raw buckets, its first {checked} "
+           "windows held to insert_plain" if checked else
+           "merge_lanes_plain of K2's raw buckets (K2 itself held to the "
+           "oracle through its MSM)", "kernels": {},
            "ptxas": {stem: _build.tree_kernels(
                          _build.build_dir() / f"{stem}.log")
                      for kind in ("merge", "insert")
-                     for stem in [_build.kmul_stem(kind, k)
+                     for stem in [_build.width_stem(_build.kmul_stem(kind, k),
+                                                    n32)
                                   for k in ("cios",) + SOS_KMULS]}}
-    for name, (fn, ref, plain_ms, reps) in runs.items():
+    for key, (fn, ref, plain_ms, reps) in runs.items():
         ms, got = timed_output(fn, reps)
-        res["kernels"][name] = {"max_abs_err": max_abs_err(got, ref),
-                                "plain_ms": plain_ms, "ms": ms,
-                                "before_ms": BEFORE_MS.get(name)}
+        res["kernels"][key] = {"max_abs_err": max_abs_err(got, ref),
+                               "plain_ms": plain_ms, "ms": ms,
+                               "before_ms": BEFORE_MS.get(key)}
+        del got
     q = res["kernels"]
     for k in ("cios",) + SOS_KMULS:
-        name = _build.kmul_name(f"K2m {group}", k)
-        k2_ms = k2["ms"] if k == "cios" else q[f"K2 {group} {k}"]["ms"]
-        k5_ms = q[_build.kmul_name(f"K5 {group}", k)]["ms"]
-        q[name].update(k2_ms=k2_ms, tail_ms=q[name]["ms"] - k2_ms,
-                       k5_ms=k5_ms,
-                       over_k2_plus_k5=q[name]["ms"] / (k2_ms + k5_ms))
+        k2_ms = k2["ms"] if k == "cios" else q[name("K2", k)]["ms"]
+        k5_ms = q[name("K5", k)]["ms"]
+        q[name("K2m", k)].update(
+            k2_ms=k2_ms, tail_ms=q[name("K2m", k)]["ms"] - k2_ms, k5_ms=k5_ms,
+            over_k2_plus_k5=q[name("K2m", k)]["ms"] / (k2_ms + k5_ms))
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K5, K2m, K6 or a kmul branch disagrees with its plain version "
-             f"on {group}: {res}")
+             f"on {G.name}: {res}")
     return res
 
 
@@ -1013,14 +1062,17 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                    own_latency_ms=sc["chain_products"] * lone12["eo"] * 1e-6,
                    own_latency_cios_ms=sc["chain_products"]
                    * lone12["cios"] * 1e-6)
-    r = n12["k2"]
+    r, r377 = n12["k2"], n12["k2 bls12_377"]
     W, T, L, B = r["shape"]
     add("K2 g1 n12", path, "insert_n12.cu", "msm/pallas_insert3.py:74",
-        r["ms"], r["plain_ms"], [W, T, L, B], r["max_abs_err"],
+        r["ms"], r["plain_ms"], [W, T, L, B],
+        max(r["max_abs_err"], r377["max_abs_err"]),
         bound(4 * (W * T * L + 3 * w * T * L) + T * L + 3 * 4 * w * W * B * L,
               imads(FP_MULS["madd"][1] * r["madds"], n32=12), rates))
     # plain_ms: insert_plain on the checked windows only
-    out[-1]["checked_windows"] = r["checked_windows"]
+    out[-1].update(checked_windows=r["checked_windows"],
+                   bls12_377_ms=r377["ms"],
+                   bls12_377_checked_windows=r377["checked_windows"])
     # the 12-limb G2 kernels on the BLS12-381 G2 path (K3 and K2 also on
     # BLS12-377's, nr = p - 5)
     path, w = "bls12_381 g2", 2 * WORDS12
@@ -1077,6 +1129,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     out[-1].update(checked_windows=r["checked_windows"],
                    bls12_377_ms=r377["ms"],
                    bls12_377_checked_windows=r377["checked_windows"])
+    n12_merge_rows(add, out, n12, rates)
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -1126,6 +1179,55 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                        plain_ms_measured=r["plain_ms_measured"],
                        plain_measured_instances=r["checked_instances"])
     return out
+
+
+def n12_merge_rows(add, out: list, n12: dict, rates: dict) -> None:
+    """The kernels line's rows of the 12-limb lane merges K5 and K2m, the
+    v1 insert K6 and K2 over the SOS products, on the BLS12-381 paths
+    (BLS12-377's times beside), through kernel_line's `add` into `out`;
+    bytes and products as the 8-limb rows count them."""
+    for g, k in (("g1", 1), ("g2", 2)):
+        w = WORDS12 * k
+        path = f"bls12_381 {g}"
+        r = n12["k2" if g == "g1" else "k2 g2"]
+        W, T, L, B = r["shape"]
+        k2_in = 4 * (W * T * L + 3 * w * T * L) + T * L
+        bucket_bytes = 3 * 4 * w * W * B * L
+        merged_bytes = 3 * 4 * w * W * B
+        q381 = n12[f"merge {g}"]["kernels"]
+        q377 = n12[f"merge {g} bls12_377"]["kernels"]
+        k2_muls = FP_MULS["madd"][k] * r["madds"]
+        k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
+        for kmul in ("cios",) + SOS_KMULS:
+            vpath = path if kmul == "cios" else f"{path} kmul={kmul}"
+            ins = _build.width_stem(_build.kmul_stem("insert", kmul), 12)
+            mrg = _build.width_stem(_build.kmul_stem("merge", kmul), 12)
+            rows = [("K5", f"{vpath} merge=kernel", mrg,
+                     "msm/pallas_insert3.py:204", bucket_bytes + merged_bytes,
+                     k5_muls),
+                    ("K2m", f"{vpath} merge=True", ins,
+                     "msm/pallas_insert3.py:172", k2_in + merged_bytes,
+                     k2_muls + k5_muls)]
+            if kmul != "cios":
+                rows.insert(0, ("K2", vpath, ins, "msm/pallas_insert3.py:74",
+                                k2_in + bucket_bytes, k2_muls))
+            elif g == "g1":
+                rows.append(("K6", f"{path} engine=pallas", ins,
+                             "msm/pallas_insert.py:35", k2_in + bucket_bytes,
+                             k2_muls))
+            for kern, vp, stem, replaces, nbytes, muls in rows:
+                name = _build.kmul_name(_build.width_name(f"{kern} {g}", 12),
+                                        kmul)
+                q, q7 = q381[name], q377[name]
+                add(name, vp, stem + ".cu", replaces, q["ms"], q["plain_ms"],
+                    [W, B, L] if kern == "K5" else [W, T, L, B],
+                    max(q["max_abs_err"], q7["max_abs_err"]),
+                    bound(nbytes, imads(muls, kmul, n32=12), rates))
+                out[-1].update({k: q[k] for k in (
+                    "k2_ms", "tail_ms", "k5_ms",
+                    "over_k2_plus_k5") if q.get(k) is not None})
+                out[-1].update(bls12_377_ms=q7["ms"],
+                               plain_checked_windows=r["checked_windows"])
 
 
 # K3's products per element by op, as formulas.cuh runs them: (products,
@@ -1202,13 +1304,14 @@ def field_op_bounds(ops: dict, k: int, n: int, rates: dict,
 
 
 def bls_paths(rng, dev) -> dict:
-    """The 12-limb G1 paths: K1e, K1e inv, K3 (with its scan) and K2 on
-    BLS12-381 held against their plain versions, K3 and a small scan on
-    BLS12-377, then each curve's G1 MSM at 2^20 points under
-    default_config(n, G), with the launch checks of the alt_bn128 paths
-    and no 8-limb kernel launched.  Then the 12-limb G2 paths
-    (``bls_g2_paths``).  Prints each phase's line; returns the results by
-    key."""
+    """The 12-limb G1 paths: K1e, K1e inv, K3 (with its scan) on
+    BLS12-381 and K3 with its scan on BLS12-377, held against their plain
+    versions; K2 and the merge kernels (phase_merge) on both; then each
+    curve's G1 MSM at 2^20 points under default_config(n, G), with the
+    launch checks of the alt_bn128 paths and no 8-limb kernel launched,
+    and under every setting of MSM_VARIANTS (n12_variants).  Then the
+    12-limb G2 paths (``bls_g2_paths``).  Prints each phase's line;
+    returns the results by key."""
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.digits import num_signed_digits
@@ -1229,14 +1332,23 @@ def bls_paths(rng, dev) -> dict:
                                    dev, W, cfg.c)
     emit({"phase": "K3 bls12_377 g1", **out["k3 bls12_377"]})
     out["k2"], inputs = phase_k2(dc, "g1", n, cfg, rng, dev, K2_N12_WINDOWS)
-    del inputs
     emit({"phase": "K2 bls12_381 g1", **out["k2"]})
+    out["merge g1"] = phase_merge(dc, "g1", out["k2"], inputs)
+    del inputs
+    emit({"phase": "merge bls12_381 g1", **out["merge g1"]})
+    dc377 = device_curve("bls12_377")
+    out["k2 bls12_377"], inputs = phase_k2(
+        dc377, "g1", n, default_config(n, dc377.g1, dev), rng, dev, 0)
+    emit({"phase": "K2 bls12_377 g1", **out["k2 bls12_377"]})
+    out["merge g1 bls12_377"] = phase_merge(dc377, "g1",
+                                            out["k2 bls12_377"], inputs)
+    del inputs
+    emit({"phase": "merge bls12_377 g1", **out["merge g1 bls12_377"]})
     for curve in CURVES12:
         dcc = device_curve(curve)
         cfg = default_config(n, dcc.g1, dev)
         case = workload.msm_case(dcc, "g1", LOG2N, dev, SEED)
         r = phase_msm(dcc, "g1", LOG2N, case, cfg)
-        del case
         emit({"phase": f"msm {curve} g1", **r})
         got = r["launches"]
         if got.get("K3 scan g1 n12", 0) != 1 or got.get("K2 g1 n12", 0) != 1:
@@ -1250,7 +1362,29 @@ def bls_paths(rng, dev) -> dict:
         if other or got.get("K3 g1 n12", 0) < 1:
             fail(f"the {curve} path launched {got}")
         out[f"msm {curve} g1"] = r
+        out.update(n12_variants(dcc, "g1", LOG2N, case, cfg))
+        del case
     out.update(bls_g2_paths(rng, dev))
+    return out
+
+
+def n12_variants(dc, group: str, log2n: int, case, cfg) -> dict:
+    """Every MsmConfig setting of MSM_VARIANTS on a 12-limb path beside
+    its default cfg, at the path's size, each held against the oracle:
+    each must launch its kernel under its 12-limb name (n12_name) and no
+    8-limb kernel but K2's sort.  Prints each phase's line; returns the
+    results by key, "msm <curve> <group> <setting>"."""
+    out = {}
+    for key, fields, kernel in MSM_VARIANTS[group]:
+        r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
+        got = r["launches"]
+        if got.get(n12_name(kernel), 0) < 1:
+            fail(f"{n12_name(kernel)} was not launched on the {dc.name} "
+                 f"{group} {key} path: {got}")
+        if [k for k in got if " n12" not in k and not k.startswith("K2 sort")]:
+            fail(f"the {dc.name} {group} {key} path launched {got}")
+        out[f"msm {dc.name} {group} {key}"] = r
+        emit({"phase": f"msm {dc.name} {group} {key}", **r})
     return out
 
 
@@ -1258,13 +1392,14 @@ def bls_g2_paths(rng, dev) -> dict:
     """The 12-limb G2 paths over Fq2 (nr = p - 1 on BLS12-381, p - 5 on
     BLS12-377): K4e (with K1e's Fq2 branch) and K4e inv on BLS12-381's
     Fq2 at the path's 2^18 elements, K3's six ops at 2^21 and its scan at
-    the path's (W, c) on BLS12-381, K3 and a small scan (SCAN_G2_377) on
-    BLS12-377, and K2 on both timed at the path's shape, its first
-    K2_N12_WINDOWS (BLS12-381) and K2_G2_377_WINDOWS (BLS12-377) windows
-    held to the plain insert; then each curve's G2
-    MSM at 2^18 points under default_config(n, G) against its oracle:
-    one K2, K2 sort, scan and K4e inv launch, at least one K3, at most
-    G2_N12_MOST K4e and K1e launches and no 8-limb kernel."""
+    the path's (W, c) on both curves, and K2 on both timed at the path's
+    shape, its first K2_N12_WINDOWS (BLS12-381) and K2_377_WINDOWS
+    (BLS12-377) windows held to the plain insert, with the merge kernels
+    (phase_merge); then each curve's G2 MSM at 2^18 points under
+    default_config(n, G) against its oracle: one K2, K2 sort, scan and
+    K4e inv launch, at least one K3, at most G2_N12_MOST K4e and K1e
+    launches and no 8-limb kernel; and under every setting of
+    MSM_VARIANTS (n12_variants)."""
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.digits import num_signed_digits
@@ -1282,24 +1417,28 @@ def bls_g2_paths(rng, dev) -> dict:
     out["k3 g2"] = phase_k3(G, "g2", rng, dev, W, cfg.c)
     emit({"phase": "K3 bls12_381 g2", **out["k3 g2"]})
     out["k3 g2 bls12_377"] = phase_k3(device_curve("bls12_377").g2, "g2",
-                                      rng, dev, *SCAN_G2_377)
+                                      rng, dev, W, cfg.c)
     emit({"phase": "K3 bls12_377 g2", **out["k3 g2 bls12_377"]})
     out["k2 g2"], inputs = phase_k2(dc, "g2", n, cfg, rng, dev,
                                     K2_N12_WINDOWS)
-    del inputs
     emit({"phase": "K2 bls12_381 g2", **out["k2 g2"]})
+    out["merge g2"] = phase_merge(dc, "g2", out["k2 g2"], inputs)
+    del inputs
+    emit({"phase": "merge bls12_381 g2", **out["merge g2"]})
     dc377 = device_curve("bls12_377")
     out["k2 g2 bls12_377"], inputs = phase_k2(
         dc377, "g2", n, default_config(n, dc377.g2, dev), rng, dev,
-        K2_G2_377_WINDOWS)
-    del inputs
+        K2_377_WINDOWS)
     emit({"phase": "K2 bls12_377 g2", **out["k2 g2 bls12_377"]})
+    out["merge g2 bls12_377"] = phase_merge(dc377, "g2",
+                                            out["k2 g2 bls12_377"], inputs)
+    del inputs
+    emit({"phase": "merge bls12_377 g2", **out["merge g2 bls12_377"]})
     for curve in CURVES12:
         dcc = device_curve(curve)
         cfg = default_config(n, dcc.g2, dev)
         case = workload.msm_case(dcc, "g2", LOG2N_G2, dev, SEED)
         r = phase_msm(dcc, "g2", LOG2N_G2, case, cfg)
-        del case
         emit({"phase": f"msm {curve} g2", **r})
         got = r["launches"]
         once = ("K2 g2 n12", "K2 sort g2", "K3 scan g2 n12", "K4e inv n12")
@@ -1313,6 +1452,8 @@ def bls_g2_paths(rng, dev) -> dict:
         if other or got.get("K3 g2 n12", 0) < 1:
             fail(f"the {curve} G2 path launched {got}")
         out[f"msm {curve} g2"] = r
+        out.update(n12_variants(dcc, "g2", LOG2N_G2, case, cfg))
+        del case
     return out
 
 

@@ -29,14 +29,17 @@ of products), "K7b lone" (one chain a thread: a product's latency; at
 (chains of Fq2 products), and the batched-affine experiment as
 "K7e madd", "K7e affine" and "K7e inv".  The kernels over 12-limb Fp
 (BLS12-381 and BLS12-377, G1 and G2) count under the same names with the
-width appended: "K1e n12", "K1e inv n12", "K4e n12", "K4e inv n12", "K2
-g1 n12", "K2 g2 n12", "K3 g1 n12", "K3 g2 n12", "K3 scan g1 n12", "K3
-scan g2 n12" (their sort is the width-free "K2 sort g1" or "K2 sort
-g2").  A wrapper adds one where it launches its kernel and nowhere
-else.
+width appended before any product: "K1e n12", "K1e inv n12", "K4e n12",
+"K4e inv n12", "K2 g1 n12", "K2 g2 n12", "K2m g1 n12", "K2m g2 n12", "K3
+g1 n12", "K3 g2 n12", "K3 scan g1 n12", "K3 scan g2 n12", "K5 g1 n12",
+"K5 g2 n12", "K6 g1 n12", and over the SOS products "K2 g1 n12 sos",
+"K2m g2 n12 sos2", "K5 g1 n12 sos" and so on (their sort is the
+width-free "K2 sort g1" or "K2 sort g2").  A wrapper adds one where it
+launches its kernel and nowhere else.
 
 Each width has its own sources: csrc/<stem>.cu builds the 8-limb library
-and csrc/<stem>_n12.cu the 12-limb one (:func:`width_stem`), so nvcc
+and csrc/<stem>_n12.cu the 12-limb one (:func:`width_stem`; over an SOS
+product csrc/<stem>_<kmul>_n12.cu, :func:`kmul_stem` first), so nvcc
 compiles them in parallel.
 """
 
@@ -227,13 +230,21 @@ def ptxas_kernels(log: Path) -> list[dict]:
 def tree_kernels(log: Path) -> dict:
     """Registers, stack and spills of each lane-tree kernel (merge.cuh's
     merge_kernel) in a build log, by branch: "g1" (FpField), "g2 pairs"
-    (Fp2Pair, CIOS), "g2" (the one-thread Fp2Field, SOS and SOS2)."""
+    (Fp2Pair), "g2" (the one-thread Fp2Field, the 8-limb SOS and SOS2);
+    at 12 limbs with the branch's constant, "g1 b3=12", "g2 pairs nr=-5"
+    and so on."""
     out = {}
     for k in ptxas_kernels(log):
         f = k.pop("function")
-        if "merge_kernel" in f:
-            out["g2 pairs" if "Fp2Pair" in f
-                else "g2" if "Fp2Field" in f else "g1"] = k
+        m = re.search(r"(FpField|Fp2Pair|Fp2Field)ILi(\d+)ELi(n?)(\d+)E", f)
+        if "merge_kernel" not in f or m is None:
+            continue
+        key = {"FpField": "g1", "Fp2Pair": "g2 pairs",
+               "Fp2Field": "g2"}[m.group(1)]
+        if m.group(2) != "8":
+            c = int(m.group(4)) * (-1 if m.group(3) else 1)
+            key += f" {'b3' if key == 'g1' else 'nr'}={c}"
+        out[key] = k
     return out
 
 

@@ -46,16 +46,19 @@
 // CIOS keeps 10.
 //
 // The PTX chains are written out for N = 8 (254-bit fields: alt_bn128's
-// Fq and Fr) with all three products, and for N = 12 (377- and 381-bit
-// fields: BLS12-377's and BLS12-381's Fq) with CIOS only.  At N = 12 a
-// CIOS row is still one asm block (27 operands, under the 30 that
-// GCC-style inline asm allows), but an add's or a subtract's 12 + 12
-// inputs and 13 outputs are not: those chains run as two blocks of 6 limbs, the
-// carry (or borrow) handed from the first to the second in a register
-// and set again as the second block's first instruction, so no flag is
-// asked to live between two asm statements.  A 12-limb product is 300
-// mul.lo and 288 mul.hi multiply-adds, 2.24 times the 8-limb one's issue
-// time.
+// Fq and Fr) and for N = 12 (377- and 381-bit fields: BLS12-377's and
+// BLS12-381's Fq), all three products at both.  At N = 12 a CIOS row is
+// still one asm block (27 operands, under the 30 that GCC-style inline
+// asm allows), and so is each row of the SOS products (mad_lo_row and
+// mad_hi_row, 28 and 26 operands: SOS adds its product and its
+// reduction by rows of one carry chain each, not by columns, so no
+// chain holds more than a row's words); but an add's or a subtract's
+// 12 + 12 inputs and 13 outputs are not: those chains run as two blocks
+// of 6 limbs, the carry (or borrow) handed from the first to the second
+// in a register and set again as the second block's first instruction,
+// so no flag is asked to live between two asm statements.  A 12-limb
+// product is 300 mul.lo and 288 mul.hi multiply-adds (SOS2: 306 and
+// 294), 2.24 times the 8-limb one's issue time.
 #pragma once
 
 #include <cstdint>
@@ -680,60 +683,80 @@ __device__ __forceinline__ uint32_t mad_row(uint32_t* t, uint32_t x,
   return c + mad_hi_row<N>(t, x, y);
 }
 
-// The 16-word product a*b into t[0..16] (t[16] ends 0: a*b < 2^512).
-__device__ __forceinline__ void full_product(uint32_t* t, const Fe<8>& a,
-                                             const Fe<8>& b) {
+// The 2N-word product a*b into t[0..2N] (t[2N] ends 0: a*b < 2^(64N)).
+template <int N>
+__device__ __forceinline__ void full_product(uint32_t* t, const Fe<N>& a,
+                                             const Fe<N>& b) {
 #pragma unroll
-  for (int k = 0; k < 17; k++) t[k] = 0;
+  for (int k = 0; k < 2 * N + 1; k++) t[k] = 0;
   uint32_t c = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) c = mad_row(t + i, a.v[i], b.v, c);
-  t[16] = c;
+  for (int i = 0; i < N; i++) c = mad_row<N>(t + i, a.v[i], b.v, c);
+  t[2 * N] = c;
 }
 
-// Montgomery product by SOS: the product first, then 8 reduction waves;
-// wave i's quotient m = t_i * inv zeroes word i, and the carry it owes
-// word i + 9 rides into the next wave's row (t stays below 2^513).
-__device__ __forceinline__ Fe<8> mul_sos(const Fe<8>& a, const Fe<8>& b,
-                                         const FieldParams<8>& P) {
-  uint32_t t[17];
-  full_product(t, a, b);
+// The Montgomery reduction of a 2N-word value t[0..2N] below p R (t[2N]
+// is 0), by SOS's waves (M = Sos) or by block-2 waves (M = Sos2), then
+// one conditional subtraction: the canonical residue of t R^-1.
+//   Sos:  N waves; wave i's quotient m = t_i * inv zeroes word i, and the
+//         carry it owes word i + N + 1 rides into the next wave's row.
+//   Sos2: N/2 waves, each zeroing words i and i + 1 with the quotient
+//         m = (t_i + t_(i+1) 2^32) (-p^-1 mod 2^64) mod 2^64 = m0 + m1
+//         2^32, added as m0 p at word i and m1 p at word i + 1.
+// Either way the quotients sum to the one M < R with t + M p = 0 mod R,
+// so the value before the subtraction is (t + M p) / R < 2p, CIOS's.
+template <Mul M, int N>
+__device__ __forceinline__ Fe<N> sos_redc(uint32_t* t,
+                                          const FieldParams<N>& P) {
+  static_assert(M == Mul::Sos || M == Mul::Sos2, "an SOS reduction");
   uint32_t c = 0;
+  if constexpr (M == Mul::Sos) {
 #pragma unroll
-  for (int i = 0; i < 8; i++) c = mad_row(t + i, t[i] * P.inv, P.p, c);
-  return reduce_once(t + 8, t[16] + c, P);
-}
-
-// Montgomery product by SOS with block-2 reduction: 4 waves, each
-// zeroing words i and i + 1 with the quotient m = (t_i + t_(i+1) 2^32) *
-// (-p^-1 mod 2^64) mod 2^64 = m0 + m1 2^32, added as m0 * p at word i and
-// m1 * p at word i + 1.
-__device__ __forceinline__ Fe<8> mul_sos2(const Fe<8>& a, const Fe<8>& b,
-                                          const FieldParams<8>& P) {
-  uint32_t t[17];
-  full_product(t, a, b);
-  uint32_t c = 0;
+    for (int i = 0; i < N; i++) c = mad_row<N>(t + i, t[i] * P.inv, P.p, c);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 8; i += 2) {
-    uint32_t m0, m1;
-    asm volatile(
-        "{\n\t.reg .u32 h;\n\t"
-        "mul.lo.u32 %0, %2, %4;\n\t"
-        "mul.hi.u32 h, %2, %4;\n\t"
-        "mad.lo.u32 h, %2, %5, h;\n\t"
-        "mad.lo.u32 %1, %3, %4, h;\n\t"
-        "}"
-        : "=r"(m0), "=r"(m1)
-        : "r"(t[i]), "r"(t[i + 1]), "r"(P.inv), "r"(P.inv_hi));
-    c = mad_row(t + i, m0, P.p, c);
-    c = mad_row(t + i + 1, m1, P.p, c);
+    for (int i = 0; i < N; i += 2) {
+      uint32_t m0, m1;
+      asm volatile(
+          "{\n\t.reg .u32 h;\n\t"
+          "mul.lo.u32 %0, %2, %4;\n\t"
+          "mul.hi.u32 h, %2, %4;\n\t"
+          "mad.lo.u32 h, %2, %5, h;\n\t"
+          "mad.lo.u32 %1, %3, %4, h;\n\t"
+          "}"
+          : "=r"(m0), "=r"(m1)
+          : "r"(t[i]), "r"(t[i + 1]), "r"(P.inv), "r"(P.inv_hi));
+      c = mad_row<N>(t + i, m0, P.p, c);
+      c = mad_row<N>(t + i + 1, m1, P.p, c);
+    }
   }
-  return reduce_once(t + 8, t[16] + c, P);
+  return reduce_once(t + N, t[2 * N] + c, P);
 }
 
-template <Mul M>
-__device__ __forceinline__ Fe<8> mont_mul(const Fe<8>& a, const Fe<8>& b,
-                                          const FieldParams<8>& P) {
+// Montgomery product by SOS: the product first, then SOS's N reduction
+// waves (t stays below 2^(64N + 1)).
+template <int N>
+__device__ __forceinline__ Fe<N> mul_sos(const Fe<N>& a, const Fe<N>& b,
+                                         const FieldParams<N>& P) {
+  uint32_t t[2 * N + 1];
+  full_product(t, a, b);
+  return sos_redc<Mul::Sos>(t, P);
+}
+
+// Montgomery product by SOS with block-2 reduction: the product, then
+// N/2 waves of a 64-bit quotient.
+template <int N>
+__device__ __forceinline__ Fe<N> mul_sos2(const Fe<N>& a, const Fe<N>& b,
+                                          const FieldParams<N>& P) {
+  static_assert(N % 2 == 0, "the block-2 reduction needs an even limb count");
+  uint32_t t[2 * N + 1];
+  full_product(t, a, b);
+  return sos_redc<Mul::Sos2>(t, P);
+}
+
+template <Mul M, int N>
+__device__ __forceinline__ Fe<N> mont_mul(const Fe<N>& a, const Fe<N>& b,
+                                          const FieldParams<N>& P) {
   if constexpr (M == Mul::Sos) {
     return mul_sos(a, b, P);
   } else if constexpr (M == Mul::Sos2) {
@@ -741,14 +764,6 @@ __device__ __forceinline__ Fe<8> mont_mul(const Fe<8>& a, const Fe<8>& b,
   } else {
     return mul(a, b, P);
   }
-}
-
-// At N = 12 CIOS only: the SOS products wait for their 12-limb chains.
-template <Mul M>
-__device__ __forceinline__ Fe<12> mont_mul(const Fe<12>& a, const Fe<12>& b,
-                                           const FieldParams<12>& P) {
-  static_assert(M == Mul::Cios, "the 12-limb product is CIOS only");
-  return mul(a, b, P);
 }
 
 // a * K for a small compile-time constant K >= 1, by the binary addition

@@ -9,7 +9,9 @@
 // coefficient alone.  A product swaps the operands' other coefficients
 // with __shfl_xor_sync and reduces once, lazily:
 //   c0 = REDC(a0 b0 + a1 w),   c1 = REDC(a1 b0 + a0 b1),   w = nr b1,
-// two N x N products summed into one Montgomery reduction (CIOS rows).
+// two N x N products summed into one Montgomery reduction (CIOS rows by
+// default; the context's M, MsmConfig.kmul, may ask for SOS's or SOS2's
+// order instead, the same residue).
 // w is made on thread 0 from the shuffled b1, as a canonical residue
 // (p - b1 for nr = -1, by mul_small<5> and a negation for nr = -5): a
 // lazily reduced w would break the bound.  Bounds: every operand is
@@ -18,8 +20,8 @@
 // Montgomery reduction of a value below p R ends below 2 p, and one
 // conditional subtraction gives the canonical residue.  That residue is
 // unique, so c0 and c1 are fp2.cuh's Karatsuba bits (v0 + nr v1,
-// (a0+a1)(b0+b1) - v0 - v1, each canonical).  A square is one CIOS
-// product a thread, the values of fp2.cuh's complex square: with nr = -1
+// (a0+a1)(b0+b1) - v0 - v1, each canonical).  A square is one product
+// (fp.cuh's mont_mul<M>) a thread, the values of fp2.cuh's complex square: with nr = -1
 // c0 = (a0 + a1)(a0 - a1), c1 = a0 (2 a1); with another nr thread 0
 // makes t = (a0 + a1)(a0 + nr a1) and thread 1 v = a0 a1, a shuffle
 // hands each the other's, and c0 = t - v - nr v, c1 = 2v (the product a a
@@ -29,10 +31,11 @@
 // the host (the context's nb3, host_mul_nr).
 //
 // K3's G2 branch (at 12 limbs padd and pmadd on two pairs an element,
-// split_ops.cuh), the lane tree's CIOS G2 branch and K2's 12-limb G2
-// chains run on it.  K2's 8-limb G2 chains keep fp2.cuh's one-thread
-// layer through formulas.cuh, and so do the lane tree's SOS and SOS2 G2
-// branches: this layer has CIOS rows only.
+// split_ops.cuh, CIOS only as in the JAX package), the lane tree's G2
+// branch (over CIOS at 8 limbs, over every product at 12) and K2's
+// 12-limb G2 chains (every product) run on it.  K2's 8-limb G2 chains
+// keep fp2.cuh's one-thread layer through formulas.cuh, and so do the
+// 8-limb lane tree's SOS and SOS2 G2 branches.
 // The lane tree shuffles whole partials between pairs (kThreads * h lanes
 // down, so each thread meets its own coefficient) with the full warp's
 // mask; every product here shuffles within its pair alone.
@@ -57,31 +60,51 @@ __device__ __forceinline__ Fe<N> pair_other(const Fe<N>& a) {
 }
 
 // REDC(a u + a' v), a' the pair's other thread's a, for canonical a, a',
-// u, v (a u + a' v < 2p^2 < p R), by CIOS over an (N + 2)-word
-// accumulator: row i adds a_i u and a'_i v (a'_i shuffled in as the row
-// needs it, so a' never occupies N registers), then the row's quotient
-// times p, then shifts a word down.  Between rows the accumulator stays
-// below 3p; it ends below 2p, and one conditional subtraction gives the
-// canonical residue.  Each row's chain is one asm block (28 operands at
-// N = 12).
-template <int N>
+// u, v (a u + a' v < 2p^2 < p R).  M = Mul::Cios: CIOS over an (N +
+// 2)-word accumulator: row i adds a_i u and a'_i v (a'_i shuffled in as
+// the row needs it, so a' never occupies N registers), then the row's
+// quotient times p, then shifts a word down.  Between rows the
+// accumulator stays below 3p; it ends below 2p, and one conditional
+// subtraction gives the canonical residue.  M = Mul::Sos or Mul::Sos2
+// (MsmConfig.kmul): the 2N-word sum first, the same rows of a_i u and
+// a'_i v without the quotients, then fp.cuh's SOS or block-2 reduction
+// waves (sos_redc).  The quotients of every order sum to the one M < R
+// with a u + a' v + M p = 0 mod R, so all three end at the same value
+// below 2p and the same canonical residue.  Each row's chain is one asm
+// block (28 operands at N = 12).
+template <Mul M = Mul::Cios, int N>
 __device__ __forceinline__ Fe<N> redc_pair(const Fe<N>& a, const Fe<N>& u,
                                            const Fe<N>& v,
                                            const FieldParams<N>& P) {
   const unsigned m = pair_mask();
-  uint32_t t[N + 2];
+  if constexpr (M == Mul::Cios) {
+    uint32_t t[N + 2];
 #pragma unroll
-  for (int k = 0; k < N + 2; k++) t[k] = 0;
+    for (int k = 0; k < N + 2; k++) t[k] = 0;
 #pragma unroll
-  for (int i = 0; i < N; i++) {
-    t[N + 1] += mad_row<N>(t, a.v[i], u.v, 0);
-    t[N + 1] += mad_row<N>(t, __shfl_xor_sync(m, a.v[i], 1), v.v, 0);
-    t[N + 1] += mad_row<N>(t, t[0] * P.inv, P.p, 0);
+    for (int i = 0; i < N; i++) {
+      t[N + 1] += mad_row<N>(t, a.v[i], u.v, 0);
+      t[N + 1] += mad_row<N>(t, __shfl_xor_sync(m, a.v[i], 1), v.v, 0);
+      t[N + 1] += mad_row<N>(t, t[0] * P.inv, P.p, 0);
 #pragma unroll
-    for (int k = 0; k < N + 1; k++) t[k] = t[k + 1];
-    t[N + 1] = 0;
+      for (int k = 0; k < N + 1; k++) t[k] = t[k + 1];
+      t[N + 1] = 0;
+    }
+    return reduce_once(t, t[N], P);
+  } else {
+    uint32_t t[2 * N + 1];
+#pragma unroll
+    for (int k = 0; k < 2 * N + 1; k++) t[k] = 0;
+    // row i's carries are owed to word i + N + 1, which no earlier row
+    // reached
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      t[i + N + 1] += mad_row<N>(t + i, a.v[i], u.v, 0);
+      t[i + N + 1] +=
+          mad_row<N>(t + i, __shfl_xor_sync(m, a.v[i], 1), v.v, 0);
+    }
+    return sos_redc<M>(t, P);
   }
-  return reduce_once(t, t[N], P);
 }
 
 // formulas.cuh's field context over a pair of threads, N limbs a
@@ -90,7 +113,7 @@ __device__ __forceinline__ Fe<N> redc_pair(const Fe<N>& a, const Fe<N>& u,
 // same on every thread, the kernel's parameter.  The two threads of a
 // pair differ in c, so every choice by c is a select, never a branch,
 // which would split the warp.
-template <int N, int NR>
+template <int N, int NR, Mul M = Mul::Cios>
 struct Fp2Pair {
   using E = Fe<N>;
   static constexpr int kThreads = 2;  // threads an element
@@ -114,7 +137,7 @@ struct Fp2Pair {
     const bool c1 = c() != 0;
     const E u = lff::select(c1, bo, b);
     const E v = lff::select(c1, b, mul_nr<NR>(bo, P));
-    return redc_pair(a, u, v, P);
+    return redc_pair<M>(a, u, v, P);
   }
   // one product a thread.  nr = -1: c0 = (a0 + a1)(a0 - a1), c1 =
   // a0 (2 a1).  Else thread 0 makes t = (a0 + a1)(a0 + nr a1) and thread
@@ -126,11 +149,11 @@ struct Fp2Pair {
     if constexpr (NR == -1) {
       const E x = lff::add(lff::select(c1, lff::zero<N>(), a), ao, P);
       const E y = lff::select(c1, lff::dbl(a, P), lff::sub(a, ao, P));
-      return lff::mul(x, y, P);
+      return mont_mul<M>(x, y, P);
     } else {
       const E x = lff::select(c1, a, lff::add(a, ao, P));
       const E y = lff::select(c1, ao, add_nr<NR>(a, ao, P));
-      const E m = lff::mul(x, y, P);
+      const E m = mont_mul<M>(x, y, P);
       const E mo = pair_other(m);
       return lff::select(c1, lff::dbl(m, P),
                          lff::sub(m, add_nr<NR>(mo, mo, P), P));
@@ -138,7 +161,7 @@ struct Fp2Pair {
   }
   // a b3: c0 = a0 b3.c0 + a1 (nr b3.c1), c1 = a1 b3.c0 + a0 b3.c1
   __device__ __forceinline__ E mul_b3(const E& a) const {
-    return redc_pair(a, b3.c0, lff::select(c() != 0, b3.c1, nb3), P);
+    return redc_pair<M>(a, b3.c0, lff::select(c() != 0, b3.c1, nb3), P);
   }
   __device__ __forceinline__ E zero() const { return lff::zero<N>(); }
   __device__ __forceinline__ E one() const {
@@ -204,11 +227,11 @@ inline Fe<N> host_mul_nr(const Fe<N>& c, const FieldParams<N>& P) {
 
 // The context of a C entry's b3_mont, b3's 2N Montgomery limbs (c0's,
 // then c1's); nr b3.c1 made here, on the host.
-template <int N, int NR>
-inline Fp2Pair<N, NR> fp2_pair(const FieldParams<N>& P,
-                               const uint32_t* b3_mont) {
+template <int N, int NR, Mul M = Mul::Cios>
+inline Fp2Pair<N, NR, M> fp2_pair(const FieldParams<N>& P,
+                                  const uint32_t* b3_mont) {
   const Fe2<N> b3 = fe2_from<N>(b3_mont);
-  return Fp2Pair<N, NR>{P, b3, host_mul_nr<N, NR>(b3.c1, P)};
+  return Fp2Pair<N, NR, M>{P, b3, host_mul_nr<N, NR>(b3.c1, P)};
 }
 
 }  // namespace lff

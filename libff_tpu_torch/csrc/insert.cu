@@ -1,5 +1,6 @@
 // insert.cu -- kernel K2 over the CIOS product (insert.cuh) with its sort
-// launch, and kernel K6, the v1 insert.
+// launch, and kernel K6, the v1 insert, at 8 limbs (insert_n12.cu builds
+// K2 and K6 at 12).
 //
 // K6 replaces libff_tpu/msm/pallas_insert.py:35 _insert_kernel (entry
 // point insert_pallas, :198), the v1 insert, G1 only.  It computes the
@@ -30,25 +31,7 @@ extern "C" int bucket_lists(const void* d, const void* pinf, void* off,
               : lff::sort_launch<int16_t>(d, pinf, off, ent, W, T, L, B, s);
 }
 
-// K6, the v1 insert: G1 only (b3 must be 9), raw buckets (8, W, B, L),
-// from the sort's lists, the point records and the lane-major scratch as
-// K2 takes them.
-extern "C" int insert_v1(const void* off, const void* ent, int wide,
-                         const void* rec, void* const* lane, void* bx,
-                         void* by, void* bz, int W, int T, int L, int B,
-                         int n32, int b3, const uint32_t* p,
-                         const uint32_t* one_mont, uint32_t inv, int device,
-                         void* stream) {
-  if (n32 != 8 || b3 != 9 || W < 0 || T < 0 || L < 0 || B <= 0 ||
-      (wide != 0 && wide != 1) || lane == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if ((long long)W * L == 0) return 0;
-  if (bx == nullptr || by == nullptr || bz == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return lff::chain_launch(
-      off, ent, wide, rec, lane, bx, by, bz, W, T, L, B,
-      lff::FpField<8, 9>{lff::field_params(p, one_mont, inv)},
-      (cudaStream_t)stream);
-}
+// K6, the v1 insert: G1 only (b3 must be 9), CIOS, raw buckets (8, W, B,
+// L), from the sort's lists, the point records and the lane-major scratch
+// as K2 takes them (insert.cuh insert_v1_entry).
+LFF_INSERT_V1_ENTRY

@@ -162,7 +162,11 @@
 // each of insert.cu (CIOS, with the sort and K6), insert_sos.cu and
 // insert_sos2.cu instantiates this header for one product through
 // LFF_INSERT_ENTRY, so the three compile in parallel; every product gives
-// the same buckets.
+// the same buckets.  insert_n12.cu (with K6), insert_sos_n12.cu and
+// insert_sos2_n12.cu do the same at LFF_N32 = 12, where K2m's tree reads
+// the chain kernel's lane-major stride (ChainShape::kLaneWords: 16 words
+// a coordinate on G1, 24 on the G2 pairs) and the G2 chains run on pairs
+// over every product.
 #pragma once
 
 #include "merge.cuh"
@@ -640,27 +644,65 @@ int chain_launch(const void* off, const void* ent, int wide, const void* rec,
   return (int)cudaGetLastError();
 }
 
+// The G2 chain kernel's field context at N limbs over the product M: one
+// thread a chain (fp2.cuh's Fp2Field) at 8 limbs, two (fp2_pair.cuh's
+// Fp2Pair) at 12.
+template <int N, int NR, Mul M>
+using ChainField2 =
+    std::conditional_t<N == 8, Fp2Field<N, NR, M>, Fp2Pair<N, NR, M>>;
+
+template <int N, int NR, Mul M>
+inline ChainField2<N, NR, M> chain_field2(const FieldParams<N>& P,
+                                          const uint32_t* b3_mont) {
+  if constexpr (N == 8) {
+    return Fp2Field<N, NR, M>{P, fe2_from<N>(b3_mont)};
+  } else {
+    return fp2_pair<N, NR, M>(P, b3_mont);
+  }
+}
+
+// The chain kernel over `chain` into the lane-major scratch `lane`, then
+// the raw buckets repacked into bx, by, bz (m null), or K2m: merge.cuh's
+// tree over `tree` on the lane-major buckets into the three (K, W, B, 1)
+// arrays of m, with `far` its scratch.
+template <class FC, class FT>
+int insert_run(const FC& chain, const FT& tree, const void* off,
+               const void* ent, int wide, const void* rec, void* const* lane,
+               void* bx, void* by, void* bz, int W, int T, int L, int B,
+               void* const* m, void* far, cudaStream_t s) {
+  void* const rx = m == nullptr ? bx : nullptr;  // null: no repack
+  const int rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L,
+                              B, chain, s);
+  if (rc != 0 || m == nullptr) return rc;
+  const long long n = (long long)W * B;
+  const LaneRows in{{(const uint32_t*)lane[0], (const uint32_t*)lane[1],
+                     (const uint32_t*)lane[2]},
+                    0, n, L, B, ChainShape<FC>::kLaneWords};
+  const Rows out{{(uint32_t*)m[0], (uint32_t*)m[1], (uint32_t*)m[2]},
+                 (size_t)n, 0};
+  return merge_launch<true>(in, out, (uint32_t*)far, tree, s);
+}
+
 // K2 after the sort: off and ent from bucket_lists (wide as there), rec
-// the point records (T * L, 3, K) words, lane three (W, L, B, K) scratch
-// arrays for the raw buckets.  kmul: the product this library was built
-// for ((int)M), checked; k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont
-// is unused; k = 2: b3 is the Fq2's non-residue, -1, and b3_mont holds
-// the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).  m null:
-// the raw buckets into bx, by, bz (K, W, B, L); else K2m, the lane totals
+// the point records (T * L, 3, K) words, lane three (W, L, B, Kp) scratch
+// arrays for the raw buckets (Kp = lane_words).  kmul: the product this
+// library was built for ((int)M), checked; n32: its width N, checked;
+// (k, b3, b3_mont): one of merge.cuh's on_branch branches.  m null: the
+// raw buckets into bx, by, bz (K, W, B, L); else K2m, the lane totals
 // into the three (K, W, B, 1) arrays of m, merge.cuh's tree over `lane`
 // (bx, by, bz unused) with `far`, W * B * merge_far_words(k, L) words of
 // scratch (null when that is 0).
-template <Mul M>
+template <Mul M, int N>
 int insert_entry(int kmul, const void* off, const void* ent, int wide,
                  const void* rec, void* const* lane, void* bx, void* by,
                  void* bz, int W, int T, int L, int B, int n32, int k, int b3,
                  const uint32_t* b3_mont, const uint32_t* p,
                  const uint32_t* one_mont, uint32_t inv, void* const* m,
                  void* far, int device, void* stream) {
-  if (kmul != (int)M || n32 != 8 || W < 0 || T < 0 || L < 0 || B <= 0 ||
+  if (kmul != (int)M || n32 != N || W < 0 || T < 0 || L < 0 || B <= 0 ||
       (wide != 0 && wide != 1) || lane == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3 == -1 && b3_mont != nullptr))
+  if (on_branch<N>(k, b3, b3_mont, [](auto, auto) { return 0; }) != 0)
     return (int)cudaErrorInvalidValue;
   if (m == nullptr && (bx == nullptr || by == nullptr || bz == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -668,31 +710,42 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)W * L == 0) return 0;
-  const FieldParams<8> P = field_params(p, one_mont, inv);
+  const FieldParams<N> P = field_params<N>(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
-  void* const rx = m == nullptr ? bx : nullptr;  // null: no repack
-  int rc;
-  if (k == 1) {
-    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
-                      FpField<8, 9, M>{P}, s);
-  } else {
-    rc = chain_launch(off, ent, wide, rec, lane, rx, by, bz, W, T, L, B,
-                      Fp2Field<8, -1, M>{P, fe2_from<8>(b3_mont)}, s);
-  }
-  if (rc != 0 || m == nullptr) return rc;
-  const long long n = (long long)W * B;
-  const LaneRows in{{(const uint32_t*)lane[0], (const uint32_t*)lane[1],
-                     (const uint32_t*)lane[2]},
-                    0, n, L, B, 8 * k};
-  const Rows out{{(uint32_t*)m[0], (uint32_t*)m[1], (uint32_t*)m[2]},
-                 (size_t)n, 0};
-  return merge_rows<M, true>(k, in, out, (uint32_t*)far, P, b3_mont, s);
+  return on_branch<N>(k, b3, b3_mont, [&](auto K, auto B3) {
+    constexpr int b = decltype(B3)::value;
+    if constexpr (decltype(K)::value == 1) {
+      const FpField<N, b, M> f{P};
+      return insert_run(f, f, off, ent, wide, rec, lane, bx, by, bz, W, T,
+                        L, B, m, far, s);
+    } else {
+      return insert_run(chain_field2<N, b, M>(P, b3_mont),
+                        tree_field2<N, b, M>(P, b3_mont), off, ent, wide, rec,
+                        lane, bx, by, bz, W, T, L, B, m, far, s);
+    }
+  });
+}
+
+// K6, the v1 insert at N limbs: G1 only (b3 one of on_branch's G1
+// constants), CIOS, raw buckets (N, W, B, L), from the sort's lists, the
+// point records and the lane-major scratch as K2 takes them: K2's G1
+// branch (its chain kernel and repack) under K6's own entry point.
+template <int N>
+int insert_v1_entry(const void* off, const void* ent, int wide,
+                    const void* rec, void* const* lane, void* bx, void* by,
+                    void* bz, int W, int T, int L, int B, int n32, int b3,
+                    const uint32_t* p, const uint32_t* one_mont, uint32_t inv,
+                    int device, void* stream) {
+  return insert_entry<Mul::Cios, N>((int)Mul::Cios, off, ent, wide, rec,
+                                    lane, bx, by, bz, W, T, L, B, n32, 1, b3,
+                                    nullptr, p, one_mont, inv, nullptr,
+                                    nullptr, device, stream);
 }
 
 }  // namespace lff
 
 // The C entry points `insert` and `merge_far_words` (merge.cuh) of one
-// library, over the product M.
+// library, over the product M at LFF_N32 limbs.
 #define LFF_INSERT_ENTRY(M)                                                  \
   LFF_MERGE_FAR_WORDS(M)                                                     \
   extern "C" int insert(int kmul, const void* off, const void* ent,          \
@@ -703,7 +756,21 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
                         const uint32_t* one_mont, uint32_t inv,              \
                         void* const* m, void* far, int device,               \
                         void* stream) {                                      \
-    return lff::insert_entry<M>(kmul, off, ent, wide, rec, lane, bx, by, bz, \
-                                W, T, L, B, n32, k, b3, b3_mont, p,          \
-                                one_mont, inv, m, far, device, stream);      \
+    return lff::insert_entry<M, LFF_N32>(                                    \
+        kmul, off, ent, wide, rec, lane, bx, by, bz, W, T, L, B, n32, k, b3, \
+        b3_mont, p, one_mont, inv, m, far, device, stream);                  \
+  }
+
+// The C entry point `insert_v1` (K6) of the CIOS library at LFF_N32
+// limbs.
+#define LFF_INSERT_V1_ENTRY                                                  \
+  extern "C" int insert_v1(const void* off, const void* ent, int wide,       \
+                           const void* rec, void* const* lane, void* bx,     \
+                           void* by, void* bz, int W, int T, int L, int B,   \
+                           int n32, int b3, const uint32_t* p,               \
+                           const uint32_t* one_mont, uint32_t inv,           \
+                           int device, void* stream) {                       \
+    return lff::insert_v1_entry<LFF_N32>(off, ent, wide, rec, lane, bx, by,  \
+                                         bz, W, T, L, B, n32, b3, p,         \
+                                         one_mont, inv, device, stream);     \
   }

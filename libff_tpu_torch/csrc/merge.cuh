@@ -40,10 +40,11 @@
 //   is set, the partial of level k waiting in slot k is added before it
 //   (slot first: its lanes are the lower ones).  A binary counter over
 //   the pairs, so at most log2(m) - 1 partials wait at once.  The first
-//   kNearSlots wait in shared memory (a thread's slots interleaved with
-//   its neighbours', so no bank conflicts; registers would need a
-//   constant slot index), deeper ones in a scratch array of the caller's:
-//   at L = 1024 only G2 over pairs has one, written and read once a row.
+//   kNear (MergeShape: four at 8 limbs) wait in shared memory (a
+//   thread's slots interleaved with its neighbours', so no bank
+//   conflicts; registers would need a constant slot index), deeper ones
+//   in a scratch array of the caller's: at L = 1024 at 8 limbs only G2
+//   over pairs has one, written and read once a row.
 //   No level waits for another thread.
 //   The levels h < r cross elements: a butterfly of __shfl_down_sync,
 //   element u taking the partial of element u + h (u + h of the pairs on
@@ -65,15 +66,36 @@
 //
 // MsmConfig.kmul (pallas_insert3.py:251-256) picks the product: each of
 // merge.cu (CIOS), merge_sos.cu and merge_sos2.cu instantiates the kernel
-// for one product through LFF_MERGE_ENTRY.  Fp2Pair has CIOS rows only,
-// so the SOS and SOS2 G2 branches, which exist for parity, run the same
-// tree on fp2.cuh's one-thread Fp2Field: never CIOS under their name.
+// for one product through LFF_MERGE_ENTRY.  At 8 limbs the SOS and SOS2
+// G2 branches, which exist for parity, run the same tree on fp2.cuh's
+// one-thread Fp2Field: never CIOS under their name.
+//
+// At 12 limbs (BLS12-381 and BLS12-377: G1 with b3 = 12 and 3, G2 over
+// Fq2 with nr = -1 and -5) merge_n12.cu, merge_sos_n12.cu and
+// merge_sos2_n12.cu build the same tree at LFF_N32 = 12, and K2m's tail
+// in insert*_n12.cu.  G2 runs on pairs over every product there
+// (Fp2Pair<12, NR, M>: the pair's lazy sums reduced in the product's
+// order), so a thread's part of a partial is 36 words on G1 and on G2, as
+// at 8 limbs it is 24; a one-thread G2 body would hold 72.  A product is
+// 588 multiply-adds (600 over SOS2), 2.24 times an 8-limb one, and the
+// bound is that many times K5's at 8 limbs on the same rows.  A partial
+// is 144 bytes a thread: the 12-limb blocks an SM are their own macros
+// (LFF_K5_MIN_BLOCKS_G1_N12, _G2_N12, chosen with tune_merge on an H100,
+// PERF.md), and the slots in shared memory as many as those blocks fit.
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "formulas.cuh"
 #include "fp2_pair.cuh"
+
+// The width of the C entries a library exports (merge_lanes,
+// merge_far_words and insert.cuh's insert and insert_v1): merge.cu and
+// its product variants at 8 limbs, the *_n12.cu sources at 12.
+#ifndef LFF_N32
+#define LFF_N32 8
+#endif
 
 namespace lff {
 
@@ -87,11 +109,28 @@ namespace lff {
 #ifndef LFF_K5_MIN_BLOCKS_G2
 #define LFF_K5_MIN_BLOCKS_G2 16
 #endif
+// The same at 12 limbs, G1 (one thread an element, every product) and G2
+// (pairs, every product), chosen with tune_merge on an H100: G1 at 16
+// (128 registers, 208 bytes of spills) 5.34-5.43 ms, at 12 and 10 (168
+// registers) 5.62-5.68, at ptxas's own 212 registers (8) 7.42-7.45; G2 at
+// 12 (168 registers, 360-416 bytes of spills) 26.3-26.4 ms, at 8 (255)
+// 26.7-28.5, at 16 (128, 2.6-3.2 KB) 28.4-28.5 (PERF.md).
+#ifndef LFF_K5_MIN_BLOCKS_G1_N12
+#define LFF_K5_MIN_BLOCKS_G1_N12 16
+#endif
+#ifndef LFF_K5_MIN_BLOCKS_G2_N12
+#define LFF_K5_MIN_BLOCKS_G2_N12 12
+#endif
 
-// Slots a thread keeps in shared memory; deeper ones (L > 32 r) wait in a
-// scratch array of the caller's.  Four keep a one-warp block of G1 or of
-// G2 over pairs at 12 KB, so that 16 blocks fit an SM.
+// Slots a thread may keep in shared memory (MergeShape::kNear takes as
+// many as its blocks an SM fit, up to this); deeper ones wait in a
+// scratch array of the caller's.  A partial is 96 bytes a thread at 8
+// limbs (four slots: 12 KB a one-warp block, 16 blocks an SM), 144 at 12
+// (G1's 16 blocks fit two slots, G2's 12 four).
 constexpr int kNearSlots = 4;
+// An H100 SM's shared memory and what each block reserves of it
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemPerBlockReserved = 1024;
 
 // Where the rows' lanes lie.  Limb-major (K5's (K, n, L)): limb k of lane
 // l of row g at c[k * stride + g * L + l], stride = n * L.  Lane-major
@@ -137,11 +176,13 @@ __device__ __forceinline__ void load_words(const uint32_t* p, Fe2<N>& r) {
 template <class F, bool kLaneMajor>
 __device__ __forceinline__ Pt<F> load_lane(const LaneRows& r, long long g,
                                            int l) {
+  // a pair thread's coefficient: its words lie one coefficient on
+  constexpr int kPart = (int)(sizeof(typename F::E) / sizeof(uint32_t));
   Pt<F> q;
   if constexpr (kLaneMajor) {
     const size_t e =
         (((size_t)(g / r.B) * r.L + l) * r.B + (size_t)(g % r.B)) * r.K +
-        (F::kThreads == 2 ? 8 * (threadIdx.x & 1) : 0);
+        (F::kThreads == 2 ? kPart * (threadIdx.x & 1) : 0);
     load_words(r.c[0] + e, q.x);
     load_words(r.c[1] + e, q.y);
     load_words(r.c[2] + e, q.z);
@@ -161,30 +202,36 @@ __device__ __forceinline__ void store_pt(const Rows& r, const Pt<F>& p) {
 }
 
 // A thread's words of a coordinate in shared memory, word w at s[w * st].
-__device__ __forceinline__ void put(uint32_t* s, int st, const Fe<8>& a) {
+template <int N>
+__device__ __forceinline__ void put(uint32_t* s, int st, const Fe<N>& a) {
 #pragma unroll
-  for (int k = 0; k < 8; k++) s[k * st] = a.v[k];
+  for (int k = 0; k < N; k++) s[k * st] = a.v[k];
 }
-__device__ __forceinline__ void put(uint32_t* s, int st, const Fe2<8>& a) {
+template <int N>
+__device__ __forceinline__ void put(uint32_t* s, int st, const Fe2<N>& a) {
   put(s, st, a.c0);
-  put(s + 8 * st, st, a.c1);
+  put(s + N * st, st, a.c1);
 }
-__device__ __forceinline__ void get(const uint32_t* s, int st, Fe<8>& a) {
+template <int N>
+__device__ __forceinline__ void get(const uint32_t* s, int st, Fe<N>& a) {
 #pragma unroll
-  for (int k = 0; k < 8; k++) a.v[k] = s[k * st];
+  for (int k = 0; k < N; k++) a.v[k] = s[k * st];
 }
-__device__ __forceinline__ void get(const uint32_t* s, int st, Fe2<8>& a) {
+template <int N>
+__device__ __forceinline__ void get(const uint32_t* s, int st, Fe2<N>& a) {
   get(s, st, a.c0);
-  get(s + 8 * st, st, a.c1);
+  get(s + N * st, st, a.c1);
 }
 
 // The value that the thread d lanes up holds (the whole warp calls it).
-__device__ __forceinline__ void shfl_down(Fe<8>& a, int d) {
+template <int N>
+__device__ __forceinline__ void shfl_down(Fe<N>& a, int d) {
 #pragma unroll
-  for (int k = 0; k < 8; k++)
+  for (int k = 0; k < N; k++)
     a.v[k] = __shfl_down_sync(0xffffffffu, a.v[k], d);
 }
-__device__ __forceinline__ void shfl_down(Fe2<8>& a, int d) {
+template <int N>
+__device__ __forceinline__ void shfl_down(Fe2<N>& a, int d) {
   shfl_down(a.c0, d);
   shfl_down(a.c1, d);
 }
@@ -194,24 +241,33 @@ struct MergeShape {
   using E = typename F::E;
   static constexpr int kRow = 32 / F::kThreads;       // elements a warp
   static constexpr int kWords = 3 * (int)(sizeof(E) / sizeof(uint32_t));
+  // 12 limbs: a thread's part of an element is 12 or 24 words
+  static constexpr bool kN12 = kWords / 3 % 12 == 0;
   static constexpr int kMinBlocks =
-      F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2
-                       : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1 : 1);
+      kN12 ? (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2_N12
+                               : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1_N12 : 1))
+           : (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2
+                               : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1 : 1));
+  // the slots kMinBlocks one-warp blocks an SM fit, at most kNearSlots
+  static constexpr int kFit =
+      (kSmemPerSm / kMinBlocks - kSmemPerBlockReserved) / (kWords * 4 * 32);
+  static constexpr int kNear = kFit < kNearSlots ? kFit : kNearSlots;
+  static_assert(kNear >= 1, "a block keeps one slot in shared memory");
   // the slots a thread needs at L lanes: log2(m) - 1, m = L / min(kRow, L)
   __host__ __device__ static int slots(int L) {
     int b = 0;
     for (int m = L / (L < kRow ? L : kRow); m > 2; m >>= 1) b++;
     return b;
   }
-  // words of the caller's scratch a row needs: the slots past kNearSlots
+  // words of the caller's scratch a row needs: the slots past kNear
   __host__ __device__ static int far_words(int L) {
-    const int d = slots(L) - kNearSlots;
+    const int d = slots(L) - kNear;
     return d > 0 ? d * kWords * 32 : 0;
   }
 };
 
 // One block of one warp a row (the note above); `slots` holds a
-// thread's first kNearSlots partials, dynamic shared memory sized by the
+// thread's first kNear partials, dynamic shared memory sized by the
 // launch, and `far` (far_words(L) a row) the rest.
 template <class F, bool kLaneMajor>
 __global__ void __launch_bounds__(32, MergeShape<F>::kMinBlocks)
@@ -231,10 +287,10 @@ __global__ void __launch_bounds__(32, MergeShape<F>::kMinBlocks)
   // slot k's words, 32 apart (a thread's interleaved with its warp's)
   constexpr int st = 32;
   const auto slot = [&](int k) {
-    return k < kNearSlots
+    return k < S::kNear
                ? slots + threadIdx.x + k * S::kWords * st
                : far + (size_t)g * S::far_words(L) + threadIdx.x +
-                     (k - kNearSlots) * S::kWords * st;
+                     (k - S::kNear) * S::kWords * st;
   };
   Pt<F> c;
   if (m == 1) c = load_lane<F, kLaneMajor>(in, g, t);
@@ -292,7 +348,7 @@ int merge_launch(const LaneRows& in, const Rows& out, uint32_t* far,
                  const F& f, cudaStream_t s) {
   using S = MergeShape<F>;
   if (in.n == 0) return 0;
-  const int near = min(S::slots(in.L), kNearSlots);
+  const int near = min(S::slots(in.L), S::kNear);
   if (S::far_words(in.L) > 0 && far == nullptr)
     return (int)cudaErrorInvalidValue;
   int device = 0, most = 0;
@@ -317,54 +373,94 @@ int merge_launch(const LaneRows& in, const Rows& out, uint32_t* far,
   return (int)cudaGetLastError();
 }
 
-// The tree over the product M on branch k (k = 1: G1, b3 = 9; k = 2: G2,
-// b3_mont the 16 Montgomery limbs of the Fq2 constant b3, c0 then c1):
-// G2 over CIOS on pairs of threads, over SOS and SOS2 one thread an
-// element; in lane-major (K2m) or limb-major (K5).
-template <Mul M, bool kLaneMajor>
-int merge_rows(int k, const LaneRows& in, const Rows& out, uint32_t* far,
-               const FieldParams<8>& P, const uint32_t* b3_mont,
-               cudaStream_t s) {
-  if (k == 1)
-    return merge_launch<kLaneMajor>(in, out, far, FpField<8, 9, M>{P}, s);
-  if constexpr (M == Mul::Cios) {
-    return merge_launch<kLaneMajor>(in, out, far,
-                                    fp2_pair<8, -1>(P, b3_mont), s);
+// The G2 lane tree's field context at N limbs over the product M: two
+// threads an element (fp2_pair.cuh's Fp2Pair) over CIOS, and at 12 limbs
+// over every product; the 8-limb SOS and SOS2 branches on one thread
+// (fp2.cuh's Fp2Field).
+template <int N, int NR, Mul M>
+using TreeField2 = std::conditional_t<N != 8 || M == Mul::Cios,
+                                      Fp2Pair<N, NR, M>, Fp2Field<N, NR, M>>;
+
+template <int N, int NR, Mul M>
+inline TreeField2<N, NR, M> tree_field2(const FieldParams<N>& P,
+                                        const uint32_t* b3_mont) {
+  if constexpr (N != 8 || M == Mul::Cios) {
+    return fp2_pair<N, NR, M>(P, b3_mont);
   } else {
-    return merge_launch<kLaneMajor>(
-        in, out, far, Fp2Field<8, -1, M>{P, fe2_from<8>(b3_mont)}, s);
+    return Fp2Field<N, NR, M>{P, fe2_from<N>(b3_mont)};
   }
+}
+
+// The branches a library of width N takes, as its C entries name them:
+// k = 1 (G1) with b3 the curve's 3b, a compile-time addition chain (9:
+// alt_bn128 at 8 limbs; 12: BLS12-381, 3: BLS12-377 at 12), and k = 2
+// (G2) with b3 the Fq2's non-residue nr - p (-1 at 8 limbs; -1, -5 at
+// 12) and b3_mont the 2N Montgomery limbs of the twist's Fq2 constant
+// b3.  fn(integral_constant k, integral_constant b3) for a branch the
+// width has, cudaErrorInvalidValue for any other.
+template <int N, class Fn>
+int on_branch(int k, int b3, const uint32_t* b3_mont, Fn&& fn) {
+  using K1 = std::integral_constant<int, 1>;
+  using K2 = std::integral_constant<int, 2>;
+  if constexpr (N == 8) {
+    if (k == 1 && b3 == 9) return fn(K1{}, std::integral_constant<int, 9>{});
+    if (k == 2 && b3 == -1 && b3_mont != nullptr)
+      return fn(K2{}, std::integral_constant<int, -1>{});
+  } else if constexpr (N == 12) {
+    if (k == 1 && b3 == 12)
+      return fn(K1{}, std::integral_constant<int, 12>{});
+    if (k == 1 && b3 == 3) return fn(K1{}, std::integral_constant<int, 3>{});
+    if (k == 2 && b3 == -1 && b3_mont != nullptr)
+      return fn(K2{}, std::integral_constant<int, -1>{});
+    if (k == 2 && b3 == -5 && b3_mont != nullptr)
+      return fn(K2{}, std::integral_constant<int, -5>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tree over the product M on on_branch's branch (k, b3) of width N:
+// G2 on tree_field2's context; in lane-major (K2m) or limb-major (K5).
+template <Mul M, bool kLaneMajor, int N>
+int merge_rows(int k, int b3, const LaneRows& in, const Rows& out,
+               uint32_t* far, const FieldParams<N>& P,
+               const uint32_t* b3_mont, cudaStream_t s) {
+  return on_branch<N>(k, b3, b3_mont, [&](auto K, auto B3) {
+    if constexpr (decltype(K)::value == 1) {
+      return merge_launch<kLaneMajor>(
+          in, out, far, FpField<N, decltype(B3)::value, M>{P}, s);
+    } else {
+      return merge_launch<kLaneMajor>(
+          in, out, far, tree_field2<N, decltype(B3)::value, M>(P, b3_mont),
+          s);
+    }
+  });
 }
 
 // The words of scratch a row of L lanes needs on branch k over the
-// product M (merge_rows' `far`, n rows of them): 0 unless m = L / r > 32
-// (L > 1024 on G1, 512 on G2 over pairs).
-template <Mul M>
+// product M at N limbs (merge_rows' `far`, n rows of them): 0 unless m =
+// L / r > 32 (at 8 limbs L > 1024 on G1, 512 on G2 over pairs) less the
+// near slots.  The shape depends on neither b3 nor nr.
+template <Mul M, int N>
 int merge_far_words(int k, int L) {
   if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
-  if (k == 1) return MergeShape<FpField<8, 9, M>>::far_words(L);
-  if constexpr (M == Mul::Cios) {
-    return MergeShape<Fp2Pair<8, -1>>::far_words(L);
-  } else {
-    return MergeShape<Fp2Field<8, -1, M>>::far_words(L);
-  }
+  if (k == 1) return MergeShape<FpField<N, N == 8 ? 9 : 12, M>>::far_words(L);
+  return MergeShape<TreeField2<N, -1, M>>::far_words(L);
 }
 
 // K5.  kmul: the product this library was built for ((int)M), checked;
-// b: the three input coordinates (K, n, L); o: three outputs (K, n, 1);
-// far: n * merge_far_words(k, L) words of scratch (null when that is 0).
-// k = 1: b3 must be 9 (alt_bn128 G1) and b3_mont is unused; k = 2: b3 is
-// the Fq2's non-residue, which must be -1 (alt_bn128), and b3_mont holds
-// the 16 Montgomery limbs of the Fq2 constant b3 (c0 then c1).
-template <Mul M>
+// n32: its width N, checked; b: the three input coordinates (K, n, L);
+// o: three outputs (K, n, 1); far: n * merge_far_words(k, L) words of
+// scratch (null when that is 0); (k, b3, b3_mont): one of on_branch's
+// branches.
+template <Mul M, int N>
 int merge_entry(int kmul, void* const* b, void* const* o, void* far,
                 long long n, int L, int n32, int k, int b3,
                 const uint32_t* b3_mont, const uint32_t* p,
                 const uint32_t* one_mont, uint32_t inv, int device,
                 void* stream) {
-  if (kmul != (int)M || n32 != 8 || n < 0 || L < 1 || (L & (L - 1)) != 0)
+  if (kmul != (int)M || n32 != N || n < 0 || L < 1 || (L & (L - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  if (!(k == 1 && b3 == 9) && !(k == 2 && b3 == -1 && b3_mont != nullptr))
+  if (on_branch<N>(k, b3, b3_mont, [](auto, auto) { return 0; }) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -372,22 +468,23 @@ int merge_entry(int kmul, void* const* b, void* const* o, void* far,
                (const uint32_t*)b[2]},
               (size_t)n * L, n, L, 0, 0};
   Rows out{{(uint32_t*)o[0], (uint32_t*)o[1], (uint32_t*)o[2]}, (size_t)n, 0};
-  return merge_rows<M, false>(k, in, out, (uint32_t*)far,
-                              field_params(p, one_mont, inv), b3_mont,
+  return merge_rows<M, false>(k, b3, in, out, (uint32_t*)far,
+                              field_params<N>(p, one_mont, inv), b3_mont,
                               (cudaStream_t)stream);
 }
 
 }  // namespace lff
 
-// The C entry point `merge_far_words` of a library over the product M,
-// for K5 and K2m: merge_far_words<M>, or -1 for another product.
+// The C entry point `merge_far_words` of a library over the product M
+// at LFF_N32 limbs, for K5 and K2m: merge_far_words<M, LFF_N32>, or -1
+// for another product.
 #define LFF_MERGE_FAR_WORDS(M)                                               \
   extern "C" int merge_far_words(int kmul, int k, int L) {                   \
-    return kmul == (int)M ? lff::merge_far_words<M>(k, L) : -1;              \
+    return kmul == (int)M ? lff::merge_far_words<M, LFF_N32>(k, L) : -1;     \
   }
 
 // The C entry points `merge_lanes` and `merge_far_words` of one library,
-// over the product M.
+// over the product M at LFF_N32 limbs.
 #define LFF_MERGE_ENTRY(M)                                                   \
   LFF_MERGE_FAR_WORDS(M)                                                     \
   extern "C" int merge_lanes(int kmul, void* const* b, void* const* o,       \
@@ -395,6 +492,7 @@ int merge_entry(int kmul, void* const* b, void* const* o, void* far,
                              int b3, const uint32_t* b3_mont,                \
                              const uint32_t* p, const uint32_t* one_mont,    \
                              uint32_t inv, int device, void* stream) {       \
-    return lff::merge_entry<M>(kmul, b, o, far, n, L, n32, k, b3, b3_mont,   \
-                               p, one_mont, inv, device, stream);            \
+    return lff::merge_entry<M, LFF_N32>(kmul, b, o, far, n, L, n32, k, b3,   \
+                                        b3_mont, p, one_mont, inv, device,   \
+                                        stream);                             \
   }

@@ -102,16 +102,6 @@ def k3_stem(n32: int, k: int, b3: int) -> str:
         "group_ops_g2" + ("" if b3 == -1 else f"_nr{-b3}"), n32)
 
 
-def width_only_8(G, what: str) -> None:
-    """Raise for a group over a wider field than 8 limbs: `what` (K5,
-    K2m, K6 or an SOS product) is built for alt_bn128's only."""
-    n32 = G.F.prime_field.n32
-    if n32 != 8:
-        raise NotImplementedError(
-            f"{what} at {n32} limbs ({G.name}) waits for ROADMAP Queue 1 "
-            "item 9c")
-
-
 def _check(G, op, coords, masks):
     if op not in OPS:
         raise ValueError(f"unknown group op {op!r}")

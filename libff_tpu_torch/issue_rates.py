@@ -94,12 +94,15 @@ def imad_rates(dev) -> dict:
 
 def imad_per_product(kmul: str = "cios", n32: int = 8) -> dict:
     """The multiply-adds of one Montgomery product by kind: the table's at
-    8 limbs; at another width CIOS only, n32 rows of 2 n32 + 1 lo (the
-    quotient's mul.lo among them) and 2 n32 hi (300 and 288 at 12)."""
+    8 limbs; at another width CIOS's and SOS's n32 rows of 2 n32 + 1 lo
+    (the quotient's mul.lo among them) and 2 n32 hi (300 and 288 at 12),
+    SOS2's product (n32^2 of each) and n32 / 2 waves of a 64-bit quotient
+    (3 lo, 1 hi) and 2 n32 of each (306 and 294 at 12)."""
     if n32 == 8:
         return IMAD_PER_FP_MUL[kmul]
-    if kmul != "cios":
-        raise ValueError(f"the {n32}-limb product is CIOS only, not {kmul}")
+    if kmul == "sos2":
+        return {"lo": 2 * n32 * n32 + 3 * n32 // 2,
+                "hi": 2 * n32 * n32 + n32 // 2}
     return {"lo": n32 * (2 * n32 + 1), "hi": 2 * n32 * n32}
 
 

@@ -15,10 +15,11 @@ on G1, refused on G2 as there.  ``kmul`` chooses the Montgomery product
 inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
 ``csrc/insert.cu``, "sos" and "sos2" from ``csrc/insert_sos.cu`` and
 ``csrc/insert_sos2.cu``; every product gives the same buckets.  Over
-12-limb Fp (BLS12-381 and BLS12-377, G1 and their G2 over Fq2) K2 builds
-from ``csrc/insert_n12.cu``, CIOS and raw buckets only: on a CUDA tensor
-the fused merge, an SOS product and K6 raise there (ROADMAP Queue 1 item
-9c), and the CPU's plain versions run every setting.
+12-limb Fp (BLS12-381 and BLS12-377, G1 and their G2 over Fq2) K2, K2m
+and K6 build from ``csrc/insert_n12.cu`` and K2 and K2m over the SOS
+products from ``csrc/insert_sos_n12.cu`` and ``csrc/insert_sos2_n12.cu``,
+every setting of the 8-limb path, counted with the width before the
+product: "K2 g1 n12", "K2m g2 n12 sos", "K6 g1 n12" and so on.
 
 On the card K2 is the sort :func:`bucket_lists`, which lists each
 (window, lane)'s steps by bucket in t order, then the chain kernel, which
@@ -44,7 +45,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import PairField2, kernel_branch, width_only_8
+from ..curves.group_ops import PairField2, kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 from ..fields.tower import kernel_nr
 from .merge import far_scratch, merge_lanes_plain
@@ -229,10 +230,6 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     k, b3, b3_mont = kernel_branch(G, "K2")
-    if merge:
-        width_only_8(G, "K2m, the fused merge,")
-    if kmul != "cios":
-        width_only_8(G, f"K2 over {kmul}")
     off, ent, rec, lane, out = _kernel_tensors(
         G, d, pts, B, k, (W, B, 1) if merge else (W, B, L))
     raw = [None] * 3 if merge else out
@@ -240,8 +237,8 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
     stem = _build.width_stem(_build.kmul_stem("insert", kmul), Fp.n32)
     fn = _build.function(stem, "insert", _ARGS)
     far = far_scratch(stem, kmul, k, W * B, L, d.device) if merge else None
-    name = _build.width_name(
-        _build.kmul_name(f"{'K2m' if merge else 'K2'} g{k}", kmul), Fp.n32)
+    name = _build.kmul_name(
+        _build.width_name(f"{'K2m' if merge else 'K2'} g{k}", Fp.n32), kmul)
     _build.launch(fn, f"{name} insert", d.device, KMULS.index(kmul),
                   _build.ptr(off), _build.ptr(ent),
                   int(ent.dtype == torch.int32), _build.ptr(rec),
@@ -269,18 +266,19 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
     kernel_branch(G, "K6")
-    width_only_8(G, "K6")
     W, T, L = d.shape
     off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, (W, B, L))
     Fp = G.F.prime_field
-    fn = _build.function("insert", "insert_v1", _ARGS_V1)
-    _build.launch(fn, "K6 insert_v1", d.device, _build.ptr(off),
+    fn = _build.function(_build.width_stem("insert", Fp.n32), "insert_v1",
+                         _ARGS_V1)
+    name = _build.width_name("K6 g1", Fp.n32)
+    _build.launch(fn, f"{name} insert_v1", d.device, _build.ptr(off),
                   _build.ptr(ent), int(ent.dtype == torch.int32),
                   _build.ptr(rec), _ptr_array(lane),
                   *(_build.ptr(t) for t in raw), W, T, L, B, Fp.n32,
                   G._b3_host, Fp.p_c, Fp.one_c, Fp.inv32, d.get_device(),
                   _build.stream_ptr(d))
-    _build.LAUNCHES["K6 g1"] += 1
+    _build.LAUNCHES[name] += 1
     return ProjectivePoint(*raw)
 
 

@@ -16,16 +16,21 @@ the halving loop of ``pippenger._reduce_buckets``, so every ``merge``
 setting of the MSM gives the same buckets.  ``kmul`` chooses the
 Montgomery product (``MsmConfig.kmul``, pallas_insert3.py:251-256): "cios"
 builds from ``csrc/merge.cu``, "sos" and "sos2" from ``csrc/merge_sos.cu``
-and ``csrc/merge_sos2.cu``.  A CUDA tensor launches the kernel; a CPU
-tensor runs :func:`merge_lanes_plain` over the same product.
+and ``csrc/merge_sos2.cu``; over 12-limb Fp (BLS12-381 and BLS12-377, G1
+and G2) from ``csrc/merge_n12.cu``, ``merge_sos_n12.cu`` and
+``merge_sos2_n12.cu``, counted as "K5 g1 n12", "K5 g2 n12 sos" and so on.
+A CUDA tensor launches the kernel; a CPU tensor runs
+:func:`merge_lanes_plain` over the same product.
 
 On the card (``csrc/merge.cuh``) one warp takes a row: each of its
-elements (a thread on G1, a pair of threads on G2 over CIOS) walks the
-levels h >= 32 (16 on G2 pairs) over its own lanes depth first, the
-waiting partials in shared memory, and a butterfly of warp shuffles runs
-the last levels.  Partials past a thread's fourth wait in a scratch array
-(:func:`far_scratch`), which only rows of more than 32 lanes a thread
-need (L > 1024 on G1, 512 on G2 over pairs).
+elements (a thread on G1, a pair of threads on G2 over CIOS, and at 12
+limbs over every product) walks the levels h >= 32 (16 on G2 pairs) over
+its own lanes depth first, the waiting partials in shared memory, and a
+butterfly of warp shuffles runs the last levels.  Partials past a
+thread's near slots (four at 8 limbs; at 12 as many as its blocks an SM
+fit in shared memory: two on G1, four on G2) wait in a scratch array
+(:func:`far_scratch`), which the library sizes (at 8 limbs only rows of
+more than 32 lanes a thread need it: L > 1024 on G1, 512 on G2 pairs).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import kernel_branch, width_only_8
+from ..curves.group_ops import kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 
 _ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
@@ -77,7 +82,6 @@ def merge_lanes(G, buckets: ProjectivePoint,
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     k, b3, b3_mont = kernel_branch(G, "K5")
-    width_only_8(G, "K5")
     W, B, L = buckets.z.shape[-3:]
     ins = [c.contiguous() for c in buckets]
     outs = [torch.empty(G.F.el_shape + (W, B, 1), dtype=torch.int32,
@@ -87,10 +91,10 @@ def merge_lanes(G, buckets: ProjectivePoint,
         return (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
 
     Fp = G.F.prime_field
-    stem = _build.kmul_stem("merge", kmul)
+    stem = _build.width_stem(_build.kmul_stem("merge", kmul), Fp.n32)
     fn = _build.function(stem, "merge_lanes", _ARGS)
     far = far_scratch(stem, kmul, k, W * B, L, dev)
-    name = _build.kmul_name(f"K5 g{k}", kmul)
+    name = _build.kmul_name(_build.width_name(f"K5 g{k}", Fp.n32), kmul)
     _build.launch(fn, f"{name} merge_lanes", dev, KMULS.index(kmul),
                   ptrs(ins), ptrs(outs),
                   None if far is None else _build.ptr(far), W * B, L,

@@ -30,9 +30,8 @@ ports.  ``tb`` (the TPU kernel's time rows per grid step) is accepted
 and has no effect on the card.
 
 The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 and G2
-of BLS12-381 and BLS12-377 (12 limbs); at 12 limbs the card runs K2 over
-CIOS with K3's lane tree (merge False), and the other settings raise
-there (ROADMAP Queue 1 item 9c).
+of BLS12-381 and BLS12-377 (12 limbs), every setting on each, each width
+from its own kernel libraries (``_build.width_stem``).
 """
 
 from __future__ import annotations
@@ -190,9 +189,10 @@ def window_totals_v1(G: Group, d: torch.Tensor, pts, B: int
 
 
 def _check_config(G: Group, cfg: MsmConfig) -> None:
-    """The settings the port runs (pippenger.py:520-540), or raise: an
-    unknown scatter or formulas value (pippenger.py:41-68); "xla" is
-    still to port; "pallas" is G1 only and has no lane merge and no
+    """The settings the port runs (pippenger.py:520-540), on every group
+    the kernels take at either width, or raise: an unknown scatter or
+    formulas value (pippenger.py:41-68); "xla" is still to port (ROADMAP
+    Queue 1 item 18); "pallas" is G1 only and has no lane merge and no
     product but CIOS (the JAX package would ignore either silently, and
     would run an unknown kmul as CIOS, pallas_insert.py:98-99)."""
     if cfg.engine not in ENGINES:

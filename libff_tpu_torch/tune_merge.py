@@ -1,13 +1,17 @@
 """Time K5, the lane merge, under other constants of ``csrc/merge.cuh``.
 
-    python3 -m libff_tpu_torch.tune_merge [--against DIR]
+    python3 -m libff_tpu_torch.tune_merge [--curve CURVE] [--against DIR]
         [NAME=V,NAME=V ...] ...
 
 Each argument is one variant: macros of ``csrc/merge.cuh`` (``TUNABLES``)
 set to other values, such as ``LFF_K5_MIN_BLOCKS_G2=14``
 (``__launch_bounds__``'s blocks an SM, one warp each, of the G1 kernel
-and of the G2 kernel over pairs of threads).  With no argument the
-variant is G1 and G2 at 12 blocks an SM.  At the MSM paths' shape (W =
+and of the G2 kernel over pairs of threads; at 12 limbs
+``LFF_K5_MIN_BLOCKS_G1_N12`` and ``..._G2_N12``; the slots a thread keeps
+in shared memory follow them).  ``--curve`` picks the
+curve (``workload.CURVES``: alt_bn128, the default, builds
+``csrc/merge.cu``; bls12_381 and bls12_377 ``csrc/merge_n12.cu``).  With no variant it runs
+``DEFAULT_VARIANTS`` of the curve's width.  At the MSM paths' shape (W =
 32 windows of B = 128 buckets, 1024 lanes) it times ``merge_lanes`` on G1
 and G2, on two inputs each: "random", ``workload.merge_inputs`` (a
 quarter of the lanes the identity or at infinity), and "path", K2's raw
@@ -20,6 +24,7 @@ JSON lines, ``--against``) is :mod:`libff_tpu_torch.tune`'s.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -32,15 +37,19 @@ from .msm.merge import merge_lanes, merge_lanes_plain
 from .msm.pippenger import default_config
 from .timing import clock_under_load, event_ms
 
-TUNABLES = ("LFF_K5_MIN_BLOCKS_G1", "LFF_K5_MIN_BLOCKS_G2")
-DEFAULT_VARIANTS = [{"LFF_K5_MIN_BLOCKS_G1": 12, "LFF_K5_MIN_BLOCKS_G2": 12}]
+TUNABLES = ("LFF_K5_MIN_BLOCKS_G1", "LFF_K5_MIN_BLOCKS_G2",
+            "LFF_K5_MIN_BLOCKS_G1_N12", "LFF_K5_MIN_BLOCKS_G2_N12")
+DEFAULT_VARIANTS = {
+    8: [{"LFF_K5_MIN_BLOCKS_G1": 12, "LFF_K5_MIN_BLOCKS_G2": 12}],
+    12: [{"LFF_K5_MIN_BLOCKS_G1_N12": b, "LFF_K5_MIN_BLOCKS_G2_N12": b}
+         for b in (8, 10, 16)]}
 SHAPE = (32, 128, 1024)          # W, B, L of both MSM paths at c = 8
 PATHS = {"g1": 20, "g2": 18}     # log2 of each MSM path's points
 REPS = 10
 
 
-def cases(dev):
-    dc = device_curve("alt_bn128")
+def cases(dev, curve="alt_bn128"):
+    dc = device_curve(curve)
     rng = np.random.default_rng(10)
     for group, log2n in PATHS.items():
         G = getattr(dc, group)
@@ -71,9 +80,12 @@ def measure(case, rep):
 
 
 def main(argv) -> int:
-    return tune.main("tune_merge", "merge", TUNABLES, argv, DEFAULT_VARIANTS,
-                     cases, measure, passes=2,
-                     ptxas=_build.tree_kernels)
+    curve, argv = workload.curve_arg(argv)
+    n32 = device_curve(curve).fq.n32
+    return tune.main("tune_merge", _build.width_stem("merge", n32), TUNABLES,
+                     argv, DEFAULT_VARIANTS[n32],
+                     functools.partial(cases, curve=curve), measure,
+                     passes=2, ptxas=_build.tree_kernels)
 
 
 if __name__ == "__main__":

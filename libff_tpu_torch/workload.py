@@ -35,6 +35,21 @@ from .msm.pippenger import _prepare, msm_pippenger
 
 PERIOD = {"g1": 32, "g2": 16}
 SEED = 2024
+# the curves of the MSM paths: alt_bn128 at 8 limbs, the BLS12 pair at 12
+CURVES = ("alt_bn128", "bls12_381", "bls12_377")
+
+
+def curve_arg(argv: list[str]) -> tuple[str, list[str]]:
+    """(the curve of a ``--curve CURVE`` option, alt_bn128 without one;
+    the other arguments) of a script's argv; raises on a curve not in
+    CURVES."""
+    curve = "alt_bn128"
+    if "--curve" in argv:
+        i = argv.index("--curve")
+        curve, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    if curve not in CURVES:
+        raise ValueError(f"unknown curve {curve!r}; one of {CURVES}")
+    return curve, argv
 
 
 def rand_elements(F, n: int, rng, dev) -> torch.Tensor:

@@ -1019,19 +1019,140 @@ def test_msm_g2_n12_matches_oracle(dev, dc12, curve):
     assert not [k for k in n if not k.endswith("n12") and k != "K2 sort g2"]
 
 
-def test_n12_refuses_what_waits(dev, dc12):
-    """On a CUDA tensor the fused merge, K5, K6 and the SOS products raise
-    at 12 limbs (ROADMAP item 9c), on G1 and on G2: none falls back to a
-    plain version."""
-    from libff_tpu_torch.msm.pippenger import msm_pippenger
+# the settings that run K5, K2m, K6 and the SOS products at 12 limbs:
+# every MsmConfig setting of the 8-limb paths (chip_smoke.MSM_VARIANTS)
+KMULS = ["cios", "sos", "sos2"]
+# steps of the 12-limb K2m checks: above insert.cuh's 12-limb kEntries
+# (342 on G1, 86 a pair on G2), so the chain kernel runs 2 threads a lane
+K2M_N12_STEPS = {"g1": 350, "g2": 90}
 
-    dc = dc12["bls12_381"]
-    for group, fields in (("g1", {"merge": True}), ("g1", {"merge": "kernel"}),
-                          ("g1", {"engine": "pallas"}), ("g1", {"kmul": "sos"}),
-                          ("g1", {"kmul": "sos2"}), ("g2", {"merge": True}),
-                          ("g2", {"merge": "kernel"}), ("g2", {"kmul": "sos"})):
-        G = getattr(dc, group)
-        s, A, _ = workload.msm_case(dc, group, 8, dev, 77)
-        cfg = MsmConfig(c=4, lanes=128, **fields)
-        with pytest.raises(NotImplementedError, match="9c"):
-            msm_pippenger(G, s, A, 255, config=cfg)
+
+@pytest.fixture(scope="module")
+def n12_case(dev, dc12):
+    """Per (curve, group): distinct points (some at infinity) through the
+    path's digits at c = 8, 128 lanes and K2M_N12_STEPS steps, cut to 2
+    windows, with the plain raw buckets and their plain lane totals."""
+    out = {}
+    for curve in CURVES12:
+        dc = dc12[curve]
+        for group in ("g1", "g2"):
+            G = getattr(dc, group)
+            T = K2M_N12_STEPS[group]
+            d, pts, B = chip_smoke.k2_inputs(dc, group, T * 128,
+                                             MsmConfig(c=8, lanes=128),
+                                             np.random.default_rng(87), dev)
+            d = d[:2].contiguous()
+            raw = insert_plain(G, d, pts, B)
+            out[curve, group] = (G, d, pts, B, raw,
+                                 merge_lanes_plain(G, raw))
+    return out
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("kmul", KMULS)
+def test_k2_k2m_k5_n12_match_plain(dev, n12_case, curve, group, kmul):
+    """At 12 limbs under each kmul: K2 (raw buckets) against insert_plain,
+    K5 on them and K2m (the fused merge, two chain threads a lane) against
+    merge_lanes_plain, each one launch under its own name ("K2 g1 n12
+    sos", ...), K2m never counted as K5."""
+    G, d, pts, B, raw, merged = n12_case[curve, group]
+    for name, fn, want in (
+            ("K2", lambda: insert(G, d, pts, B, kmul=kmul), raw),
+            ("K5", lambda: merge_lanes(G, raw, kmul), merged),
+            ("K2m", lambda: insert(G, d, pts, B, merge=True, kmul=kmul),
+             merged)):
+        key = _build.kmul_name(f"{name} {group} n12", kmul)
+        before = dict(_build.LAUNCHES)
+        got = fn()
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+        assert {k for k, v in _build.LAUNCHES.items()
+                if v != before.get(k, 0)} <= {key, f"K2 sort {group}"}
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (name, kmul)
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("L", [1, 2, 16, 32, 64, 512, 1024, 2048])
+def test_k5_n12_matches_plain_at_every_lane_count(dev, dc12, curve, group,
+                                                  L):
+    """K5 at 12 limbs under each kmul against merge_lanes_plain at lane
+    counts from 1 to 2048 (the in-thread walk alone, the butterfly alone,
+    both, and the far slots past the near ones), on 3 windows of 7 buckets
+    with identity buckets and lanes at infinity (workload.merge_inputs)."""
+    G = getattr(dc12[curve], group)
+    raw = workload.merge_inputs(G, 3, 7, L, np.random.default_rng(L + 88),
+                                dev)
+    want = merge_lanes_plain(G, raw)
+    for kmul in KMULS:
+        name = _build.kmul_name(f"K5 {group} n12", kmul)
+        before = _build.LAUNCHES[name]
+        got = merge_lanes(G, raw, kmul)
+        assert _build.LAUNCHES[name] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kmul
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+def test_k6_n12_matches_plain(dev, n12_case, curve):
+    """K6, the v1 insert, over 12-limb Fp: insert_plain's raw buckets, one
+    launch counted as "K6 g1 n12"; refused on G2 as at 8 limbs."""
+    G, d, pts, B, raw, _ = n12_case[curve, "g1"]
+    before = _build.LAUNCHES["K6 g1 n12"]
+    got = insert_v1(G, d, pts, B)
+    assert _build.LAUNCHES["K6 g1 n12"] == before + 1
+    for g, w in zip(got, raw):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        insert_v1(*n12_case[curve, "g2"][:4])
+
+
+@pytest.mark.parametrize("curve", CURVES12)
+@pytest.mark.parametrize("group,key,fields,kernel", [
+    (g, key, fields, kernel) for g in ("g1", "g2")
+    for key, fields, kernel in chip_smoke.MSM_VARIANTS[g]])
+def test_msm_n12_configs_match_oracle(dev, dc12, curve, group, key, fields,
+                                      kernel):
+    """Every MsmConfig setting beside the default on the 12-limb G1 and
+    G2 MSMs (c = 8, 128 lanes): the oracle's point, the setting's kernel
+    launched under its 12-limb name and no 8-limb kernel."""
+    dc = dc12[curve]
+    s, A, want = workload.msm_case(dc, group, 12 if group == "g1" else 10,
+                                   dev, 89)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(getattr(dc, group), s, A,
+                                 MsmConfig(c=8, lanes=128, **fields))
+    assert got == want, key
+    n = _build.LAUNCHES
+    assert n[chip_smoke.n12_name(kernel)] == 1, (key, dict(n))
+    assert not [k for k in n if " n12" not in k and not k.startswith(
+        "K2 sort")], dict(n)
+
+
+def test_width_without_kernel_raises_9d(dev):
+    """A group over a field of no kernel width (the toy curve's p = 65539,
+    2 limbs) raises naming ROADMAP item 9d on a CUDA tensor in every
+    wrapper of this slice: none falls back to a plain version."""
+    from libff_tpu_torch.curves.curvedef import GroupDef
+    from libff_tpu_torch.curves.group import Group
+    from libff_tpu_torch.host import ec as hec
+
+    E = hec.WeierstrassCurve(hf.Fp(65539, name="toy_Fp"), 0, 11)
+    G = Group(PrimeField(65539, name="toy_Fp"),
+              GroupDef(name="toy", curve=E, generator=(2, 29831),
+                       cofactor=1, order=65287, wnaf_window_table=(4,),
+                       fixed_base_exp_window_table=(1,)))
+    T, L, B = 3, 128, 4
+    d = torch.ones((1, T, L), dtype=torch.int32, device=dev)
+    x = G.F.from_ints([2] * (T * L), dev).reshape(-1, T, L)
+    y = G.F.from_ints([29831] * (T * L), dev).reshape(-1, T, L)
+    pts = (x, y, y, torch.zeros((T, L), dtype=torch.bool, device=dev))
+    raw = ProjectivePoint(*(G.F.from_ints([1] * (B * L), dev)
+                            .reshape(-1, 1, B, L) for _ in range(3)))
+    for call in (lambda: merge_lanes(G, raw, "sos"),
+                 lambda: insert(G, d, pts, B, merge=True, kmul="sos2"),
+                 lambda: insert(G, d, pts, B, kmul="sos"),
+                 lambda: insert_v1(G, d, pts, B)):
+        with pytest.raises(NotImplementedError, match="9d"):
+            call()
