@@ -14,14 +14,15 @@ latency of a lone product), K7c, K7d and the batched-affine experiment
 K7e), checks each bit for bit against its plain version on the card at
 the shapes its path gives it (K2, K2m, K5 and K6 on distinct points,
 some at infinity; K2's sort against ``bucket_lists_plain``; K2 also on
-skewed digits, at 4 windows of the path's steps and lanes; K3's scan at
-the path's W = 32 totals and c = 8, with identities and repeated points;
-the inverses at one element, 0, 1 and p - 1 among the inputs, and at
-2^20; K2m's tail as its time less K2's on the same inputs, beside K5's,
-and phase merge's line sets each K5 and K2m beside its time under the
-lane tree's previous design, and the K2 phases' lines K2's sort and the
-12-limb K2 beside theirs, ``BEFORE_MS``, which is not measured here),
-and runs these paths through ``msm_pippenger``:
+skewed digits, at 4 windows, a quarter of the path's steps and its
+lanes; K3's scan at the path's W = 32 totals and c = 8, with identities
+and repeated points; the inverses at one element, 0, 1 and p - 1
+among the inputs, and at 2^20; K2m's tail as its time less K2's on the
+same inputs, beside K5's, and phase merge's line sets each K5 and K2m
+beside its time under the lane tree's previous design, and the K2
+phases' lines K2's sort and the 12-limb K2 beside theirs,
+``BEFORE_MS``, which is not measured here), and runs these paths
+through ``msm_pippenger``:
 
 - the alt_bn128 G1 signed Pippenger MSM at 2^20 points, held against the
   exact oracle of bench.py:113-137, with the default configuration (K1e,
@@ -40,8 +41,9 @@ and runs these paths through ``msm_pippenger``:
   and K5 over the SOS products).  Before them the
   12-limb kernels are held bit for bit against their plain versions on
   the inputs they are timed on: K1e and K1e inv on BLS12-381's Fq at one
-  element and 2^20, K3's six ops at 2^21 and its scan at the path's
-  (W, c) on BLS12-381 and on BLS12-377 (its b3 = 3 instantiation), and
+  element and 2^20, K3's six ops at 2^21 (BLS12-377's at K3_377_N) and
+  its scan at the path's (W, c) on BLS12-381 and on BLS12-377 (its b3 = 3
+  instantiation), and
   K2 on both timed at the path's
   shape, the first K2_N12_WINDOWS windows of BLS12-381's timed output
   held against the plain insert on those windows (at 12 limbs the plain
@@ -59,7 +61,18 @@ and runs these paths through ``msm_pippenger``:
   element and 2^18, K3's six G2 ops at 2^21 and its scan at the path's
   (W, c) on both curves, K2 on both as for G1, and the merges as for G1,
   each held bit for bit against its plain version on
-  the inputs it is timed on.
+  the inputs it is timed on;
+- BW6-761's G1 MSM at 2^20 points and G2 MSM at 2^18, both over its
+  24-limb Fq (G1 with b3 = -3, G2 the M-twist over Fq with b3 = 12, both
+  on the kernels' Fp branch), 377-bit scalars, held against the same
+  structured oracle with each group's generator under
+  default_config(n, G) (``bw6_paths``: the 24-limb K1e, K1e inv, K2 and
+  K3 with its scan; the other settings wait for ROADMAP Queue 1 item 9e).
+  Before them K1e and K1e inv at one element and 2^20, K3's six ops at
+  2^21 and its scan at the path's (48, 8) for each group, and K2 timed at
+  each path's shape, its first K2_N24_WINDOWS windows held to the plain
+  insert, each held bit for bit against its plain version on the inputs
+  it is timed on.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
@@ -82,7 +95,9 @@ The launch counts are set to 0 just before each path's first run and read
 just after it; each default path must make one scan launch, one inverse
 launch and at most 8 (G1) or 2 (G2) K1e launches; a 12-limb path
 launches no 8-limb kernel but K2's sort, and a 12-limb G2 path one K2
-and one K2 sort and at most G2_N12_MOST K4e and K1e launches; each
+and one K2 sort and at most G2_N12_MOST K4e and K1e launches; a 24-limb
+path one K2, K2 sort, scan and inverse, at most 8 K1e and no 8- or
+12-limb kernel but K2's sort; each
 setting of MSM_VARIANTS must launch its kernel (at 12 limbs under its
 12-limb name, ``n12_name``).  K2's sort rows give
 ``torch.sort(keys, stable=True)`` on the same keys as their library
@@ -114,13 +129,23 @@ LOG2N = 20
 LOG2N_G2 = 18
 SEED = 2024
 MSM_STEADY_RUNS = 10
+# the steady runs of each MsmConfig setting beside a path's default (the
+# 24-limb paths' plain checks took their room in the smoke's time)
+VARIANT_STEADY_RUNS = 3
 CHECK_CHUNK = 1 << 20           # elements a K7 plain check runs at once
 K7E_CHECKED = 4                 # lane_inv instances held against the plain
-# K7e's steps: a quarter of the harness's 2048, which quarters the
-# phase's plain checks (sequential in the steps) to keep the smoke's time
-# (the 12-limb merge phases and MSM settings took its room)
-K7E_T = 512
+# K7e's steps: an eighth of the harness's 2048, which cuts the phase's
+# plain checks (sequential in the steps) to keep the smoke's time (the
+# 12-limb merge phases and MSM settings, then the 24-limb plain checks,
+# took its room)
+K7E_T = 256
 SKEW_WINDOWS = 4                # windows of K2's skewed-digit check
+SKEW_STEP_SHARE = 4             # and its steps, the path's T / this (the
+                                # plain insert takes its steps one after
+                                # another)
+# BLS12-377's K3 ops beside BLS12-381's at 2^21: at 2^18 (its scan at the
+# path's (W, c)), to keep the smoke's time
+K3_377_N = 1 << 18
 INV_N = 1 << 20                 # K1e inv, K4e inv: the throughput shape
 # each default path's inverse kernel and the most K1e launches it may make
 INV_LAUNCHES = {"g1": ("K1e inv", 8), "g2": ("K4e inv", 2)}
@@ -130,6 +155,13 @@ CURVES12 = ("bls12_381", "bls12_377")
 K2_N12_WINDOWS = 8              # windows of the 12-limb K2 checks
 K2_377_WINDOWS = 2              # of BLS12-377's G2 K2 check (its G1 K2's
                                 # plain insert, a minute, is not run)
+# BW6-761's paths over 24-limb Fq, G1 at 2^20 points and G2 (over Fq
+# too) at 2^18, and the windows of each K2 check held to the plain insert
+# (at 24 limbs the plain insert's T steps take about 0.1 s each, one after
+# another, whatever the windows)
+BW6 = "bw6_761"
+K2_N24_WINDOWS = {"g1": 1, "g2": 2}
+WORDS24 = 24                    # of a 24-limb Fp element
 # the most K4e n12 and K1e n12 launches a 12-limb G2 path makes:
 # proj_to_jacobian's 3 Fq2 products and to_affine's 4; the negation of y
 # in _prepare (K1e's Fq2 branch), counted on the first card run
@@ -320,9 +352,10 @@ def phase_inv(F, rng, dev, n: int = INV_N) -> dict:
     inv_edges' inputs and a random element, timed there; then at INV_N
     elements with the edge values (on Fq2 every pair of them) first, timed
     there (n, INV_N by default).  Each timed output is held against its
-    plain version.  The products are those of the kernel's ladder and, for
-    the bounds, of the shortest sliding-window chain for p - 2
-    (window_products)."""
+    plain version (the one-element ones by one plain call on all of them
+    side by side, whose time is plain_ms_at_1).  The products are those
+    of the kernel's ladder and, for the bounds, of the shortest
+    sliding-window chain for p - 2 (window_products)."""
     from libff_tpu_torch.fields.fp import (fp_inv, fp_inv_plain,
                                            ladder_products, window_products)
     from libff_tpu_torch.fields.tower import fq2_inv, fq2_inv_plain
@@ -337,15 +370,21 @@ def phase_inv(F, rng, dev, n: int = INV_N) -> dict:
 
     products, chain = counts(ladder_products(B.p - 2))
     bound_products, bound_chain = counts(window_products(B.p - 2))
-    singles = {}
+    singles, xs, gots = {}, [], []
     for key, v in [*inv_edges(F).items(), ("random", None)]:
         x = rand_elements(F, 1, rng, dev)
         if v is not None:
             x = B.plain_from_ints(list(v), dev).T.reshape(F.el_shape + (1,))
         ms, got = timed_output(lambda: inv(F, x), 50)
-        want, plain_ms = host_timed(lambda: plain(F, x))
-        singles[key] = {"max_abs_err": max_abs_err([got], [want]), "ms": ms,
-                        "plain_ms": plain_ms}
+        singles[key] = {"ms": ms}
+        xs.append(x)
+        gots.append(got)
+    # the plain version on the one-element inputs side by side: its
+    # ladder's products run one after another, so it takes as long on
+    # five elements as on one
+    want, plain_ms_at_1 = host_timed(lambda: plain(F, torch.cat(xs, -1)))
+    for i, r in enumerate(singles.values()):
+        r["max_abs_err"] = max_abs_err([gots[i]], [want[..., i:i + 1]])
     a = rand_elements(F, n, rng, dev)
     ev = edge_values(B)
     if fq2:
@@ -363,7 +402,7 @@ def phase_inv(F, rng, dev, n: int = INV_N) -> dict:
            "bound_products": bound_products,
            "bound_chain_products": bound_chain, "at_1": singles,
            "ms_at_1": max(r["ms"] for r in singles.values()),
-           "plain_ms_at_1": max(r["plain_ms"] for r in singles.values())}
+           "plain_ms_at_1": plain_ms_at_1}
     res["max_abs_err"] = max([res["max_abs_err"]] + [
         r["max_abs_err"] for r in singles.values()])
     if res["max_abs_err"]:
@@ -504,7 +543,8 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     not repeat and some at infinity; its sort launch against
     bucket_lists_plain there, and the sort's keys through torch.sort
     (stable) for its library time; and, without `windows`, K2 on skewed
-    digits (``skewed``) at SKEW_WINDOWS windows of the same (T, L).  With
+    digits (``skewed``) at SKEW_WINDOWS windows and the first T /
+    SKEW_STEP_SHARE steps of the same (T, L).  With
     `windows`, K2 is timed at the path's shape and the first `windows`
     windows of its timed output are held against the plain version on
     those windows (a bucket depends on its own window's digits only; the
@@ -548,12 +588,16 @@ def phase_k2(dc, group: str, n: int, cfg, rng, dev, windows=None):
     del lists, want_lists, keys
     skew = None                                 # not run with `windows`
     if windows is None:
-        ds, ps = skewed(d[:SKEW_WINDOWS], pts, B)
+        ts = d.shape[1] // SKEW_STEP_SHARE
+        ds, ps = skewed(d[:SKEW_WINDOWS, :ts].contiguous(),
+                        tuple(a[..., :ts, :] for a in pts), B)
         skew = {"shape": list(ds.shape) + [B],
                 "max_abs_err": max_abs_err(insert(G, ds, ps, B),
                                            insert_plain(G, ds, ps, B))}
         del ds, ps
-    name = _build.width_name(f"K2 {group}", G.F.prime_field.n32)
+    # the launch count's name: BW6-761's G2 lies over Fq, the G1 branch
+    name = _build.width_name(sort_name.replace(" sort", ""),
+                             G.F.prime_field.n32)
     res = {"name": name, "before_ms": BEFORE_MS.get(name),
            "shape": list(d.shape) + [B], "checked_windows": checked,
            "max_abs_err": err, "points_at_infinity": int(pts[3].sum()),
@@ -849,19 +893,21 @@ def phase_affine(dc) -> tuple[dict, dict]:
     return rep, res
 
 
-def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
+def phase_msm(dc, group: str, log2n: int, case, cfg,
+              steady: int = MSM_STEADY_RUNS) -> dict:
     """The path itself: the MSM of `group` at 2^log2n points through
     msm_pippenger and to_affine under cfg, on case = (scalars, points,
     oracle), held against the structured oracle in a first run and
-    MSM_STEADY_RUNS steady runs.  The launch counts are set to 0 just
-    before the first run and read just after it."""
+    `steady` steady runs (MSM_STEADY_RUNS by default).  The launch
+    counts are set to 0 just before the first run and read just after
+    it."""
     from libff_tpu_torch import _build, workload
 
     G = getattr(dc, group)
     n = 1 << log2n
     scalars, points, want = case
     runs = []
-    for run in range(1 + MSM_STEADY_RUNS):
+    for run in range(1 + steady):
         if run == 0:
             torch.cuda.synchronize()
             _build.LAUNCHES.clear()
@@ -887,7 +933,7 @@ def phase_msm(dc, group: str, log2n: int, case, cfg) -> dict:
 
 
 def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
-                k7_launches, rates, n12) -> list[dict]:
+                k7_launches, rates, n12, n24) -> list[dict]:
     """One entry per kernel and branch: its time, its plain version's,
     its bound at the timed shape, and its launches in its path's MSM run
     (the K7 benches: in the issue-rate and roofline phases, k7_launches).
@@ -899,13 +945,17 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     group operation, so library_ms is null but on K2's sort rows, whose
     permutation torch.sort(stable=True) of the same keys computes.  The
     12-limb rows (n12, from bls_paths) come from the BLS12-381 G1 and G2
-    paths."""
+    paths, the 24-limb rows (n24, from bw6_paths) from BW6-761's: its G1
+    runs the kernels' Fp branch at b3 = -3 and its G2 at b3 = 12, one
+    launch count for both, so each kernel has a row for each b3 ("K3 g1
+    n24" and "K3 g1 n24 b3=12"), its launches read from its own path."""
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
-    def add(name, path, source, replaces, ms, plain_ms, shape, err, bnd):
+    def add(name, path, source, replaces, ms, plain_ms, shape, err, bnd,
+            counted=None):
         launches = (k7_launches if path is None
-                    else msm[path]["launches"]).get(name, 0)
+                    else msm[path]["launches"]).get(counted or name, 0)
         out.append({"name": name, "route": "cuda", "source": src + source,
                     "replaces": replaces if replaces.startswith("profile/")
                     else ref + replaces, "launches": launches,
@@ -1046,6 +1096,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                                            r["ops"].items()},
                    bls12_377_ms_by_op={k: v["ms"] for k, v in
                                        r377["ops"].items()},
+                   bls12_377_n=r377["n"],
                    bls12_377_scan_ms=r377["scan"]["ms"])
     q = r["scan"]
     sc = scan_counts(q["W"], q["c"], 1)
@@ -1108,6 +1159,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                                            r["ops"].items()},
                    bls12_377_ms_by_op={k: v["ms"] for k, v in
                                        r377["ops"].items()},
+                   bls12_377_n=r377["n"],
                    bls12_377_scan=r377["scan"])
     q = r["scan"]
     sc = scan_counts(q["W"], q["c"], 2)
@@ -1130,6 +1182,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                    bls12_377_ms=r377["ms"],
                    bls12_377_checked_windows=r377["checked_windows"])
     n12_merge_rows(add, out, n12, rates)
+    n24_rows(add, out, n24, rates)
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -1228,6 +1281,73 @@ def n12_merge_rows(add, out: list, n12: dict, rates: dict) -> None:
                     "over_k2_plus_k5") if q.get(k) is not None})
                 out[-1].update(bls12_377_ms=q7["ms"],
                                plain_checked_windows=r["checked_windows"])
+
+
+def n24_rows(add, out: list, n24: dict, rates: dict) -> None:
+    """The kernels line's rows of the 24-limb kernels on BW6-761's paths
+    through kernel_line's `add` into `out`: K1e n24 and K1e inv n24 (G1
+    path), and K3 with its scan and K2 once for each b3, G1's -3 and
+    G2's 12, bytes and products as the narrower rows count them.  No lone
+    chain (K7b lone) is timed at 24 limbs, so the latency chains' rows
+    give their time a dependent product (chain_ns_per_product), not an
+    own latency."""
+    ref = "libff_tpu/"
+    w = WORDS24
+    r = n24["k1e"]
+    n = r["n"]
+    ob = field_op_bounds(r["ops"], 1, n, rates, n32=24)
+    add("K1e n24", f"{BW6} g1", "fp_ops_n24.cu", "msm/pallas_insert.py:87",
+        r["ops"]["mul"]["ms"], r["ops"]["mul"]["plain_ms"], [w, n],
+        r["max_abs_err"], ob["mul"])
+    out[-1].update(op_bounds=ob, ms_by_op={k: v["ms"] for k, v in
+                                           r["ops"].items()},
+                   ms_at_1=r["ms_at_1"])
+    r = n24["inv"]
+    n = r["n"]
+    add("K1e inv n24", f"{BW6} g1", "fp_ops_n24.cu",
+        "msm/pallas_insert.py:87", r["ms"], r["plain_ms"], [w, n],
+        r["max_abs_err"],
+        bound(2 * 4 * w * n, imads(r["bound_products"] * n, n32=24), rates))
+    out[-1].update(
+        computes=ref + "fields/fp.py:465", products=r["products"],
+        chain_products=r["chain_products"],
+        bound_products=r["bound_products"],
+        bound_chain_products=r["bound_chain_products"], ms_at_1=r["ms_at_1"],
+        plain_ms_at_1=r["plain_ms_at_1"],
+        chain_ns_per_product_at_1=r["ms_at_1"] * 1e6 / r["chain_products"])
+    for group, b3 in (("g1", -3), ("g2", 12)):
+        path, tag = f"{BW6} {group}", "" if group == "g1" else " b3=12"
+        r = n24[f"k3 {group}"]
+        ob = k3_op_bounds(r, 1, rates, n32=24)
+        add(f"K3 g1 n24{tag}", path, "group_ops_n24.cu",
+            "curves/pallas_ops.py:66", r["ops"]["padd"]["ms"],
+            r["ops"]["padd"]["plain_ms"], [w, r["n"]], r["max_abs_err"],
+            ob["padd"], counted="K3 g1 n24")
+        out[-1].update(b3=b3, op_bounds=ob,
+                       ms_by_op={k: v["ms"] for k, v in r["ops"].items()},
+                       plain_ms_by_op={k: v.get("plain_ms") for k, v in
+                                       r["ops"].items()})
+        q = r["scan"]
+        sc = scan_counts(q["W"], q["c"], 1)
+        add(f"K3 scan g1 n24{tag}", path, "horner_n24.cu",
+            "curves/pallas_ops.py:66", q["ms"], q["plain_ms"],
+            [q["W"], q["c"]], q["max_abs_err"],
+            bound(3 * 4 * w * (q["W"] + 1),
+                  imads(sc["base_products"], n32=24), rates),
+            counted="K3 scan g1 n24")
+        out[-1].update(sc, b3=b3, chain_ns_per_product=q["ms"] * 1e6
+                       / sc["chain_products"])
+        r = n24[f"k2 {group}"]
+        W, T, L, B = r["shape"]
+        add(f"K2 g1 n24{tag}", path, "insert_n24.cu",
+            "msm/pallas_insert3.py:74", r["ms"], r["plain_ms"], [W, T, L, B],
+            r["max_abs_err"],
+            bound(4 * (W * T * L + 3 * w * T * L) + T * L
+                  + 3 * 4 * w * W * B * L,
+                  imads(FP_MULS["madd"][1] * r["madds"], n32=24), rates),
+            counted="K2 g1 n24")
+        # plain_ms: insert_plain on the checked windows only
+        out[-1].update(b3=b3, checked_windows=r["checked_windows"])
 
 
 # K3's products per element by op, as formulas.cuh runs them: (products,
@@ -1329,7 +1449,7 @@ def bls_paths(rng, dev) -> dict:
     out["k3"] = phase_k3(G, "g1", rng, dev, W, cfg.c)
     emit({"phase": "K3 bls12_381 g1", **out["k3"]})
     out["k3 bls12_377"] = phase_k3(device_curve("bls12_377").g1, "g1", rng,
-                                   dev, W, cfg.c)
+                                   dev, W, cfg.c, K3_377_N)
     emit({"phase": "K3 bls12_377 g1", **out["k3 bls12_377"]})
     out["k2"], inputs = phase_k2(dc, "g1", n, cfg, rng, dev, K2_N12_WINDOWS)
     emit({"phase": "K2 bls12_381 g1", **out["k2"]})
@@ -1376,7 +1496,8 @@ def n12_variants(dc, group: str, log2n: int, case, cfg) -> dict:
     results by key, "msm <curve> <group> <setting>"."""
     out = {}
     for key, fields, kernel in MSM_VARIANTS[group]:
-        r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
+        r = phase_msm(dc, group, log2n, case, cfg._replace(**fields),
+                      VARIANT_STEADY_RUNS)
         got = r["launches"]
         if got.get(n12_name(kernel), 0) < 1:
             fail(f"{n12_name(kernel)} was not launched on the {dc.name} "
@@ -1417,7 +1538,7 @@ def bls_g2_paths(rng, dev) -> dict:
     out["k3 g2"] = phase_k3(G, "g2", rng, dev, W, cfg.c)
     emit({"phase": "K3 bls12_381 g2", **out["k3 g2"]})
     out["k3 g2 bls12_377"] = phase_k3(device_curve("bls12_377").g2, "g2",
-                                      rng, dev, W, cfg.c)
+                                      rng, dev, W, cfg.c, K3_377_N)
     emit({"phase": "K3 bls12_377 g2", **out["k3 g2 bls12_377"]})
     out["k2 g2"], inputs = phase_k2(dc, "g2", n, cfg, rng, dev,
                                     K2_N12_WINDOWS)
@@ -1454,6 +1575,59 @@ def bls_g2_paths(rng, dev) -> dict:
         out[f"msm {curve} g2"] = r
         out.update(n12_variants(dcc, "g2", LOG2N_G2, case, cfg))
         del case
+    return out
+
+
+def bw6_paths(rng, dev) -> dict:
+    """BW6-761's paths over 24-limb Fq: K1e and K1e inv at one element
+    and 2^20, K3's six ops at 2^21 and its scan at the path's (W = 48, c =
+    8) for G1 (b3 = -3) and for G2 (over Fq, b3 = 12), K2 on both timed
+    at the path's shape, its first K2_N24_WINDOWS windows held to the
+    plain insert; then G1's MSM at 2^20 points and G2's at 2^18 under
+    default_config(n, G) against their structured oracles: one K2, K2
+    sort, scan and K1e inv launch, at least one K3, at most 8 K1e and no
+    8- or 12-limb kernel but K2's sort.  Prints each phase's line; returns
+    the results by key."""
+    from libff_tpu_torch import workload
+    from libff_tpu_torch.curves.device import device_curve
+    from libff_tpu_torch.msm.digits import num_signed_digits
+    from libff_tpu_torch.msm.pippenger import default_config
+
+    dc = device_curve(BW6)
+    out = {"k1e": phase_k1e(dc.fq, rng, dev)}
+    emit({"phase": f"K1e {BW6}", **out["k1e"]})
+    out["inv"] = phase_inv(dc.fq, rng, dev)
+    emit({"phase": f"K1e inv {BW6}", **out["inv"]})
+    for group, log2n in (("g1", LOG2N), ("g2", LOG2N_G2)):
+        n = 1 << log2n
+        G = getattr(dc, group)
+        cfg = default_config(n, G, dev)
+        W = num_signed_digits(G.order, scalar_bits(G), cfg.c)
+        out[f"k3 {group}"] = phase_k3(G, "g1", rng, dev, W, cfg.c)
+        emit({"phase": f"K3 {BW6} {group}", **out[f"k3 {group}"]})
+        out[f"k2 {group}"], inputs = phase_k2(dc, group, n, cfg, rng, dev,
+                                              K2_N24_WINDOWS[group])
+        del inputs
+        emit({"phase": f"K2 {BW6} {group}", **out[f"k2 {group}"]})
+    for group, log2n in (("g1", LOG2N), ("g2", LOG2N_G2)):
+        G = getattr(dc, group)
+        case = workload.msm_case(dc, group, log2n, dev, SEED)
+        r = phase_msm(dc, group, log2n, case, default_config(1 << log2n, G,
+                                                             dev))
+        del case
+        emit({"phase": f"msm {BW6} {group}", **r})
+        got = r["launches"]
+        once = ("K2 g1 n24", "K2 sort g1", "K3 scan g1 n24", "K1e inv n24")
+        if any(got.get(k, 0) != 1 for k in once):
+            fail(f"the {BW6} {group} path did not launch each of {once} "
+                 f"once: {got}")
+        if got.get("K1e n24", 0) > 8 or got.get("K3 g1 n24", 0) < 1:
+            fail(f"the {BW6} {group} path made more than 8 K1e or no K3 "
+                 f"launches: {got}")
+        other = [k for k in got if not k.endswith(" n24") and k != "K2 sort g1"]
+        if other:
+            fail(f"the {BW6} {group} path launched {got}")
+        out[f"msm {BW6} {group}"] = r
     return out
 
 
@@ -1502,9 +1676,21 @@ def main() -> int:
                        ("group_op",)),
                       ("K3 scan g2 n12", "horner_n12.log",
                        ("horner_g2_kernel",)))}
+    # the 24-limb kernels' (BW6-761): K1e and K1e inv, the K2 chains, K3
+    # and its scan, each on FpField<24, b3>, and fp.cuh's __noinline__
+    # 24-limb product, which each of them calls
+    n24 = {name: [k for k in _build.ptxas_kernels(_build.build_dir() / log)
+                  if any(s in k["function"] for s in kernel)]
+           for name, log, kernel in (
+               ("K1e n24", "fp_ops_n24.log",
+                ("fp_elementwise", "fp_inv_kernel")),
+               ("K2 g1 n24", "insert_n24.log", ("chain_kernel",)),
+               ("K3 g1 n24", "group_ops_n24.log", ("group_op",)),
+               ("K3 scan g1 n24", "horner_n24.log", ("horner_kernel",)),
+               ("K1 n24 mul", "fp_ops_n24.log", ("3mulENS_2FeILi24",)))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_source, "redesigned_ptxas": redesigned,
-          "ptxas": ptxas})
+          "n24_ptxas": n24, "ptxas": ptxas})
 
     dc = device_curve("alt_bn128")
     rng = np.random.default_rng(SEED)
@@ -1539,7 +1725,8 @@ def main() -> int:
                  f"{got.get('K1e', 0)} K1e launches, not 1 and at most "
                  f"{most}")
         for key, fields, kernel in MSM_VARIANTS[group]:
-            r = phase_msm(dc, group, log2n, case, cfg._replace(**fields))
+            r = phase_msm(dc, group, log2n, case, cfg._replace(**fields),
+                          VARIANT_STEADY_RUNS)
             if r["launches"].get(kernel, 0) < 1:
                 fail(f"{kernel} was not launched on the {group} {key} path")
             msm[f"{group} {key}"] = r
@@ -1563,6 +1750,10 @@ def main() -> int:
     n12 = bls_paths(rng, dev)
     msm.update({k[4:]: v for k, v in n12.items() if k.startswith("msm ")})
 
+    # the 24-limb paths: BW6-761's G1 at 2^20 points and G2 at 2^18
+    n24 = bw6_paths(rng, dev)
+    msm.update({k[4:]: v for k, v in n24.items() if k.startswith("msm ")})
+
     # the field-mul benches; no MSM runs them, so their launches are
     # counted over these two phases
     torch.cuda.synchronize()
@@ -1580,7 +1771,8 @@ def main() -> int:
     k7_launches.update(k7e["launches"])
 
     kernels = kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof,
-                          k7e_rep, k7e, k7_launches, imad_rates(dev), n12)
+                          k7e_rep, k7e, k7_launches, imad_rates(dev), n12,
+                          n24)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

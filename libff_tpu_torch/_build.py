@@ -34,13 +34,16 @@ width appended before any product: "K1e n12", "K1e inv n12", "K4e n12",
 g1 n12", "K3 g2 n12", "K3 scan g1 n12", "K3 scan g2 n12", "K5 g1 n12",
 "K5 g2 n12", "K6 g1 n12", and over the SOS products "K2 g1 n12 sos",
 "K2m g2 n12 sos2", "K5 g1 n12 sos" and so on (their sort is the
-width-free "K2 sort g1" or "K2 sort g2").  A wrapper adds one where it
-launches its kernel and nowhere else.
+width-free "K2 sort g1" or "K2 sort g2").  The kernels over 24-limb Fp
+(BW6-761, whose G1 and G2 both lie over Fq and run the Fp branch) count
+as "K1e n24", "K1e inv n24", "K2 g1 n24", "K3 g1 n24" and "K3 scan g1
+n24", whichever of its groups launches them.  A wrapper adds one where
+it launches its kernel and nowhere else.
 
 Each width has its own sources: csrc/<stem>.cu builds the 8-limb library
-and csrc/<stem>_n12.cu the 12-limb one (:func:`width_stem`; over an SOS
-product csrc/<stem>_<kmul>_n12.cu, :func:`kmul_stem` first), so nvcc
-compiles them in parallel.
+and csrc/<stem>_n12.cu and csrc/<stem>_n24.cu the 12- and 24-limb ones
+(:func:`width_stem`; over an SOS product csrc/<stem>_<kmul>_n12.cu,
+:func:`kmul_stem` first), so nvcc compiles them in parallel.
 """
 
 from __future__ import annotations
@@ -232,7 +235,7 @@ def tree_kernels(log: Path) -> dict:
     merge_kernel) in a build log, by branch: "g1" (FpField), "g2 pairs"
     (Fp2Pair), "g2" (the one-thread Fp2Field, the 8-limb SOS and SOS2);
     at 12 limbs with the branch's constant, "g1 b3=12", "g2 pairs nr=-5"
-    and so on."""
+    and so on (a 24-limb build has no tree yet: {})."""
     out = {}
     for k in ptxas_kernels(log):
         f = k.pop("function")

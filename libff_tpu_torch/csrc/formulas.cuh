@@ -14,7 +14,10 @@
 //   FpField<N, B3, M>  Fp of N 32-bit limbs over fp.cuh; b3 = 3b is a
 //                compile-time constant multiplied in by mul_small's
 //                addition chain: (8, 9) for alt_bn128 G1, (12, 12) for
-//                BLS12-381 G1 (b = 4), (12, 3) for BLS12-377 G1 (b = 1).
+//                BLS12-381 G1 (b = 4), (12, 3) for BLS12-377 G1 (b = 1),
+//                (24, -3) for BW6-761 G1 (b = -1: the chain of 3,
+//                negated) and (24, 12) for BW6-761 G2 (the M-twist over
+//                Fq, b' = 4).
 //   Fp2Field<N, NR, M>  Fq2 over fp2.cuh (K4), N limbs a coefficient,
 //                non-residue NR (-1: alt_bn128, BLS12-381; -5:
 //                BLS12-377); b3 = 3b' of the twist is a general Fq2

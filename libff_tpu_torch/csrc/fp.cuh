@@ -47,7 +47,9 @@
 //
 // The PTX chains are written out for N = 8 (254-bit fields: alt_bn128's
 // Fq and Fr) and for N = 12 (377- and 381-bit fields: BLS12-377's and
-// BLS12-381's Fq), all three products at both.  At N = 12 a CIOS row is
+// BLS12-381's Fq), all three products at both, and for N = 24 (BW6-761's
+// 761-bit Fq: CIOS only, every chain in blocks, see "N = 24" below).  At
+// N = 12 a CIOS row is
 // still one asm block (27 operands, under the 30 that GCC-style inline
 // asm allows), and so is each row of the SOS products (mad_lo_row and
 // mad_hi_row, 28 and 26 operands: SOS adds its product and its
@@ -560,6 +562,185 @@ __device__ __forceinline__ Fe<12> mul(const Fe<12>& a, const Fe<12>& b,
   return reduce_once(r, t12, P);
 }
 
+// -- N = 24: every chain in chunks, the carry handed on in a register ------
+//
+// BW6-761's 761-bit Fq.  An add's or subtract's chain is four 6-limb
+// blocks (add6/sub6); a CIOS row's four chains of 24 multiply-adds are
+// each two 12-limb blocks (mad_lo12/mad_hi12: 12 in-out words, the
+// multiplier, 12 words of the other operand, the carry in and out, 27
+// operands), the carry out of the first block set again as the second's
+// first instruction.  q < 2^761, so 4q < R = 2^768: the accumulator stays
+// below 2q as at the narrower widths, and one conditional subtraction
+// ends a product.  A 24-limb product is 1176 mul.lo and 1152 mul.hi
+// multiply-adds, about 2,400 instructions unrolled; it is one
+// __noinline__ function, so a kernel holds one copy of it however many
+// products its formulas make (inlined, every formula's products would
+// multiply nvcc's time and the code size by their count).
+
+// r = a + b over N limbs (a multiple of 6) as 6-limb add6 blocks;
+// returns the carry out of the top limb.
+template <int N>
+__device__ __forceinline__ uint32_t add_chunks(uint32_t* r, const uint32_t* a,
+                                               const uint32_t* b) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int q = 0; q < N; q += 6) c = add6(r + q, a + q, b + q, c);
+  return c;
+}
+
+// r = a - b over N limbs (a multiple of 6) as sub6 blocks; returns the
+// borrow out (0 or 1).
+template <int N>
+__device__ __forceinline__ uint32_t sub_chunks(uint32_t* r, const uint32_t* a,
+                                               const uint32_t* b) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int q = 0; q < N; q += 6) w = sub6(r + q, a + q, b + q, w);
+  return w;
+}
+
+// a + b mod p at N = 24, as at 12: s - p unless the sum is below p.
+__device__ __forceinline__ Fe<24> add(const Fe<24>& a, const Fe<24>& b,
+                                      const FieldParams<24>& P) {
+  Fe<24> s, d;
+  const uint32_t c = add_chunks<24>(s.v, a.v, b.v);
+  const uint32_t w = sub_chunks<24>(d.v, s.v, P.p);
+  return select(c != 0 || w == 0, d, s);
+}
+
+// a - b mod p at N = 24: the difference, then p added back where it
+// borrowed (p masked by the borrow, added in four blocks).
+__device__ __forceinline__ Fe<24> sub(const Fe<24>& a, const Fe<24>& b,
+                                      const FieldParams<24>& P) {
+  Fe<24> d, pm, r;
+  const uint32_t m = 0u - sub_chunks<24>(d.v, a.v, b.v);
+#pragma unroll
+  for (int k = 0; k < 24; k++) pm.v[k] = P.p[k] & m;
+  add_chunks<24>(r.v, d.v, pm.v);
+  return r;
+}
+
+// The canonical residue of r + top * 2^768 < 2p (top 0 or 1).
+__device__ __forceinline__ Fe<24> reduce_once(const uint32_t* r, uint32_t top,
+                                              const FieldParams<24>& P) {
+  Fe<24> d, v;
+  const uint32_t w = sub_chunks<24>(d.v, r, P.p);
+#pragma unroll
+  for (int k = 0; k < 24; k++) v.v[k] = r[k];
+  return select(top == w, d, v);
+}
+
+// t[0..11] += lo(x * y[0..11]) with the carry cin (0 or 1) into t[0];
+// returns the carry out of t[11].  The first instruction sets the carry
+// flag from cin.
+__device__ __forceinline__ uint32_t mad_lo12(uint32_t* t, uint32_t x,
+                                             const uint32_t* y,
+                                             uint32_t cin) {
+  uint32_t c;
+  asm volatile(
+      "{\n\t.reg .u32 z;\n\t"
+      "add.cc.u32     z, %26, 0xFFFFFFFF;\n\t"
+      "madc.lo.cc.u32 %0, %13, %14, %0;\n\t"
+      "madc.lo.cc.u32 %1, %13, %15, %1;\n\t"
+      "madc.lo.cc.u32 %2, %13, %16, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %13, %19, %5;\n\t"
+      "madc.lo.cc.u32 %6, %13, %20, %6;\n\t"
+      "madc.lo.cc.u32 %7, %13, %21, %7;\n\t"
+      "madc.lo.cc.u32 %8, %13, %22, %8;\n\t"
+      "madc.lo.cc.u32 %9, %13, %23, %9;\n\t"
+      "madc.lo.cc.u32 %10, %13, %24, %10;\n\t"
+      "madc.lo.cc.u32 %11, %13, %25, %11;\n\t"
+      "addc.u32       %12, 0, 0;\n\t"
+      "}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "=r"(c)
+      : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+        "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]),
+        "r"(y[11]), "r"(cin));
+  return c;
+}
+
+// t[0..11] += hi(x * y[0..11]) with the carry cin into t[0]; returns the
+// carry out of t[11].
+__device__ __forceinline__ uint32_t mad_hi12(uint32_t* t, uint32_t x,
+                                             const uint32_t* y,
+                                             uint32_t cin) {
+  uint32_t c;
+  asm volatile(
+      "{\n\t.reg .u32 z;\n\t"
+      "add.cc.u32     z, %26, 0xFFFFFFFF;\n\t"
+      "madc.hi.cc.u32 %0, %13, %14, %0;\n\t"
+      "madc.hi.cc.u32 %1, %13, %15, %1;\n\t"
+      "madc.hi.cc.u32 %2, %13, %16, %2;\n\t"
+      "madc.hi.cc.u32 %3, %13, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %19, %5;\n\t"
+      "madc.hi.cc.u32 %6, %13, %20, %6;\n\t"
+      "madc.hi.cc.u32 %7, %13, %21, %7;\n\t"
+      "madc.hi.cc.u32 %8, %13, %22, %8;\n\t"
+      "madc.hi.cc.u32 %9, %13, %23, %9;\n\t"
+      "madc.hi.cc.u32 %10, %13, %24, %10;\n\t"
+      "madc.hi.cc.u32 %11, %13, %25, %11;\n\t"
+      "addc.u32       %12, 0, 0;\n\t"
+      "}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "=r"(c)
+      : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
+        "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(y[8]), "r"(y[9]), "r"(y[10]),
+        "r"(y[11]), "r"(cin));
+  return c;
+}
+
+// t[0] += c and t[1] += the carry out of it (t[1] then holds the sum of
+// carries: it cannot overflow, the accumulator being below 2^(32 N + 33)).
+__device__ __forceinline__ void add_carry2(uint32_t& t0, uint32_t& t1,
+                                           uint32_t c) {
+  asm volatile(
+      "add.cc.u32 %0, %0, %2;\n\t"
+      "addc.u32   %1, %1, 0;"
+      : "+r"(t0), "+r"(t1)
+      : "r"(c));
+}
+
+// x * y[0..23] added to t[0..25] as a CIOS row does: the low halves at
+// word 0 (their carry into t[24] and t[25]), the high halves at word 1
+// (their carry into t[25]), each chain two 12-limb blocks.
+__device__ __forceinline__ void mad_row24(uint32_t* t, uint32_t x,
+                                          const uint32_t* y) {
+  uint32_t c = mad_lo12(t, x, y, 0);
+  c = mad_lo12(t + 12, x, y + 12, c);
+  add_carry2(t[24], t[25], c);
+  c = mad_hi12(t + 1, x, y, 0);
+  c = mad_hi12(t + 13, x, y + 12, c);
+  t[25] += c;
+}
+
+// The 24-limb CIOS product, the 8-limb mul's rows over a 26-word
+// accumulator t[0..25] (t[25] the rows' carry word): per row t += a_i b,
+// m = t0 inv, t += m p (t0 becomes 0), shift down one word.
+__device__ __noinline__ Fe<24> mul(const Fe<24> a, const Fe<24> b,
+                                   const FieldParams<24>& P) {
+  uint32_t t[26], p[24];
+#pragma unroll
+  for (int k = 0; k < 26; k++) t[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 24; k++) p[k] = P.p[k];
+  const uint32_t inv = P.inv;
+#pragma unroll
+  for (int i = 0; i < 24; i++) {
+    mad_row24(t, a.v[i], b.v);
+    mad_row24(t, t[0] * inv, p);
+#pragma unroll
+    for (int k = 0; k < 25; k++) t[k] = t[k + 1];
+    t[25] = 0;
+  }
+  return reduce_once(t, t[24], P);
+}
+
 // -- every width ------------------------------------------------------------
 
 template <int N>
@@ -766,14 +947,18 @@ __device__ __forceinline__ Fe<N> mont_mul(const Fe<N>& a, const Fe<N>& b,
   }
 }
 
-// a * K for a small compile-time constant K >= 1, by the binary addition
+// a * K for a small compile-time constant K != 0, by the binary addition
 // chain of fp.py:118-141 (b3 = 9 for alt_bn128: 2a, 4a, 8a, 8a + a; 12 for
-// BLS12-381, 3 for BLS12-377).
+// BLS12-381 and BW6-761's G2, 3 for BLS12-377); a negative K is the
+// negated chain of -K, as fp.py takes a constant c with p - c <= 64
+// (BW6-761's G1: b3 = p - 3, the chain of 3, then 0 - 3a).
 template <int K, int N>
 __device__ __forceinline__ Fe<N> mul_small(const Fe<N>& a,
                                            const FieldParams<N>& P) {
-  static_assert(K >= 1, "mul_small takes a positive constant");
-  if constexpr (K == 1) {
+  static_assert(K != 0, "mul_small takes a nonzero constant");
+  if constexpr (K < 0) {
+    return neg(mul_small<-K, N>(a, P), P);
+  } else if constexpr (K == 1) {
     return a;
   } else {
     const Fe<N> h = mul_small<K / 2, N>(a, P);

@@ -36,7 +36,10 @@
 // (BLS12-381's and BLS12-377's Fq and Fq2), its own translation unit.
 // At 12 limbs a product is 588 IMADs (about 52 ps of the card) against
 // 144 bytes (43 ps), and the inverse's ladder is 608 (BLS12-381) or 554
-// (BLS12-377) dependent products.
+// (BLS12-377) dependent products.  fp_ops_n24.cu builds the Fp entries
+// at LFF_N32 = 24 (BW6-761's Fq; its Fq2 entries refuse every call): a
+// product is 2,328 IMADs (about 208 ps) against 288 bytes (86 ps), and
+// the inverse's ladder 1,104 dependent products (q - 2 has 761 bits).
 //
 // Bound on an H100: memory for Fp add/sub/mul and Fq2 add/sub, multiply
 // issue for the Fq2 products.  At the issue rates K7c measures
@@ -83,9 +86,15 @@ __global__ void __launch_bounds__(256)
   store<N>(out + off, n, e, r);
 }
 
+// whether this width builds the Fq2 entries: not at 24 limbs (BW6-761
+// has no Fq2; its G2 lies over Fq)
+constexpr bool kFq2 = N != 24;
+
 // the Fq2 non-residues of this width's kernels: nr = -1 (alt_bn128,
-// BLS12-381) at both widths, -5 (BLS12-377) at 12 limbs
-constexpr bool nr_built(int nr) { return nr == -1 || (N == 12 && nr == -5); }
+// BLS12-381) at 8 and 12 limbs, -5 (BLS12-377) at 12
+constexpr bool nr_built(int nr) {
+  return kFq2 && (nr == -1 || (N == 12 && nr == -5));
+}
 
 template <bool SQR, int NR>
 __global__ void __launch_bounds__(256)
@@ -171,6 +180,7 @@ int launch2(void* out, const void* a, const void* b, long long n, int n32,
   auto* o = (uint32_t*)out;
   auto* x = (const uint32_t*)a;
   auto* y = (const uint32_t*)b;
+#if LFF_N32 != 24
   if (nr == -1) {
     fp2_elementwise<SQR, -1><<<blocks, threads, 0, s>>>(o, x, y, n, P);
   } else {
@@ -178,6 +188,7 @@ int launch2(void* out, const void* a, const void* b, long long n, int n32,
     fp2_elementwise<SQR, -5><<<blocks, threads, 0, s>>>(o, x, y, n, P);
 #endif
   }
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -201,6 +212,7 @@ int launch_inv(void* out, const void* a, long long n, int n32, int nr,
   auto* x = (const uint32_t*)a;
   const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (FQ2) {
+#if LFF_N32 != 24
     if (nr == -1) {
       fq2_inv_kernel<-1><<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
     } else {
@@ -208,6 +220,7 @@ int launch_inv(void* out, const void* a, long long n, int n32, int nr,
       fq2_inv_kernel<-5><<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
 #endif
     }
+#endif
   } else {
     fp_inv_kernel<<<(unsigned)blocks, kInvThreads, 0, s>>>(o, x, n, q);
   }

@@ -27,7 +27,13 @@
 // so nvcc compiles them in parallel (LFF_K3_BRANCHES).  At 12 limbs a
 // padd is 12 products of 588 IMADs (7,056) against 6 x 48 bytes in and 3
 // x 48 out, a G2 padd 42 (24,696) against twice the bytes: still the
-// multiplies.
+// multiplies.  group_ops_n24.cu builds the Fp branch at LFF_N32 = 24
+// (BW6-761's G1, b3 = -3, and its G2 over Fq, b3 = 12) on the one-thread
+// body: a padd is 12 products of 2,328 IMADs (27,936) against 6 x 96
+// bytes in and 3 x 96 out.  A 24-limb element is 24 registers, so a
+// formula's live values exceed the 255 a thread has and spill (ptxas's
+// figures are in the build log); fp.cuh's 24-limb product is one
+// __noinline__ function, which each kernel calls.
 //
 // G2 runs its formulas over fp2_pair.cuh's Fp2Pair: the two threads of a
 // pair each hold one coefficient of every Fq2 value and swap operands by
@@ -311,11 +317,11 @@ int launch_op(int op, const OpArgs& A, const F& f, cudaStream_t s) {
 }  // namespace
 
 // n32 must be the library's width N.  k = 1: b3 must be 9 at 8 limbs
-// (alt_bn128 G1), 12 (BLS12-381 G1) or 3 (BLS12-377 G1) at 12, and
-// b3_mont is unused.  k = 2: b3 is the Fq2's non-residue nr, -1 at 8
-// limbs (alt_bn128 G2), -1 (BLS12-381 G2) or -5 (BLS12-377 G2) at 12, and
-// b3_mont holds the 2N Montgomery limbs of the Fq2 constant b3 (c0 then
-// c1).  Every
+// (alt_bn128 G1), 12 (BLS12-381 G1) or 3 (BLS12-377 G1) at 12, -3
+// (BW6-761 G1) or 12 (BW6-761 G2) at 24, and b3_mont is unused.  k = 2:
+// b3 is the Fq2's non-residue nr, -1 at 8 limbs (alt_bn128 G2), -1
+// (BLS12-381 G2) or -5 (BLS12-377 G2) at 12, and b3_mont holds the 2N
+// Montgomery limbs of the Fq2 constant b3 (c0 then c1).  Every
 // input (its limb 0 of element 0 at in[i]) has its limbs lstride words
 // apart and its rows of `cols` elements rstride words apart; any op but
 // padd needs them flat (cols = lstride = n).
@@ -330,7 +336,9 @@ extern "C" int group_op_at(int op, void* const* in, long long lstride,
     return (int)cudaErrorInvalidValue;
   constexpr int kBranches = LFF_K3_BRANCHES;
   const bool g1 = (kBranches & 1) && k == 1 &&
-                  (N == 8 ? b3 == 9 : b3 == 12 || b3 == 3);
+                  (N == 8    ? b3 == 9
+                   : N == 12 ? b3 == 12 || b3 == 3
+                             : b3 == -3 || b3 == 12);
   const bool g2 = k == 2 && b3_mont != nullptr &&
                   (((kBranches & 2) && b3 == -1) ||
                    ((kBranches & 4) && N == 12 && b3 == -5));
@@ -364,7 +372,11 @@ extern "C" int group_op_at(int op, void* const* in, long long lstride,
   return launch_op(op, A, FpField<12, 3>{P}, s);
 #endif
   return (int)cudaErrorInvalidValue;
+#elif LFF_N32 == 24
+  if (k != 1) return (int)cudaErrorInvalidValue;
+  if (b3 == 12) return launch_op(op, A, FpField<24, 12>{P}, s);
+  return launch_op(op, A, FpField<24, -3>{P}, s);
 #else
-#error "group_ops.cu is built for 8 or 12 limbs"
+#error "group_ops.cu is built for 8, 12 or 24 limbs"
 #endif
 }

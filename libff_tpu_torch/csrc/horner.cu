@@ -52,6 +52,9 @@
 // translation unit: the G1 branch over 12-limb Fp with b3 = 12
 // (BLS12-381) or 3 (BLS12-377), and the G2 branch over their Fq2 with nr
 // = -1 (BLS12-381) or -5 (BLS12-377), b3 a runtime Fq2 constant.
+// horner_n24.cu builds the G1 branch at LFF_N32 = 24 over CIOS (BW6-761:
+// its G1 with b3 = -3 and its G2 over Fq with b3 = 12; chain_mul.cuh's
+// product is written for 12 limbs), with no G2 branch (no Fq2 there).
 #include "chain_mul.cuh"
 #include "fp2.cuh"
 
@@ -113,7 +116,7 @@ __device__ __forceinline__ void operands(Slots& s, int j, const Fe<N>& x,
 }
 
 // The scan's product at this width: chain_mul.cuh's two-accumulator
-// product at 12 limbs, fp.cuh's CIOS at 8
+// product at 12 limbs, fp.cuh's CIOS at 8 and 24
 __device__ __forceinline__ Fe<N> scan_mul(const Fe<N>& a, const Fe<N>& b,
                                           const FieldParams<N>& P) {
 #if LFF_N32 == 12
@@ -339,7 +342,8 @@ __device__ __forceinline__ Fe<N> from_lane(const Fe<N>& a, int src) {
 // (2u, then 4 t0 | 3 z^2, then 8 t0 | 6 z^2, ...); lanes 2, 3 then t0 - 3
 // t2 and t0 + t2.  Level 2: lane 0 t2 (8 t0) = x3, lane 1 t1 (8 t0) =
 // z3, lane 2 (t0 - 3 t2)(t0 + t2) = A, lane 3 (t0 - 3 t2) x y = B; every
-// lane then takes them and forms (2 B, A + x3, z3).
+// lane then takes them and forms (2 B, A + x3, z3).  A negative b3 (-3:
+// BW6-761's G1) negates the chain's 3 z^2, as mul_small does.
 template <int B3>
 __device__ __forceinline__ Pt<Fe<N>> lane_dbl(const Pt<Fe<N>>& q, int j,
                                               const FieldParams<N>& P) {
@@ -356,10 +360,16 @@ __device__ __forceinline__ Pt<Fe<N>> lane_dbl(const Pt<Fe<N>>& q, int j,
     rz = v3;
     t2 = add(v3, zz, P);
   } else {
-    static_assert(B3 == 12 || B3 == 3, "b3 is 9, 12 or 3");
+    static_assert(B3 == 12 || B3 == 3 || B3 == -3, "b3 is 9, 12, 3 or -3");
     const E v2 = add(v1, select(lo, v1, zz), P);           // 4 t0 | 3 zz
     rz = dbl(v2, P);                                       // 8 t0 | 6 zz
-    t2 = B3 == 12 ? dbl(rz, P) : v2;
+    if constexpr (B3 == 12) {
+      t2 = dbl(rz, P);
+    } else if constexpr (B3 == 3) {
+      t2 = v2;
+    } else {
+      t2 = neg(v2, P);
+    }
   }
   const E t2l = from_lane(t2, 2);                          // lane 0's t2
   const E t0m = sub(t0, add(dbl(t2, P), t2, P), P);
@@ -504,7 +514,8 @@ __global__ void __launch_bounds__(32) horner_g2_kernel(ScanArgs A,
 // M the tree's width (1 for W = 1, else the power of two >= W, at least
 // 2); arrivals: (M,) int32 zeros.  n32 must be the library's width N.
 // k = 1: b3 must be 9 at 8 limbs (alt_bn128 G1), 12 (BLS12-381 G1) or 3
-// (BLS12-377 G1) at 12.  k = 2: b3 is the Fq2's non-residue nr, -1 at 8
+// (BLS12-377 G1) at 12, -3 (BW6-761 G1) or 12 (BW6-761 G2) at 24.  k = 2
+// (not at 24): b3 is the Fq2's non-residue nr, -1 at 8
 // limbs (alt_bn128 G2), -1 (BLS12-381 G2) or -5 (BLS12-377 G2) at 12, and
 // b3_mont holds the Fq2 constant's 2N Montgomery limbs (c0, c1).
 extern "C" int horner_scan(void* const* in, void* const* slot,
@@ -516,8 +527,10 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   if (n32 != N || W < 1 || c < 0 || M < W || (M & (M - 1)) ||
       (W > 1 && M >= 2 * W) || (W == 1 && M != 1))
     return (int)cudaErrorInvalidValue;
-  const bool g1 = k == 1 && (N == 8 ? b3 == 9 : b3 == 12 || b3 == 3);
-  const bool g2 = k == 2 && b3_mont != nullptr &&
+  const bool g1 = k == 1 && (N == 8    ? b3 == 9
+                             : N == 12 ? b3 == 12 || b3 == 3
+                                       : b3 == -3 || b3 == 12);
+  const bool g2 = k == 2 && N != 24 && b3_mont != nullptr &&
                   (b3 == -1 || (N == 12 && b3 == -5));
   if (!g1 && !g2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -534,6 +547,7 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
   A.c = c;
   const FieldParams<N> P = field_params<N>(p, one_mont, inv);
   const cudaStream_t s = (cudaStream_t)stream;
+#if LFF_N32 != 24
   if (k == 2) {
     const E2 b3c = fe2_from<N>(b3_mont);
     if (b3 == -1) {
@@ -545,6 +559,7 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
     }
     return (int)cudaGetLastError();
   }
+#endif
 #if LFF_N32 == 8
   horner_kernel<9><<<W, 32, 0, s>>>(A, P);
 #elif LFF_N32 == 12
@@ -552,8 +567,13 @@ extern "C" int horner_scan(void* const* in, void* const* slot,
     horner_kernel<12><<<W, 32, 0, s>>>(A, P);
   else
     horner_kernel<3><<<W, 32, 0, s>>>(A, P);
+#elif LFF_N32 == 24
+  if (b3 == 12)
+    horner_kernel<12><<<W, 32, 0, s>>>(A, P);
+  else
+    horner_kernel<-3><<<W, 32, 0, s>>>(A, P);
 #else
-#error "horner.cu is built for 8 or 12 limbs"
+#error "horner.cu is built for 8, 12 or 24 limbs"
 #endif
   return (int)cudaGetLastError();
 }

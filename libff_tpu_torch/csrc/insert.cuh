@@ -138,6 +138,16 @@
 // registers and spilled 680 and 952 bytes on the inner loop, and ran
 // 2.5 times as long (PERF.md).
 //
+// At 24 limbs (BW6-761: its G1 with b3 = -3 and its G2 over Fq with b3 =
+// 12, both FpField<24, b3>; insert_n24.cu, K2 over CIOS only) a chain is
+// one thread: a 72-word bucket and a 48-word point beside the madd's
+// temporaries exceed the 255 registers, so the chain spills (ptxas's
+// figures are in the build log), and fp.cuh's 24-limb product is one
+// __noinline__ call.  A product is 2,328 multiply-adds, four times a
+// 12-limb one.  kEntriesG1N24 = 128 splits the G1 path's T = 1024 steps
+// between S = 8 threads a lane (48 x 8 x 1024 threads, 11.6 waves of 2
+// blocks of 128 an SM) and the G2 path's 256 between 2.
+//
 // The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
 // totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
 // raw buckets lane-major as for K2, and merge.cuh's tree runs on them as
@@ -204,6 +214,12 @@ namespace lff {
 #ifndef LFF_MIN_BLOCKS_G2_N12
 #define LFF_MIN_BLOCKS_G2_N12 3
 #endif
+#ifndef LFF_ENTRIES_G1_N24
+#define LFF_ENTRIES_G1_N24 128
+#endif
+#ifndef LFF_MIN_BLOCKS_G1_N24
+#define LFF_MIN_BLOCKS_G1_N24 2
+#endif
 
 // The sort: the steps of a lane that a block holds in shared memory, its
 // warps, the lanes it owns (one 128-byte line of digits), the buckets a
@@ -217,14 +233,16 @@ constexpr int kSortBatch = 16;
 static_assert(kSortTile > 0 && kSortTile % 32 == 0, "whole groups of 32");
 constexpr int kChainThreads = 128;
 // list entries a chain thread walks (on the 12-limb G2 a pair of
-// threads): G1 and G2, each at 8 and at 12 limbs
+// threads): G1 and G2, each at 8 and at 12 limbs, and the Fp branch at 24
 constexpr int kEntriesG1 = LFF_ENTRIES_G1;
 constexpr int kEntriesG1N12 = LFF_ENTRIES_G1_N12;
+constexpr int kEntriesG1N24 = LFF_ENTRIES_G1_N24;
 constexpr int kEntriesG2 = LFF_ENTRIES_G2;
 constexpr int kEntriesG2N12 = LFF_ENTRIES_G2_N12;
 // __launch_bounds__'s blocks an SM
 constexpr int kMinBlocksG1 = LFF_MIN_BLOCKS_G1;
 constexpr int kMinBlocksG1N12 = LFF_MIN_BLOCKS_G1_N12;
+constexpr int kMinBlocksG1N24 = LFF_MIN_BLOCKS_G1_N24;
 constexpr int kMinBlocksG2 = LFF_MIN_BLOCKS_G2;
 constexpr int kMinBlocksG2N12 = LFF_MIN_BLOCKS_G2_N12;
 constexpr int kLayoutThreads = 256;
@@ -488,7 +506,7 @@ __device__ __forceinline__ void store_lane(uint32_t* p, const E& a) {
 // The chain kernel's shape by branch: the threads of a chain (1, or 2
 // on fp2_pair.cuh's Fp2Pair, a coefficient a thread), the words of an
 // element (all its threads') and of one coordinate in the lane-major
-// arrays, the share of a lane and the occupancy target.
+// arrays, the share of a lane and the occupancy target, each width's own.
 template <class F>
 struct ChainShape {
   static constexpr int kThreads = F::kThreads;
@@ -496,12 +514,19 @@ struct ChainShape {
   static constexpr int kWords = kThreads * kPart;
   static constexpr int kLaneWords = (kWords + 7) / 8 * 8;
   static constexpr bool kG1 = F::kG1;
-  static constexpr bool kN12 = kWords / (kG1 ? 1 : 2) == 12;  // limbs
-  static constexpr int kEntries = kG1 ? (kN12 ? kEntriesG1N12 : kEntriesG1)
-                                      : (kN12 ? kEntriesG2N12 : kEntriesG2);
+  static constexpr int kLimbs = kWords / (kG1 ? 1 : 2);
+  static_assert(kLimbs == 8 || kLimbs == 12 || (kG1 && kLimbs == 24),
+                "the chain kernel's widths");
+  static constexpr int kEntries =
+      kG1 ? (kLimbs == 24   ? kEntriesG1N24
+             : kLimbs == 12 ? kEntriesG1N12
+                            : kEntriesG1)
+          : (kLimbs == 12 ? kEntriesG2N12 : kEntriesG2);
   static constexpr int kMinBlocks =
-      kG1 ? (kN12 ? kMinBlocksG1N12 : kMinBlocksG1)
-          : (kN12 ? kMinBlocksG2N12 : kMinBlocksG2);
+      kG1 ? (kLimbs == 24   ? kMinBlocksG1N24
+             : kLimbs == 12 ? kMinBlocksG1N12
+                            : kMinBlocksG1)
+          : (kLimbs == 12 ? kMinBlocksG2N12 : kMinBlocksG2);
   // a pair's two parts fill whole sectors together: no pad to zero
   static_assert(kThreads == 1 || kWords == kLaneWords, "whole sectors");
 };
@@ -688,7 +713,8 @@ int insert_run(const FC& chain, const FT& tree, const void* off,
 // arrays for the raw buckets (Kp = lane_words).  kmul: the product this
 // library was built for ((int)M), checked; n32: its width N, checked;
 // (k, b3, b3_mont): one of merge.cuh's on_branch branches.  m null: the
-// raw buckets into bx, by, bz (K, W, B, L); else K2m, the lane totals
+// raw buckets into bx, by, bz (K, W, B, L); else (at the widths of
+// merge.cuh's kTreeBuilt, not 24) K2m, the lane totals
 // into the three (K, W, B, 1) arrays of m, merge.cuh's tree over `lane`
 // (bx, by, bz unused) with `far`, W * B * merge_far_words(k, L) words of
 // scratch (null when that is 0).
@@ -706,7 +732,8 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
     return (int)cudaErrorInvalidValue;
   if (m == nullptr && (bx == nullptr || by == nullptr || bz == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (m != nullptr && (L & (L - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (m != nullptr && ((L & (L - 1)) != 0 || !kTreeBuilt<N>))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)W * L == 0) return 0;
@@ -716,8 +743,13 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
     constexpr int b = decltype(B3)::value;
     if constexpr (decltype(K)::value == 1) {
       const FpField<N, b, M> f{P};
-      return insert_run(f, f, off, ent, wide, rec, lane, bx, by, bz, W, T,
-                        L, B, m, far, s);
+      if constexpr (kTreeBuilt<N>) {
+        return insert_run(f, f, off, ent, wide, rec, lane, bx, by, bz, W, T,
+                          L, B, m, far, s);
+      } else {
+        return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L,
+                            B, f, s);
+      }
     } else {
       return insert_run(chain_field2<N, b, M>(P, b3_mont),
                         tree_field2<N, b, M>(P, b3_mont), off, ent, wide, rec,

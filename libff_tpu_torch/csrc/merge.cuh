@@ -391,9 +391,16 @@ inline TreeField2<N, NR, M> tree_field2(const FieldParams<N>& P,
   }
 }
 
+// The widths the lane tree (K5, K2m) is built at: 8 and 12 limbs; at 24
+// (BW6-761) it waits for ROADMAP Queue 1 item 9e, and insert.cuh builds
+// K2's chains only.
+template <int N>
+constexpr bool kTreeBuilt = N == 8 || N == 12;
+
 // The branches a library of width N takes, as its C entries name them:
 // k = 1 (G1) with b3 the curve's 3b, a compile-time addition chain (9:
-// alt_bn128 at 8 limbs; 12: BLS12-381, 3: BLS12-377 at 12), and k = 2
+// alt_bn128 at 8 limbs; 12: BLS12-381, 3: BLS12-377 at 12; -3: BW6-761's
+// G1, 12: its G2 over Fq, at 24, both k = 1), and k = 2
 // (G2) with b3 the Fq2's non-residue nr - p (-1 at 8 limbs; -1, -5 at
 // 12) and b3_mont the 2N Montgomery limbs of the twist's Fq2 constant
 // b3.  fn(integral_constant k, integral_constant b3) for a branch the
@@ -414,6 +421,10 @@ int on_branch(int k, int b3, const uint32_t* b3_mont, Fn&& fn) {
       return fn(K2{}, std::integral_constant<int, -1>{});
     if (k == 2 && b3 == -5 && b3_mont != nullptr)
       return fn(K2{}, std::integral_constant<int, -5>{});
+  } else if constexpr (N == 24) {
+    if (k == 1 && b3 == -3) return fn(K1{}, std::integral_constant<int, -3>{});
+    if (k == 1 && b3 == 12)
+      return fn(K1{}, std::integral_constant<int, 12>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -439,12 +450,18 @@ int merge_rows(int k, int b3, const LaneRows& in, const Rows& out,
 // The words of scratch a row of L lanes needs on branch k over the
 // product M at N limbs (merge_rows' `far`, n rows of them): 0 unless m =
 // L / r > 32 (at 8 limbs L > 1024 on G1, 512 on G2 over pairs) less the
-// near slots.  The shape depends on neither b3 nor nr.
+// near slots.  The shape depends on neither b3 nor nr.  -1 where the
+// tree is not built (kTreeBuilt).
 template <Mul M, int N>
 int merge_far_words(int k, int L) {
-  if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
-  if (k == 1) return MergeShape<FpField<N, N == 8 ? 9 : 12, M>>::far_words(L);
-  return MergeShape<TreeField2<N, -1, M>>::far_words(L);
+  if constexpr (!kTreeBuilt<N>) {
+    return -1;
+  } else {
+    if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
+    if (k == 1)
+      return MergeShape<FpField<N, N == 8 ? 9 : 12, M>>::far_words(L);
+    return MergeShape<TreeField2<N, -1, M>>::far_words(L);
+  }
 }
 
 // K5.  kmul: the product this library was built for ((int)M), checked;

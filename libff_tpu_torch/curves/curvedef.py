@@ -92,9 +92,8 @@ def register(cd: CurveDef) -> CurveDef:
 # the reference's other curve modules, which the port has not copied yet,
 # and the ROADMAP Queue 1 items each waits for
 _LATER = {
-    "bw6_761": "item 9d (24-limb fields) and item 10 (a != 0)",
-    "mnt4": "item 10 (a != 0) and item 11 (Fq4 towers)",
-    "mnt6": "item 10 (a != 0) and item 11 (Fq3 towers)",
+    "mnt4": "item 10 (a != 0, 10-limb fields) and item 11 (Fq4 towers)",
+    "mnt6": "item 10 (a != 0, 10-limb fields) and item 11 (Fq3 towers)",
     "edwards": "item 10 (Edwards groups)",
 }
 
@@ -110,11 +109,11 @@ def get_curve(name: str) -> CurveDef:
 
 def _import_curve_modules() -> None:
     """Lazy-import every available curve module (each registers itself).
-    The port carries alt_bn128, bls12_381 and bls12_377; the rest come
-    with the items of _LATER."""
+    The port carries alt_bn128, bls12_381, bls12_377 and bw6_761; the
+    rest come with the items of _LATER."""
     import importlib
 
-    for mod in ("alt_bn128", "bls12_381", "bls12_377"):
+    for mod in ("alt_bn128", "bls12_381", "bls12_377", "bw6_761"):
         try:
             importlib.import_module(f".{mod}", __package__)
         except ImportError:

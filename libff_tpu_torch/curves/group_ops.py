@@ -13,11 +13,12 @@ plain field with the kernel's masks as ``torch.where``.  The TPU kernel's
 size gate (``kernel_op_eligible``: N % 1024 == 0 and N >= 2^13) follows the
 TPU's tiling; this kernel takes any N.
 
-Both entries are built for alt_bn128's 8-limb G1 and G2 and for the G1
-and G2 of BLS12-381 and BLS12-377 over 12-limb Fp (:func:`kernel_branch`),
-each width from its own sources (``csrc/group_ops_n12.cu``,
-``csrc/horner_n12.cu``), and K3's 12-limb G2 from one source for each
-non-residue (:func:`k3_stem`).
+Both entries are built for alt_bn128's 8-limb G1 and G2, for the G1
+and G2 of BLS12-381 and BLS12-377 over 12-limb Fp and for BW6-761's G1
+and G2, both over its 24-limb Fq (:func:`kernel_branch`), each width
+from its own sources (``csrc/group_ops_n12.cu``, ``csrc/horner_n12.cu``,
+``csrc/group_ops_n24.cu``, ``csrc/horner_n24.cu``), and K3's 12-limb G2
+from one source for each non-residue (:func:`k3_stem`).
 
 :func:`horner_scan` is K3's scan entry: the Horner phase of the MSM
 (libff_tpu/msm/pippenger.py:419-433, a scan of masked pdbl steps and a sum
@@ -39,9 +40,12 @@ from ..fields.tower import PlainField2, kernel_nr
 from ..host import mont as hm
 from . import formulas as fml
 
-# the G1 branches' b3 by width: the constants the kernels' addition
-# chains are instantiated for (formulas.cuh FpField<N, B3>)
-G1_B3 = {8: (9,), 12: (12, 3)}
+# the G1 branches' b3 by width, signed: the constants the kernels'
+# addition chains are instantiated for (formulas.cuh FpField<N, B3>; a
+# negative one is the negated chain of -b3).  At 24 limbs both of
+# BW6-761's groups lie over Fq: G1 (b = -1, b3 = -3) and G2 (the M-twist's
+# b' = 4, b3 = 12)
+G1_B3 = {8: (9,), 12: (12, 3), 24: (-3, 12)}
 # op -> (its code in csrc/group_ops.cu, coordinate inputs, masks)
 OPS = {"padd": (0, 6, 0), "pmadd": (1, 5, 1), "pdbl": (2, 3, 0),
        "add": (3, 6, 0), "madd": (4, 5, 1), "dbl": (5, 3, 0)}
@@ -63,31 +67,51 @@ _SCAN_ARGS = [_PTRS3, _PTRS3, _PTRS3, _build.VP, ctypes.c_int, ctypes.c_int,
 
 def kernel_branch(G, what: str):
     """The CUDA kernels' branch for group G as (k, b3, b3's Montgomery
-    limbs): k = 1 for a G1 whose b3 is a small constant of the kernels
-    (an addition chain): alt_bn128's (8 limbs, b3 = 9), BLS12-381's (12
-    limbs, b3 = 12) and BLS12-377's (12 limbs, b3 = 3), with no limbs;
-    k = 2 for a G2 over an Fq2 whose non-residue the kernels are built for
-    (``tower.FQ2_NRS``, the G2 branches' counterpart of ``G1_B3``:
-    alt_bn128's nr = p - 1 at 8 limbs, BLS12-381's p - 1 and BLS12-377's
-    p - 5 at 12), with nr - p in place of b3 and the limbs of
+    limbs): k = 1 for a group over Fp whose b3, taken as a signed residue,
+    is a small constant of the kernels (an addition chain): alt_bn128's G1
+    (8 limbs, b3 = 9), BLS12-381's and BLS12-377's G1 (12 limbs, b3 = 12
+    and 3), BW6-761's G1 and G2 (24 limbs, b3 = p - 3 as -3, and 12), with
+    no limbs; k = 2 for a G2 over an Fq2 whose non-residue the kernels are
+    built for (``tower.FQ2_NRS``, the G2 branches' counterpart of
+    ``G1_B3``: alt_bn128's nr = p - 1 at 8 limbs, BLS12-381's p - 1 and
+    BLS12-377's p - 5 at 12), with nr - p in place of b3 and the limbs of
     b3 = (c0, c1), a runtime constant.  The library is the width's
     (``_build.width_stem``).  Raises for any other group: other widths
-    wait for ROADMAP Queue 1 item 9d."""
+    wait for ROADMAP Queue 1 item 10."""
     F = G.F
     n32 = F.prime_field.n32
     if n32 not in KERNEL_WIDTHS:
         raise NotImplementedError(
-            f"{what} is built for 8 and 12 limbs, not {n32} ({G.name}): "
-            "wider fields wait for ROADMAP Queue 1 item 9d")
-    if F.el_ndim == 1 and G._b3_host in G1_B3[n32]:
-        return 1, G._b3_host, None
+            f"{what} is built for 8, 12 and 24 limbs, not {n32} ({G.name}): "
+            "other widths (MNT4/MNT6's 10) wait for ROADMAP Queue 1 item 10")
+    if F.el_ndim == 1:
+        b3 = G._b3_host
+        b3 = b3 - F.p if b3 > F.p // 2 else b3
+        if b3 in G1_B3[n32]:
+            return 1, b3, None
     nr = kernel_nr(F) if F.el_ndim == 2 else None
     if nr is not None:
         return 2, nr, _build.u32_array(F.mont_limbs(G._b3_host))
     raise NotImplementedError(
         f"{what} is built for alt_bn128 G1 (b3 = 9) and G2 (Fq2 with nr = "
         f"p - 1), BLS12-381 and BLS12-377 G1 (b3 = 12, 3) and their G2 "
-        f"(nr = p - 1, p - 5), not {G.name}")
+        f"(nr = p - 1, p - 5), BW6-761 G1 and G2 (b3 = -3, 12), not "
+        f"{G.name}")
+
+
+# the kernels that wait at 24 limbs, and the ROADMAP item that builds
+# them: K2 runs there over CIOS only, with no fused merge
+N24_LATER = ("the lane merge K5, the fused merge K2m, the v1 insert K6 "
+             "and the SOS/SOS2 products at 24 limbs wait for ROADMAP "
+             "Queue 1 item 9e")
+
+
+def check_built(G, what: str, later: bool) -> None:
+    """Raise for a kernel setting `what` that is not built at G's width:
+    at 24 limbs where `later` (K5, K2m, K6 and K2 over the SOS products;
+    :data:`N24_LATER`)."""
+    if later and G.F.prime_field.n32 == 24:
+        raise NotImplementedError(f"{what} on {G.name}: {N24_LATER}")
 
 
 def k3_stem(n32: int, k: int, b3: int) -> str:
@@ -380,15 +404,13 @@ class PairField2(PlainField2):
 
     def __init__(self, B, nr: int | None = None):
         super().__init__(B, B.p - 1 if nr is None else nr)
-        self._p = hm.int_to_limbs(B.p, B.n)
 
     def _redc_of_sums(self, x0, y0, x1, y1):
         """Per lane, REDC(x0 y0 + x1 y1) in relaxed 16-bit columns; raises
         unless the reduced value is below 2p, the bound that one
         conditional subtraction needs."""
         B, n = self.B, self.B.n
-        p = torch.tensor(self._p, dtype=torch.int64,
-                         device=x0.device).reshape((n,) + (1,) * (x0.ndim - 1))
+        p = B._p_col(x0)
         t = B._columns(x0, 1)
         for i in range(n):
             t[i:i + n] += x0[i] * y0 + x1[i] * y1

@@ -12,8 +12,9 @@ On a CUDA tensor, ``add``/``sub``/``mul`` launch kernel K1e
 (``csrc/fp_ops.cu``, built on ``csrc/fp.cuh``), and ``inv`` launches its
 inverse entry K1e inv once, whatever the batch: the whole ladder of
 ``pow_static`` runs in each thread's registers.  The kernels are built
-for 8 limbs (alt_bn128) and 12 (BLS12-381 and BLS12-377), each width
-from its own source (``csrc/fp_ops_n12.cu``; ``KERNEL_WIDTHS``).  On a CPU tensor they run
+for 8 limbs (alt_bn128), 12 (BLS12-381 and BLS12-377) and 24 (BW6-761),
+each width from its own source (``csrc/fp_ops_n12.cu``,
+``csrc/fp_ops_n24.cu``; ``KERNEL_WIDTHS``).  On a CPU tensor they run
 the plain version, :class:`PlainField`, which follows the JAX package's
 16-bit CIOS (fp.py:246-276) in int64 tensors: this torch build has no CPU
 right shift for uint32, and a 32x32-bit product wraps int64.  The plain
@@ -45,9 +46,9 @@ MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
 # the in-kernel Montgomery products (pallas_insert.py:96-99, fp.cuh)
 KMULS = ("cios", "sos", "sos2")
-# the limb counts the kernels are built for: 254-bit fields (alt_bn128)
-# and 377- and 381-bit ones (BLS12-377, BLS12-381)
-KERNEL_WIDTHS = (8, 12)
+# the limb counts the kernels are built for: 254-bit fields (alt_bn128),
+# 377- and 381-bit ones (BLS12-377, BLS12-381) and 761-bit ones (BW6-761)
+KERNEL_WIDTHS = (8, 12, 24)
 
 
 # -- the n16 <-> n32 repack --------------------------------------------------
@@ -172,6 +173,7 @@ class PlainField:
         self.kmul = kmul
         self.inv16 = self.mp.inv16
         self._p = hm.int_to_limbs(p, self.n)
+        self._p_cols = {}
 
     def with_kmul(self, kmul: str) -> "PlainField":
         """This field with `kmul` as the product behind ``mul``."""
@@ -179,18 +181,28 @@ class PlainField:
             return self
         return PlainField(self.p, self.mp.bits, kmul)
 
+    def _p_col(self, like: torch.Tensor) -> torch.Tensor:
+        """p's limbs as _col gives them for `like`, made once per device
+        and rank (as are mul_small_const's constants): on the card each
+        would be a host-to-device copy, which waits for the stream."""
+        key = (like.device, like.ndim)
+        col = self._p_cols.get(key)
+        if col is None:
+            col = self._p_cols[key] = _col(self._p, like.ndim, like)
+        return col
+
     def add(self, a, b):
         # a + b and a + b - p carried in one pass; keep the difference
         # unless it went negative
         u = a + b
-        r, out = _carry(torch.stack([u, u - _col(self._p, u.ndim, u)], 1))
+        r, out = _carry(torch.stack([u, u - self._p_col(u)], 1))
         return torch.where((out[1] >= 0)[None], r[:, 1], r[:, 0])
 
     def sub(self, a, b):
         # a - b and a - b + p carried in one pass; keep the first unless it
         # went negative
         v = a - b
-        r, out = _carry(torch.stack([v, v + _col(self._p, v.ndim, v)], 1))
+        r, out = _carry(torch.stack([v, v + self._p_col(v)], 1))
         return torch.where((out[0] >= 0)[None], r[:, 0], r[:, 1])
 
     def neg(self, a):
@@ -221,15 +233,18 @@ class PlainField:
         reduction step of the row's quotient."""
         a, b = torch.broadcast_tensors(a, b)
         n = self.n
-        p = _col(self._p, b.ndim, b)
+        p = self._p_col(b)
         # column k of a*b + m*p at t[k]; round i zeroes column i mod 2^16
         # and carries it into column i + 1, so t[n:] ends as the product
         # times 2^(-16n), below 2p, in relaxed limbs
+        # (a row's product and quotient each one addcmul_: the plain
+        # checks on the card are bound by the launches of this loop; the
+        # columns stay below 2^40, so t_i inv16 fits int64 unmasked)
         t = self._columns(b, 1)
         for i in range(n):
-            t[i:i + n] += a[i] * b
-            m = ((t[i] & MASK16) * self.inv16) & MASK16
-            t[i:i + n] += m * p
+            t[i:i + n].addcmul_(a[i], b)
+            m = (t[i] * self.inv16) & MASK16
+            t[i:i + n].addcmul_(m, p)
             t[i + 1] += t[i] >> 16
         return self._reduced(t[n:], p)
 
@@ -240,7 +255,7 @@ class PlainField:
         carries only move up."""
         a, b = torch.broadcast_tensors(a, b)
         n = self.n
-        p = _col(self._p, b.ndim, b)
+        p = self._p_col(b)
         t = self._columns(b, 1)
         for i in range(n):
             t[i:i + n] += a[i] * b
@@ -257,7 +272,7 @@ class PlainField:
         columns from column i up."""
         a, b = torch.broadcast_tensors(a, b)
         n = self.n
-        p = _col(self._p, b.ndim, b)
+        p = self._p_col(b)
         inv32 = self.mp.inv64 & MASK32
         t = self._columns(b, 2)
         for i in range(n):
@@ -275,8 +290,12 @@ class PlainField:
 
     def mul_small_const(self, a, c: int):
         def big(c):
-            cm = hm.int_to_limbs(hm.to_mont(self.mp, c), self.n)
-            return _col(cm, a.ndim, a).expand_as(a)
+            key = (c, a.device, a.ndim)
+            col = self._p_cols.get(key)
+            if col is None:
+                cm = hm.int_to_limbs(hm.to_mont(self.mp, c), self.n)
+                col = self._p_cols[key] = _col(cm, a.ndim, a)
+            return col.expand_as(a)
 
         return _mul_small_const(self, a, c, big)
 
@@ -310,8 +329,8 @@ def kernel_device(a: torch.Tensor, n32: int, what: str) -> bool:
         raise ValueError(f"no kernel for device {a.device}")
     if n32 not in KERNEL_WIDTHS:
         raise NotImplementedError(
-            f"{what} is built for 8 and 12 limbs, not n32 = {n32}: wider "
-            "fields wait for ROADMAP Queue 1 item 9d")
+            f"{what} is built for 8, 12 and 24 limbs, not n32 = {n32}: "
+            "other widths (MNT4/MNT6's 10) wait for ROADMAP Queue 1 item 10")
     return True
 
 
@@ -429,7 +448,7 @@ def fp_inv(F: "PrimeField", a: torch.Tensor) -> torch.Tensor:
     """a^(p-2) of every element of the (n32, *batch) int32 array a; 0 maps
     to 0.  A CPU tensor takes pow_static, the plain version; a CUDA tensor
     launches kernel K1e inv once (counted as "K1e inv", or "K1e inv n12"
-    at 12 limbs)."""
+    and "K1e inv n24" at 12 and 24 limbs)."""
     check_operands(F, a, a)
     if not kernel_device(a, F.n32, "K1e inv"):
         return F.pow_static(a, F.p - 2)

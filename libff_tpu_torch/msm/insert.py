@@ -19,7 +19,10 @@ inside K2 (``MsmConfig.kmul``, pallas_insert3.py:302): "cios" builds from
 and K6 build from ``csrc/insert_n12.cu`` and K2 and K2m over the SOS
 products from ``csrc/insert_sos_n12.cu`` and ``csrc/insert_sos2_n12.cu``,
 every setting of the 8-limb path, counted with the width before the
-product: "K2 g1 n12", "K2m g2 n12 sos", "K6 g1 n12" and so on.
+product: "K2 g1 n12", "K2m g2 n12 sos", "K6 g1 n12" and so on.  Over
+24-limb Fp (BW6-761's G1 and G2, both over Fq) K2 builds from
+``csrc/insert_n24.cu`` over CIOS, counted as "K2 g1 n24"; there K2m, K6
+and the SOS products raise on the card (``group_ops.check_built``).
 
 On the card K2 is the sort :func:`bucket_lists`, which lists each
 (window, lane)'s steps by bucket in t order, then the chain kernel, which
@@ -45,7 +48,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import PairField2, kernel_branch
+from ..curves.group_ops import PairField2, check_built, kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 from ..fields.tower import kernel_nr
 from .merge import far_scratch, merge_lanes_plain
@@ -229,6 +232,8 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
         return merge_lanes_plain(G, raw, kmul) if merge else raw
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
+    check_built(G, f"K2 with merge={merge}, kmul={kmul!r}",
+                merge or kmul != "cios")
     k, b3, b3_mont = kernel_branch(G, "K2")
     off, ent, rec, lane, out = _kernel_tensors(
         G, d, pts, B, k, (W, B, 1) if merge else (W, B, L))
@@ -265,6 +270,7 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
         return insert_plain(G, d, pts, B)
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
+    check_built(G, "K6", True)
     kernel_branch(G, "K6")
     W, T, L = d.shape
     off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, (W, B, L))

@@ -19,7 +19,9 @@ builds from ``csrc/merge.cu``, "sos" and "sos2" from ``csrc/merge_sos.cu``
 and ``csrc/merge_sos2.cu``; over 12-limb Fp (BLS12-381 and BLS12-377, G1
 and G2) from ``csrc/merge_n12.cu``, ``merge_sos_n12.cu`` and
 ``merge_sos2_n12.cu``, counted as "K5 g1 n12", "K5 g2 n12 sos" and so on.
-A CUDA tensor launches the kernel; a CPU tensor runs
+At 24 limbs (BW6-761) K5 is not built yet and raises on the card
+(ROADMAP Queue 1 item 9e).  A CUDA tensor launches the kernel; a CPU
+tensor runs
 :func:`merge_lanes_plain` over the same product.
 
 On the card (``csrc/merge.cuh``) one warp takes a row: each of its
@@ -42,7 +44,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import kernel_branch
+from ..curves.group_ops import check_built, kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 
 _ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
@@ -81,6 +83,7 @@ def merge_lanes(G, buckets: ProjectivePoint,
         return merge_lanes_plain(G, buckets, kmul)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    check_built(G, "K5", True)
     k, b3, b3_mont = kernel_branch(G, "K5")
     W, B, L = buckets.z.shape[-3:]
     ins = [c.contiguous() for c in buckets]

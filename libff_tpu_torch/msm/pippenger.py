@@ -30,8 +30,11 @@ ports.  ``tb`` (the TPU kernel's time rows per grid step) is accepted
 and has no effect on the card.
 
 The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 and G2
-of BLS12-381 and BLS12-377 (12 limbs), every setting on each, each width
-from its own kernel libraries (``_build.width_stem``).
+of BLS12-381 and BLS12-377 (12 limbs), every setting on each, and on
+BW6-761's G1 and G2, both over its 24-limb Fq, under the settings whose
+kernels are built there (engine "auto" or "pallas3", merge False, kmul
+"cios"; the others raise on the card, naming ROADMAP Queue 1 item 9e),
+each width from its own kernel libraries (``_build.width_stem``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 
 from ..curves.group import (AffinePoint, Group, JacobianPoint,
                             ProjectivePoint)
-from ..curves.group_ops import horner_scan
+from ..curves.group_ops import check_built, horner_scan
 from ..fields.fp import KMULS
 from . import digits as dig
 from .insert import insert, insert_v1
@@ -93,7 +96,9 @@ def default_config(n: int, G: Group | None = None,
     256 against 1024 lanes found G2 faster at 256 (a shorter lane merge
     in the reduce) and left G1 unresolved, 256 ahead in one of three
     pairs (PERF.md §6-§7).  Both groups keep 1024 lanes, and so do the
-    12-limb G1s of BLS12-381 and BLS12-377, which no sweep has measured.
+    12-limb paths of BLS12-381 and BLS12-377 and BW6-761's 24-limb ones
+    (whose bucket array is 48 windows x 128 x 1024 x 288 bytes, about
+    1.8 GB; the sweeps of PERF.md §7 have not changed the choice).
     Smaller sizes were not swept; ``_prepare`` cuts the lanes to the
     largest power of two <= n.
     CPU (the plain versions, tests): small windows keep the plain insert's
@@ -268,6 +273,11 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     N = scalar_limbs.shape[-1]
     cfg = config or default_config(N, G, scalar_limbs.device)
     _check_config(G, cfg)
+    if scalar_limbs.device.type == "cuda":
+        check_built(G, f"MsmConfig(engine={cfg.engine!r}, merge="
+                    f"{cfg.merge!r}, kmul={cfg.kmul!r})",
+                    cfg.engine == "pallas" or cfg.merge is not False
+                    or cfg.kmul != "cios")
     c = cfg.c
     W = dig.num_signed_digits(G.order, num_bits, c)
     B = 1 << (c - 1)

@@ -1,9 +1,10 @@
 """Where the MSM's time goes on the card: a torch.profiler trace of one
 steady run.
 
-    python3 -m libff_tpu_torch.profile_msm [g1|g2] [log2n]
+    python3 -m libff_tpu_torch.profile_msm [--curve CURVE] [g1|g2] [log2n]
 
-It runs the alt_bn128 MSM of the group (default G2 at 2^18 points) twice
+It runs the MSM of the curve (alt_bn128 by default; bls12_381,
+bls12_377, bw6_761) and group (default G2 at 2^18 points) twice
 to warm up, then once under ``torch.profiler`` with CPU and CUDA
 activities, and prints one JSON line: the run's wall milliseconds, the
 device milliseconds summed over every kernel and copy (one stream, so
@@ -28,9 +29,10 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_msm: needs a CUDA card", file=sys.stderr)
         return 2
+    curve, argv = workload.curve_arg(argv)
     group = argv[0] if argv else "g2"
     log2n = int(argv[1]) if len(argv) > 1 else 18
-    dc = device_curve("alt_bn128")
+    dc = device_curve(curve)
     G = getattr(dc, group)
     scalars, points, want = workload.msm_case(dc, group, log2n)
 
@@ -54,7 +56,7 @@ def main(argv) -> int:
                                "count": ev.count}
     device_ms = sum(k["ms"] for k in kernels.values())
     print(json.dumps({
-        "group": group, "log2n": log2n, "wall_ms": wall_ms,
+        "curve": curve, "group": group, "log2n": log2n, "wall_ms": wall_ms,
         "device_ms": device_ms, "idle_share": 1 - device_ms / wall_ms,
         "kernels": dict(sorted(kernels.items(),
                                key=lambda kv: -kv[1]["ms"]))}), flush=True)

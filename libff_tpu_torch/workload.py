@@ -4,8 +4,9 @@ G1 as in bench.py:72-137: N scalars times N points, point i being
 (i % 32 + 1) * gen, so the MSM equals (sum_j (j+1) * K_j mod r) * gen with
 K_j the sum of the scalars of residue class j, one host scalar
 multiplication however large N is.  Nothing in it is alt_bn128's: the
-same case and oracle serve the G1 of BLS12-381 and BLS12-377, with their
-generators, r and scalar bits (``scalar_bits``).  G2 as in profile/bench_g2.py:49-85:
+same case and oracle serve the G1 of BLS12-381, BLS12-377 and BW6-761,
+with their generators, r and scalar bits (``scalar_bits``), and each
+curve's G2.  G2 as in profile/bench_g2.py:49-85:
 the same with period 16 and the G2 generator.  The scalars here come from
 a numpy seed (the JAX package uses libff's SHA512 generator) and are held
 in the JAX package's layout, (n16, N) uint32 plain 16-bit limbs; points
@@ -35,8 +36,9 @@ from .msm.pippenger import _prepare, msm_pippenger
 
 PERIOD = {"g1": 32, "g2": 16}
 SEED = 2024
-# the curves of the MSM paths: alt_bn128 at 8 limbs, the BLS12 pair at 12
-CURVES = ("alt_bn128", "bls12_381", "bls12_377")
+# the curves of the MSM paths: alt_bn128 at 8 limbs, the BLS12 pair at
+# 12, BW6-761 at 24 (its G2 over Fq: int coordinates, el_ndim 1)
+CURVES = ("alt_bn128", "bls12_381", "bls12_377", "bw6_761")
 
 
 def curve_arg(argv: list[str]) -> tuple[str, list[str]]:
@@ -236,7 +238,8 @@ def msm_case(dc, group: str, log2n: int, device="cuda", seed: int = SEED):
 
 def scalar_bits(G) -> int:
     """The bits of group G's scalars, its order's (the curve's Fr bits:
-    254 for alt_bn128, 255 for BLS12-381, 253 for BLS12-377)."""
+    254 for alt_bn128, 255 for BLS12-381, 253 for BLS12-377, 377 for
+    BW6-761)."""
     return G.order.bit_length()
 
 

@@ -3,7 +3,7 @@ they copy.
 
 The port imports nothing of ``libff_tpu``; it carries copies of
 ``host/{mont,field,ec}.py`` and ``curves/{curvedef,formulas,alt_bn128,
-bls12_381,bls12_377}.py``.  These tests hold the copies to the
+bls12_381,bls12_377,bw6_761}.py``.  These tests hold the copies to the
 originals: the host modules and the formulas function by function (same
 source body), each curve module whole (its imports are the same
 relative ones), and alt_bn128's curve data value by value (moduli,
@@ -65,7 +65,8 @@ def test_alt_bn128_constants_equal_the_reference():
         _curve_data(jcurvedef.get_curve("alt_bn128"))
 
 
-@pytest.mark.parametrize("name", ["alt_bn128", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("name", ["alt_bn128", "bls12_381", "bls12_377",
+                                  "bw6_761"])
 def test_curve_modules_are_whole_copies(name):
     port = importlib.import_module(f"libff_tpu_torch.curves.{name}")
     ref = importlib.import_module(f"libff_tpu.curves.{name}")
@@ -73,7 +74,7 @@ def test_curve_modules_are_whole_copies(name):
 
 
 def test_other_curves_wait_for_their_copies():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        curvedef.get_curve("bw6_761")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        curvedef.get_curve("mnt4")
     with pytest.raises(KeyError):
         curvedef.get_curve("no_such_curve")

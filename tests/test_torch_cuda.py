@@ -1132,8 +1132,9 @@ def test_msm_n12_configs_match_oracle(dev, dc12, curve, group, key, fields,
 
 def test_width_without_kernel_raises_9d(dev):
     """A group over a field of no kernel width (the toy curve's p = 65539,
-    2 limbs) raises naming ROADMAP item 9d on a CUDA tensor in every
-    wrapper of this slice: none falls back to a plain version."""
+    2 limbs) raises naming ROADMAP item 10, which now owns the widths with
+    no kernel (MNT4/MNT6's 10 limbs), on a CUDA tensor in every wrapper of
+    this slice: none falls back to a plain version."""
     from libff_tpu_torch.curves.curvedef import GroupDef
     from libff_tpu_torch.curves.group import Group
     from libff_tpu_torch.host import ec as hec
@@ -1154,5 +1155,131 @@ def test_width_without_kernel_raises_9d(dev):
                  lambda: insert(G, d, pts, B, merge=True, kmul="sos2"),
                  lambda: insert(G, d, pts, B, kmul="sos"),
                  lambda: insert_v1(G, d, pts, B)):
-        with pytest.raises(NotImplementedError, match="9d"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             call()
+
+
+# -- the 24-limb kernels: BW6-761's G1 (b3 = -3) and G2 over Fq (b3 = 12) -----
+
+GROUPS24 = ["g1", "g2"]
+
+
+@pytest.fixture(scope="module")
+def dc24():
+    return device_curve("bw6_761")
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_k1e_n24_matches_plain(dev, dc24, op):
+    """K1e over 24-limb Fq, every pair of edge values first, one launch
+    counted as "K1e n24"."""
+    F = dc24.fq
+    rng = np.random.default_rng(90)
+    a, b = (chip_smoke.rand_elements(F, 4099, rng, dev) for _ in range(2))
+    edges = workload.edge_values(F)
+    pairs = [(x, y) for x in edges for y in edges]
+    a[:, :len(pairs)] = F.plain_from_ints([x for x, _ in pairs], dev)
+    b[:, :len(pairs)] = F.plain_from_ints([y for _, y in pairs], dev)
+    before = _build.LAUNCHES["K1e n24"]
+    got = fp_op(F, op, a, b)
+    assert _build.LAUNCHES["K1e n24"] == before + 1
+    assert torch.equal(got, fp_op_plain(F, op, a, b))
+
+
+@pytest.mark.parametrize("n", [1, 4099])
+def test_k1e_inv_n24_matches_plain(dev, dc24, n):
+    """K1e inv over 24-limb Fq, one launch, on the edge values."""
+    F = dc24.fq
+    for a in _inv_inputs(F, n, 91, dev):
+        before = dict(_build.LAUNCHES)
+        got = F.inv(a)
+        assert _build.LAUNCHES["K1e inv n24"] == \
+            before.get("K1e inv n24", 0) + 1
+        assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(got, fp_inv_plain(F, a))
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("n", [1, 129, 3000])
+def test_k3_n24_matches_plain(dev, dc24, group, op, n):
+    """K3's Fp branch over 24-limb Fq, b3 = -3 (G1) and 12 (G2), with the
+    edge lanes of chip_smoke.k3_inputs where n holds them."""
+    G = getattr(dc24, group)
+    c, cm, q_inf = chip_smoke.k3_inputs(G.F, 3000,
+                                        np.random.default_rng(92), dev)
+    c, cm = [a[..., :n] for a in c], [a[..., :n] for a in cm]
+    q_inf = q_inf[:n]
+    coords, masks = {"padd": (c, ()), "add": (c, ()), "pdbl": (c[:3], ()),
+                     "dbl": (c[:3], ()), "pmadd": (list(cm), (q_inf,)),
+                     "madd": (list(cm), (q_inf,))}[op]
+    before = _build.LAUNCHES["K3 g1 n24"]
+    got = group_op(G, op, coords, masks)
+    assert _build.LAUNCHES["K3 g1 n24"] == before + 1
+    for g, w in zip(got, group_op_plain(G, op, coords, masks)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+@pytest.mark.parametrize("W,c", [(1, 4), (2, 1), (5, 3), (48, 8)])
+def test_k3_scan_n24_matches_plain(dev, dc24, group, W, c):
+    """The 24-limb scan's lane body over CIOS against horner_scan_plain,
+    at the path's (48, 8) too."""
+    G = getattr(dc24, group)
+    tot = chip_smoke.scan_inputs(G.F, W, np.random.default_rng(93 + W), dev)
+    before = _build.LAUNCHES["K3 scan g1 n24"]
+    got = horner_scan(G, tot, c)
+    assert _build.LAUNCHES["K3 scan g1 n24"] == before + 1
+    for g, w in zip(got, horner_scan_plain(G, tot, c)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+def test_k2_n24_matches_plain_with_several_chain_threads(dev, dc24, group):
+    """K2 over 24-limb Fq at T = 300 steps of 128 lanes (3 chain threads
+    a lane at the default 128 entries), 2 windows, on distinct points
+    (some at infinity) and on chip_smoke.skewed's digits."""
+    G = getattr(dc24, group)
+    d, pts, B = chip_smoke.k2_inputs(dc24, group, 300 * 128,
+                                     MsmConfig(c=8, lanes=128),
+                                     np.random.default_rng(94), dev)
+    d = d[:2].contiguous()
+    assert bool(pts[3].any())
+    for dd, pp in ((d, pts), chip_smoke.skewed(d, pts, B)):
+        before = _build.LAUNCHES["K2 g1 n24"]
+        got = insert(G, dd, pp, B)
+        assert _build.LAUNCHES["K2 g1 n24"] == before + 1
+        for g, w in zip(got, insert_plain(G, dd, pp, B)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+def test_msm_n24_matches_oracle(dev, dc24, group):
+    """BW6-761's MSM through default_config(n, G) at 2^12 points: the
+    oracle's point, one K2, scan and inverse launch, every 24-limb kernel
+    launched and no 8- or 12-limb one but K2's sort."""
+    G = getattr(dc24, group)
+    s, A, want = workload.msm_case(dc24, group, 12, dev, 95)
+    _build.LAUNCHES.clear()
+    got, _, _ = workload.run_msm(G, s, A, default_config(1 << 12, G, dev))
+    assert got == want
+    n = _build.LAUNCHES
+    assert n["K3 scan g1 n24"] == 1 and n["K1e inv n24"] == 1
+    assert n["K2 g1 n24"] == 1 and n["K3 g1 n24"] > 0 and n["K1e n24"] > 0
+    assert not [k for k in n if not k.endswith("n24") and k != "K2 sort g1"]
+
+
+@pytest.mark.parametrize("fields", [{"merge": "kernel"}, {"merge": True},
+                                    {"engine": "pallas"}, {"kmul": "sos"},
+                                    {"kmul": "sos2"}])
+def test_msm_n24_later_settings_raise_9e(dev, dc24, fields):
+    """Every MsmConfig setting whose 24-limb kernel is not built (K5, K2m,
+    K6, the SOS products) raises naming ROADMAP item 9e on the card,
+    before any K2 chain runs: no plain fallback."""
+    G = dc24.g1
+    s, A, _ = workload.msm_case(dc24, "g1", 10, dev, 96)
+    cfg = MsmConfig(c=8, lanes=128, **fields)
+    _build.LAUNCHES.clear()
+    with pytest.raises(NotImplementedError, match="item 9e"):
+        workload.run_msm(G, s, A, cfg)
+    assert not [k for k in _build.LAUNCHES if k.startswith("K2 g")]

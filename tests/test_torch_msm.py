@@ -196,7 +196,7 @@ def test_later_slices_raise(toy):
         msm_pippenger_windows(TG, convert.field_to_torch(limbs, "cpu"), A,
                               TOY_BITS, 0, 2)
     with pytest.raises(NotImplementedError):
-        device_curve("bw6_761")
+        device_curve("mnt4")
     with pytest.raises(ValueError):
         msm_pippenger(TG, convert.field_to_torch(limbs, "cpu"), A, TOY_BITS,
                       config=MsmConfig(c=4, lanes=3))
