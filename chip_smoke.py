@@ -67,19 +67,22 @@ through ``msm_pippenger``:
   on the kernels' Fp branch), 377-bit scalars, held against the same
   structured oracle with each group's generator under
   default_config(n, G) (``bw6_paths``: the 24-limb K1e, K1e inv, K2 and
-  K3 with its scan; the other settings wait for ROADMAP Queue 1 item 9e).
-  Before them K1e and K1e inv at one element and 2^20, K3's six ops at
-  2^21 and its scan at the path's (48, 8) for each group, and K2 timed at
-  each path's shape, its first K2_N24_WINDOWS windows held to the plain
-  insert, each held bit for bit against its plain version on the inputs
-  it is timed on.
+  K3 with its scan) and under every setting of MSM_VARIANTS's G1 (both
+  groups run the kernels' Fp branch: the 24-limb K5, K2m, K6 and K2, K2m
+  and K5 over the SOS products).  Before them K1e and K1e inv at one
+  element and 2^20, K3's six ops at 2^21 and its scan at the path's (48,
+  8) for each group, K2 timed at each path's shape, its first
+  K2_N24_WINDOWS windows held to the plain insert, and the merges as for
+  the 12-limb paths (``phase_merge``), each held bit for bit against
+  its plain version on the inputs it is timed on.
 
 Then the field-mul benches: the issue rates K7c (every body's ops a
 clock per SM, mul.lo and mul.hi held to the peaks the bounds charge) and
 the roofline K7a, K7b, K7d (timed at the JAX shapes, with the ratio and
-production ratio of profile/roofline.py; K7b lone at 8 limbs and, on
-BLS12-381's Fq, at 12 limbs over CIOS and over the scan's two-accumulator
-product); each bench's timed output is
+production ratio of profile/roofline.py; K7b lone at 8 limbs, on
+BLS12-381's Fq at 12 limbs over CIOS and over the scan's two-accumulator
+product, and on BW6-761's Fq at 24 limbs over CIOS); each bench's timed
+output is
 held against its plain version on the same inputs.  Their launches are
 counted from 0 over these two phases.  Last the batched-affine experiment
 K7e through its harness (``affine_experiment.measure``: the madd, affine
@@ -98,8 +101,8 @@ launches no 8-limb kernel but K2's sort, and a 12-limb G2 path one K2
 and one K2 sort and at most G2_N12_MOST K4e and K1e launches; a 24-limb
 path one K2, K2 sort, scan and inverse, at most 8 K1e and no 8- or
 12-limb kernel but K2's sort; each
-setting of MSM_VARIANTS must launch its kernel (at 12 limbs under its
-12-limb name, ``n12_name``).  K2's sort rows give
+setting of MSM_VARIANTS must launch its kernel (at 12 and 24 limbs under
+its width's name, ``wide_name``).  K2's sort rows give
 ``torch.sort(keys, stable=True)`` on the same keys as their library
 time, the one PyTorch call that computes their permutation.  Each phase
 prints one JSON line; then a
@@ -232,12 +235,12 @@ MSM_VARIANTS = {
 
 
 
-def n12_name(name: str) -> str:
-    """A launch count's name at 12 limbs: the width after the group, before
-    any product ("K2 g1 sos" -> "K2 g1 n12 sos", "K6 g1" -> "K6 g1
-    n12")."""
+def wide_name(name: str, n32: int) -> str:
+    """A launch count's name at n32 limbs (12 or 24): the width after the
+    group, before any product ("K2 g1 sos" -> "K2 g1 n12 sos", "K6 g1" ->
+    "K6 g1 n24")."""
     parts = name.split()
-    return " ".join(parts[:2] + ["n12"] + parts[2:])
+    return " ".join(parts[:2] + [f"n{n32}"] + parts[2:])
 
 
 T_START = time.perf_counter()
@@ -633,6 +636,8 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
 
     G = getattr(dc, group)
     n32 = G.F.prime_field.n32
+    # the kernels' branch: BW6-761's G2 lies over Fq and runs the G1 one
+    branch = "g1" if G.F.el_ndim == 1 else "g2"
     d, pts, B, raw_plain = inputs
     raw = insert(G, d, pts, B)
     checked = 0 if raw_plain is None else raw_plain[0].shape[-3]
@@ -647,13 +652,13 @@ def phase_merge(dc, group: str, k2: dict, inputs) -> dict:
     fused_ms = None if k2["plain_ms"] is None else k2["plain_ms"] + merge_ms
 
     def name(kernel, kmul="cios"):
-        return _build.kmul_name(_build.width_name(f"{kernel} {group}", n32),
+        return _build.kmul_name(_build.width_name(f"{kernel} {branch}", n32),
                                 kmul)
 
     runs = {name("K5"): (lambda: merge_lanes(G, raw), want, merge_ms, 20),
             name("K2m"): (lambda: insert(G, d, pts, B, merge=True), want,
                           fused_ms, 3)}
-    if group == "g1":
+    if branch == "g1":
         runs[name("K6")] = (lambda: insert_v1(G, d, pts, B), ref_raw,
                             k2["plain_ms"], 3)
     for k in SOS_KMULS:
@@ -781,39 +786,32 @@ def phase_roofline(dc, rng, dev, k2_g1: dict) -> dict:
                                                 reps),
                   n, reps * rl.CHAINS[F.el_ndim])
         del a, b
-    # K7b lone: one element's chain, timed at LONE_REPS and half of it
-    x, y = (rand_elements(dc.fq, 1, rng, dev) for _ in range(2))
-    ns, ms, outs = rl.lone_product_ns(dc.fq, x, y)
-    err, plain_ms = 0, {}
-    for reps, got in outs.items():
-        want, plain_ms[reps] = host_timed(
-            lambda: rl.lone_chain_plain(dc.fq, x, y, reps))
-        err = max(err, max_abs_err([got], [want]))
-    res["kernels"]["K7b lone"] = {
-        "max_abs_err": err, "plain_ms": plain_ms[rl.LONE_REPS], "n": 1,
-        "products_per_element": rl.LONE_REPS, "ns_per_product": ns,
-        "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
-        "plain_ms_by_reps": plain_ms}
-    res["lone_product_ns"] = ns
-    # K7b lone at 12 limbs on BLS12-381's Fq: the CIOS product and the
-    # scan's two-accumulator one
+    # K7b lone: one element's chain, timed at LONE_REPS and half of it, at
+    # 8 limbs, at 12 on BLS12-381's Fq (the CIOS product and the scan's
+    # two-accumulator one) and at 24 on BW6-761's (CIOS).  Every product
+    # gives the canonical residue, so one plain chain of half the products,
+    # then half more from where it stopped, holds each product's outputs.
     from libff_tpu_torch.curves.device import device_curve
-    F12 = device_curve("bls12_381").fq
-    x, y = (rand_elements(F12, 1, rng, dev) for _ in range(2))
-    for product in rl.LONE_PRODUCTS[12]:
-        ns, ms, outs = rl.lone_product_ns(F12, x, y, product=product)
-        err, plain_ms = 0, {}
-        for reps, got in outs.items():
-            want, plain_ms[reps] = host_timed(
-                lambda: rl.lone_chain_plain(F12, x, y, reps))
-            err = max(err, max_abs_err([got], [want]))
-        name = rl.lone_name(12, product)
-        res["kernels"][name] = {
-            "max_abs_err": err, "plain_ms": plain_ms[rl.LONE_REPS], "n": 1,
-            "products_per_element": rl.LONE_REPS, "ns_per_product": ns,
-            "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
-            "plain_ms_by_reps": plain_ms}
-        res[f"lone_product_{product}_n12_ns"] = ns
+    half = rl.LONE_REPS // 2
+    for n32, Fw in ((8, dc.fq), (12, device_curve("bls12_381").fq),
+                    (24, device_curve(BW6).fq)):
+        x, y = (rand_elements(Fw, 1, rng, dev) for _ in range(2))
+        mid, mid_ms = host_timed(lambda: rl.lone_chain_plain(Fw, x, y, half))
+        end, end_ms = host_timed(
+            lambda: rl.lone_chain_plain(Fw, mid, y, half))
+        want = {rl.LONE_REPS: end, half: mid}
+        plain_ms = {rl.LONE_REPS: mid_ms + end_ms, half: mid_ms}
+        for product in rl.LONE_PRODUCTS[n32]:
+            ns, ms, outs = rl.lone_product_ns(Fw, x, y, product=product)
+            res["kernels"][rl.lone_name(n32, product)] = {
+                "max_abs_err": max(max_abs_err([outs[r]], [want[r]])
+                                   for r in want),
+                "plain_ms": plain_ms[rl.LONE_REPS], "n": 1,
+                "products_per_element": rl.LONE_REPS, "ns_per_product": ns,
+                "ms": ms[rl.LONE_REPS], "ms_by_reps": ms,
+                "plain_ms_by_reps": plain_ms}
+            res["lone_product_ns" if n32 == 8
+                else f"lone_product_{product}_n{n32}_ns"] = ns
     if any(r["max_abs_err"] for r in res["kernels"].values()):
         fail(f"K7a, K7b or K7d disagrees with its plain version: {res}")
     products = {"k1e": rl.k1e_mul_ns(dc.fq, 1 << LOG2N, rng, dev)}
@@ -949,6 +947,8 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     runs the kernels' Fp branch at b3 = -3 and its G2 at b3 = 12, one
     launch count for both, so each kernel has a row for each b3 ("K3 g1
     n24" and "K3 g1 n24 b3=12"), its launches read from its own path."""
+    from libff_tpu_torch import roofline as rl
+
     src, ref = "libff_tpu_torch/csrc/", "libff_tpu/"
     out = []
 
@@ -1016,12 +1016,6 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                        own_latency_ms=sc["chain_products"] * lone_ns * 1e-6)
         r = k2[g]
         W, T, L, B = r["shape"]
-        # K2: digits, flags (bool bytes) and points read once, raw buckets
-        # written once; K5: raw buckets read once, totals written once,
-        # W*B*(L-1) adds
-        k2_in = 4 * (W * T * L + 3 * WORDS[k] * T * L) + T * L
-        bucket_bytes = 3 * 4 * WORDS[k] * W * B * L
-        merged_bytes = 3 * 4 * WORDS[k] * W * B
         kernels = {f"K2 {g}": r, **merge[g]["kernels"]}
         # K2's sort: digits and flags (bool bytes) read once, lists
         # written once
@@ -1031,36 +1025,12 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
             bound(4 * (W * T * L + W * L * (B + 1)) + T * L
                   + q["entry_bytes"] * W * L * T, imads(0), rates))
         out[-1].update(library_ms=q["library_ms"], library=q["library"])
-        for kmul in ("cios",) + SOS_KMULS:
-            k2_muls = FP_MULS["madd"][k] * r["madds"]
-            k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
-            path = g if kmul == "cios" else f"{g} kmul={kmul}"
-            ins = _build.kmul_stem("insert", kmul) + ".cu"
-            rows = [(_build.kmul_name(f"K2 {g}", kmul), path, ins,
-                     "msm/pallas_insert3.py:74", k2_in + bucket_bytes,
-                     k2_muls),
-                    (_build.kmul_name(f"K5 {g}", kmul),
-                     f"{path} merge=kernel",
-                     _build.kmul_stem("merge", kmul) + ".cu",
-                     "msm/pallas_insert3.py:204",
-                     bucket_bytes + merged_bytes, k5_muls),
-                    (_build.kmul_name(f"K2m {g}", kmul), f"{path} merge=True",
-                     ins, "msm/pallas_insert3.py:172", k2_in + merged_bytes,
-                     k2_muls + k5_muls)]
-            if g == "g1" and kmul == "cios":
-                rows.append(("K6 g1", "g1 engine=pallas", "insert.cu",
-                             "msm/pallas_insert.py:35", k2_in + bucket_bytes,
-                             k2_muls))
-            for name, path, source, replaces, nbytes, muls in rows:
-                q = kernels[name]
-                add(name, path, source, replaces, q["ms"], q["plain_ms"],
-                    [W, B, L] if name.startswith("K5") else [W, T, L, B],
-                    q["max_abs_err"],
-                    bound(nbytes, imads(muls, kmul), rates))
-                # K2m's tail, measured in this run
-                out[-1].update({k: q[k] for k in (
-                    "k2_ms", "tail_ms", "k5_ms",
-                    "over_k2_plus_k5") if q.get(k) is not None})
+        for name, kmul, vp, source, replaces, nbytes, muls, shape in (
+                merge_rows(r, WORDS[k], k, g, 8, g == "g1")):
+            q = kernels[name]
+            add(name, vp, source, replaces, q["ms"], q["plain_ms"], shape,
+                q["max_abs_err"], bound(nbytes, imads(muls, kmul), rates))
+            out[-1].update(tail_fields(q))
     # the 12-limb kernels on the BLS12-381 G1 path; K7b lone n12's
     # latencies, ns a product
     path, w = "bls12_381 g1", WORDS12
@@ -1182,7 +1152,7 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
                    bls12_377_ms=r377["ms"],
                    bls12_377_checked_windows=r377["checked_windows"])
     n12_merge_rows(add, out, n12, rates)
-    n24_rows(add, out, n24, rates)
+    n24_rows(add, out, n24, rates, roof["lone_product_cios_n24_ns"])
     # the field-mul benches, each bound at its timed shape
     rk = roof["kernels"]
     r = rk["K7a"]
@@ -1205,12 +1175,12 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
         r["plain_ms"], [8, 1], r["max_abs_err"],
         bound(3 * 4 * 8, imads(r["products_per_element"]), rates))
     out[-1].update(latency_ns=r["ns_per_product"], ms_by_reps=r["ms_by_reps"])
-    for product in ("cios", "eo"):
-        name = f"K7b lone{'' if product == 'cios' else ' eo'} n12"
+    for n32, product in ((12, "cios"), (12, "eo"), (24, "cios")):
+        name = rl.lone_name(n32, product)
         r = rk[name]
-        add(name, None, "roofline_n12.cu", "profile/roofline.py:193",
-            r["ms"], r["plain_ms"], [12, 1], r["max_abs_err"],
-            bound(3 * 4 * 12, imads(r["products_per_element"], n32=12),
+        add(name, None, f"roofline_n{n32}.cu", "profile/roofline.py:193",
+            r["ms"], r["plain_ms"], [n32, 1], r["max_abs_err"],
+            bound(3 * 4 * n32, imads(r["products_per_element"], n32=n32),
                   rates))
         out[-1].update(latency_ns=r["ns_per_product"],
                        ms_by_reps=r["ms_by_reps"])
@@ -1234,63 +1204,83 @@ def kernel_line(k1e, k4e, inv, k3, k2, merge, msm, k7c, roof, k7e_rep, k7e,
     return out
 
 
+def merge_rows(r: dict, w: int, k: int, path: str, n32: int, k6: bool):
+    """The rows of K2 and the lane merges K5 and K2m over each product and
+    (k6) the v1 insert K6 on one path at n32 limbs (r: its K2 phase, w
+    words a coordinate, k the kernels' branch: 1 Fp, 2 Fq2).  K2 reads
+    the digits, flags (bool bytes) and points once and writes the raw
+    buckets once; K5 reads those once, writes the totals once and makes
+    W*B*(L-1) adds.  Yields (launch name, kmul, path key, source, TPU
+    kernel, bytes, multiply-adds, shape)."""
+    W, T, L, B = r["shape"]
+    k2_in = 4 * (W * T * L + 3 * w * T * L) + T * L
+    bucket_bytes = 3 * 4 * w * W * B * L
+    merged_bytes = 3 * 4 * w * W * B
+    k2_muls = FP_MULS["madd"][k] * r["madds"]
+    k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
+    branch = "g1" if k == 1 else "g2"
+    for kmul in ("cios",) + SOS_KMULS:
+        vpath = path if kmul == "cios" else f"{path} kmul={kmul}"
+        ins = _build.width_stem(_build.kmul_stem("insert", kmul), n32)
+        mrg = _build.width_stem(_build.kmul_stem("merge", kmul), n32)
+        rows = [("K2", vpath, ins, "msm/pallas_insert3.py:74",
+                 k2_in + bucket_bytes, k2_muls),
+                ("K5", f"{vpath} merge=kernel", mrg,
+                 "msm/pallas_insert3.py:204", bucket_bytes + merged_bytes,
+                 k5_muls),
+                ("K2m", f"{vpath} merge=True", ins,
+                 "msm/pallas_insert3.py:172", k2_in + merged_bytes,
+                 k2_muls + k5_muls)]
+        if k6 and kmul == "cios":
+            rows.append(("K6", f"{path} engine=pallas", ins,
+                         "msm/pallas_insert.py:35", k2_in + bucket_bytes,
+                         k2_muls))
+        for kern, vp, stem, replaces, nbytes, muls in rows:
+            yield (_build.kmul_name(_build.width_name(f"{kern} {branch}", n32),
+                                    kmul), kmul, vp, stem + ".cu", replaces,
+                   nbytes, muls,
+                   [W, B, L] if kern == "K5" else [W, T, L, B])
+
+
+def tail_fields(q: dict) -> dict:
+    """K2m's tail, measured in the run: its K2 and K5 times beside it."""
+    return {key: q[key] for key in ("k2_ms", "tail_ms", "k5_ms",
+                                    "over_k2_plus_k5")
+            if q.get(key) is not None}
+
+
 def n12_merge_rows(add, out: list, n12: dict, rates: dict) -> None:
     """The kernels line's rows of the 12-limb lane merges K5 and K2m, the
-    v1 insert K6 and K2 over the SOS products, on the BLS12-381 paths
-    (BLS12-377's times beside), through kernel_line's `add` into `out`;
-    bytes and products as the 8-limb rows count them."""
+    v1 insert K6 and K2 over the SOS products (merge_rows), on the
+    BLS12-381 paths (BLS12-377's times beside), through kernel_line's
+    `add` into `out`."""
     for g, k in (("g1", 1), ("g2", 2)):
-        w = WORDS12 * k
-        path = f"bls12_381 {g}"
         r = n12["k2" if g == "g1" else "k2 g2"]
-        W, T, L, B = r["shape"]
-        k2_in = 4 * (W * T * L + 3 * w * T * L) + T * L
-        bucket_bytes = 3 * 4 * w * W * B * L
-        merged_bytes = 3 * 4 * w * W * B
         q381 = n12[f"merge {g}"]["kernels"]
         q377 = n12[f"merge {g} bls12_377"]["kernels"]
-        k2_muls = FP_MULS["madd"][k] * r["madds"]
-        k5_muls = FP_MULS["padd"][k] * W * B * (L - 1)
-        for kmul in ("cios",) + SOS_KMULS:
-            vpath = path if kmul == "cios" else f"{path} kmul={kmul}"
-            ins = _build.width_stem(_build.kmul_stem("insert", kmul), 12)
-            mrg = _build.width_stem(_build.kmul_stem("merge", kmul), 12)
-            rows = [("K5", f"{vpath} merge=kernel", mrg,
-                     "msm/pallas_insert3.py:204", bucket_bytes + merged_bytes,
-                     k5_muls),
-                    ("K2m", f"{vpath} merge=True", ins,
-                     "msm/pallas_insert3.py:172", k2_in + merged_bytes,
-                     k2_muls + k5_muls)]
-            if kmul != "cios":
-                rows.insert(0, ("K2", vpath, ins, "msm/pallas_insert3.py:74",
-                                k2_in + bucket_bytes, k2_muls))
-            elif g == "g1":
-                rows.append(("K6", f"{path} engine=pallas", ins,
-                             "msm/pallas_insert.py:35", k2_in + bucket_bytes,
-                             k2_muls))
-            for kern, vp, stem, replaces, nbytes, muls in rows:
-                name = _build.kmul_name(_build.width_name(f"{kern} {g}", 12),
-                                        kmul)
-                q, q7 = q381[name], q377[name]
-                add(name, vp, stem + ".cu", replaces, q["ms"], q["plain_ms"],
-                    [W, B, L] if kern == "K5" else [W, T, L, B],
-                    max(q["max_abs_err"], q7["max_abs_err"]),
-                    bound(nbytes, imads(muls, kmul, n32=12), rates))
-                out[-1].update({k: q[k] for k in (
-                    "k2_ms", "tail_ms", "k5_ms",
-                    "over_k2_plus_k5") if q.get(k) is not None})
-                out[-1].update(bls12_377_ms=q7["ms"],
-                               plain_checked_windows=r["checked_windows"])
+        for name, kmul, vp, source, replaces, nbytes, muls, shape in (
+                merge_rows(r, WORDS12 * k, k, f"bls12_381 {g}", 12,
+                           g == "g1")):
+            if name not in q381:        # K2 over CIOS: its own row
+                continue
+            q, q7 = q381[name], q377[name]
+            add(name, vp, source, replaces, q["ms"], q["plain_ms"], shape,
+                max(q["max_abs_err"], q7["max_abs_err"]),
+                bound(nbytes, imads(muls, kmul, n32=12), rates))
+            out[-1].update(tail_fields(q))
+            out[-1].update(bls12_377_ms=q7["ms"],
+                           plain_checked_windows=r["checked_windows"])
 
 
-def n24_rows(add, out: list, n24: dict, rates: dict) -> None:
+def n24_rows(add, out: list, n24: dict, rates: dict,
+             lone24_ns: float) -> None:
     """The kernels line's rows of the 24-limb kernels on BW6-761's paths
     through kernel_line's `add` into `out`: K1e n24 and K1e inv n24 (G1
     path), and K3 with its scan and K2 once for each b3, G1's -3 and
-    G2's 12, bytes and products as the narrower rows count them.  No lone
-    chain (K7b lone) is timed at 24 limbs, so the latency chains' rows
-    give their time a dependent product (chain_ns_per_product), not an
-    own latency."""
+    G2's 12, bytes and products as the narrower rows count them; the
+    latency chains' rows also give own_latency_ms, their dependent
+    products at K7b lone n24's latency (lone24_ns); then the lane merges,
+    K6 and the SOS branches (n24_merge_rows)."""
     ref = "libff_tpu/"
     w = WORDS24
     r = n24["k1e"]
@@ -1314,7 +1304,8 @@ def n24_rows(add, out: list, n24: dict, rates: dict) -> None:
         bound_products=r["bound_products"],
         bound_chain_products=r["bound_chain_products"], ms_at_1=r["ms_at_1"],
         plain_ms_at_1=r["plain_ms_at_1"],
-        chain_ns_per_product_at_1=r["ms_at_1"] * 1e6 / r["chain_products"])
+        chain_ns_per_product_at_1=r["ms_at_1"] * 1e6 / r["chain_products"],
+        own_latency_ms_at_1=r["bound_chain_products"] * lone24_ns * 1e-6)
     for group, b3 in (("g1", -3), ("g2", 12)):
         path, tag = f"{BW6} {group}", "" if group == "g1" else " b3=12"
         r = n24[f"k3 {group}"]
@@ -1336,7 +1327,8 @@ def n24_rows(add, out: list, n24: dict, rates: dict) -> None:
                   imads(sc["base_products"], n32=24), rates),
             counted="K3 scan g1 n24")
         out[-1].update(sc, b3=b3, chain_ns_per_product=q["ms"] * 1e6
-                       / sc["chain_products"])
+                       / sc["chain_products"],
+                       own_latency_ms=sc["chain_products"] * lone24_ns * 1e-6)
         r = n24[f"k2 {group}"]
         W, T, L, B = r["shape"]
         add(f"K2 g1 n24{tag}", path, "insert_n24.cu",
@@ -1348,6 +1340,29 @@ def n24_rows(add, out: list, n24: dict, rates: dict) -> None:
             counted="K2 g1 n24")
         # plain_ms: insert_plain on the checked windows only
         out[-1].update(b3=b3, checked_windows=r["checked_windows"])
+    n24_merge_rows(add, out, n24, rates)
+
+
+def n24_merge_rows(add, out: list, n24: dict, rates: dict) -> None:
+    """The kernels line's rows of the 24-limb lane merges K5 and K2m, the
+    v1 insert K6 and K2 over the SOS products (merge_rows), once for each
+    b3 (BW6-761 G1's -3 and G2's 12, "... b3=12"), each read from its own
+    path, through kernel_line's `add` into `out`."""
+    for group, b3 in (("g1", -3), ("g2", 12)):
+        tag = "" if group == "g1" else " b3=12"
+        r = n24[f"k2 {group}"]
+        q24 = n24[f"merge {group}"]["kernels"]
+        for name, kmul, vp, source, replaces, nbytes, muls, shape in (
+                merge_rows(r, WORDS24, 1, f"{BW6} {group}", 24, True)):
+            if name not in q24:         # K2 over CIOS: its own row
+                continue
+            q = q24[name]
+            add(f"{name}{tag}", vp, source, replaces, q["ms"],
+                q["plain_ms"], shape, q["max_abs_err"],
+                bound(nbytes, imads(muls, kmul, n32=24), rates),
+                counted=name)
+            out[-1].update(tail_fields(q))
+            out[-1].update(b3=b3, plain_checked_windows=r["checked_windows"])
 
 
 # K3's products per element by op, as formulas.cuh runs them: (products,
@@ -1429,7 +1444,7 @@ def bls_paths(rng, dev) -> dict:
     versions; K2 and the merge kernels (phase_merge) on both; then each
     curve's G1 MSM at 2^20 points under default_config(n, G), with the
     launch checks of the alt_bn128 paths and no 8-limb kernel launched,
-    and under every setting of MSM_VARIANTS (n12_variants).  Then the
+    and under every setting of MSM_VARIANTS (wide_variants).  Then the
     12-limb G2 paths (``bls_g2_paths``).  Prints each phase's line;
     returns the results by key."""
     from libff_tpu_torch import workload
@@ -1482,27 +1497,32 @@ def bls_paths(rng, dev) -> dict:
         if other or got.get("K3 g1 n12", 0) < 1:
             fail(f"the {curve} path launched {got}")
         out[f"msm {curve} g1"] = r
-        out.update(n12_variants(dcc, "g1", LOG2N, case, cfg))
+        out.update(wide_variants(dcc, "g1", LOG2N, case, cfg))
         del case
     out.update(bls_g2_paths(rng, dev))
     return out
 
 
-def n12_variants(dc, group: str, log2n: int, case, cfg) -> dict:
-    """Every MsmConfig setting of MSM_VARIANTS on a 12-limb path beside
-    its default cfg, at the path's size, each held against the oracle:
-    each must launch its kernel under its 12-limb name (n12_name) and no
-    8-limb kernel but K2's sort.  Prints each phase's line; returns the
-    results by key, "msm <curve> <group> <setting>"."""
+def wide_variants(dc, group: str, log2n: int, case, cfg) -> dict:
+    """Every MsmConfig setting of MSM_VARIANTS on a 12- or 24-limb path
+    beside its default cfg, at the path's size, each held against the
+    oracle: each must launch its kernel under its width's name
+    (wide_name) and no kernel of another width but K2's sort.  A group
+    over Fp takes G1's settings (BW6-761's G2 too).  Prints each phase's
+    line; returns the results by key, "msm <curve> <group> <setting>"."""
+    G = getattr(dc, group)
+    n32 = G.F.prime_field.n32
     out = {}
-    for key, fields, kernel in MSM_VARIANTS[group]:
+    for key, fields, kernel in MSM_VARIANTS["g1" if G.F.el_ndim == 1
+                                            else "g2"]:
         r = phase_msm(dc, group, log2n, case, cfg._replace(**fields),
                       VARIANT_STEADY_RUNS)
         got = r["launches"]
-        if got.get(n12_name(kernel), 0) < 1:
-            fail(f"{n12_name(kernel)} was not launched on the {dc.name} "
-                 f"{group} {key} path: {got}")
-        if [k for k in got if " n12" not in k and not k.startswith("K2 sort")]:
+        if got.get(wide_name(kernel, n32), 0) < 1:
+            fail(f"{wide_name(kernel, n32)} was not launched on the "
+                 f"{dc.name} {group} {key} path: {got}")
+        if [k for k in got
+                if f" n{n32}" not in k and not k.startswith("K2 sort")]:
             fail(f"the {dc.name} {group} {key} path launched {got}")
         out[f"msm {dc.name} {group} {key}"] = r
         emit({"phase": f"msm {dc.name} {group} {key}", **r})
@@ -1520,7 +1540,7 @@ def bls_g2_paths(rng, dev) -> dict:
     default_config(n, G) against its oracle: one K2, K2 sort, scan and
     K4e inv launch, at least one K3, at most G2_N12_MOST K4e and K1e
     launches and no 8-limb kernel; and under every setting of
-    MSM_VARIANTS (n12_variants)."""
+    MSM_VARIANTS (wide_variants)."""
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.digits import num_signed_digits
@@ -1573,7 +1593,7 @@ def bls_g2_paths(rng, dev) -> dict:
         if other or got.get("K3 g2 n12", 0) < 1:
             fail(f"the {curve} G2 path launched {got}")
         out[f"msm {curve} g2"] = r
-        out.update(n12_variants(dcc, "g2", LOG2N_G2, case, cfg))
+        out.update(wide_variants(dcc, "g2", LOG2N_G2, case, cfg))
         del case
     return out
 
@@ -1583,11 +1603,14 @@ def bw6_paths(rng, dev) -> dict:
     and 2^20, K3's six ops at 2^21 and its scan at the path's (W = 48, c =
     8) for G1 (b3 = -3) and for G2 (over Fq, b3 = 12), K2 on both timed
     at the path's shape, its first K2_N24_WINDOWS windows held to the
-    plain insert; then G1's MSM at 2^20 points and G2's at 2^18 under
-    default_config(n, G) against their structured oracles: one K2, K2
-    sort, scan and K1e inv launch, at least one K3, at most 8 K1e and no
-    8- or 12-limb kernel but K2's sort.  Prints each phase's line; returns
-    the results by key."""
+    plain insert, and the merge kernels at that shape (phase_merge: K5,
+    K2m, K6 and the SOS branches of K2, K2m and K5); then G1's MSM at
+    2^20 points and G2's at 2^18 under default_config(n, G) against their
+    structured oracles: one K2, K2 sort, scan and K1e inv launch, at least
+    one K3, at most 8 K1e and no 8- or 12-limb kernel but K2's sort; and
+    under every setting of MSM_VARIANTS (wide_variants: both groups run
+    the kernels' Fp branch, so both take G1's settings).  Prints each
+    phase's line; returns the results by key."""
     from libff_tpu_torch import workload
     from libff_tpu_torch.curves.device import device_curve
     from libff_tpu_torch.msm.digits import num_signed_digits
@@ -1607,14 +1630,16 @@ def bw6_paths(rng, dev) -> dict:
         emit({"phase": f"K3 {BW6} {group}", **out[f"k3 {group}"]})
         out[f"k2 {group}"], inputs = phase_k2(dc, group, n, cfg, rng, dev,
                                               K2_N24_WINDOWS[group])
-        del inputs
         emit({"phase": f"K2 {BW6} {group}", **out[f"k2 {group}"]})
+        out[f"merge {group}"] = phase_merge(dc, group, out[f"k2 {group}"],
+                                            inputs)
+        del inputs
+        emit({"phase": f"merge {BW6} {group}", **out[f"merge {group}"]})
     for group, log2n in (("g1", LOG2N), ("g2", LOG2N_G2)):
         G = getattr(dc, group)
+        cfg = default_config(1 << log2n, G, dev)
         case = workload.msm_case(dc, group, log2n, dev, SEED)
-        r = phase_msm(dc, group, log2n, case, default_config(1 << log2n, G,
-                                                             dev))
-        del case
+        r = phase_msm(dc, group, log2n, case, cfg)
         emit({"phase": f"msm {BW6} {group}", **r})
         got = r["launches"]
         once = ("K2 g1 n24", "K2 sort g1", "K3 scan g1 n24", "K1e inv n24")
@@ -1628,6 +1653,8 @@ def bw6_paths(rng, dev) -> dict:
         if other:
             fail(f"the {BW6} {group} path launched {got}")
         out[f"msm {BW6} {group}"] = r
+        out.update(wide_variants(dc, group, log2n, case, cfg))
+        del case
     return out
 
 
@@ -1677,17 +1704,29 @@ def main() -> int:
                       ("K3 scan g2 n12", "horner_n12.log",
                        ("horner_g2_kernel",)))}
     # the 24-limb kernels' (BW6-761): K1e and K1e inv, the K2 chains, K3
-    # and its scan, each on FpField<24, b3>, and fp.cuh's __noinline__
-    # 24-limb product, which each of them calls
+    # and its scan, the lane trees of K5 and K2m, each on FpField<24,
+    # b3>, and fp.cuh's __noinline__ 24-limb products, which each of them
+    # calls (CIOS, SOS, SOS2)
     n24 = {name: [k for k in _build.ptxas_kernels(_build.build_dir() / log)
                   if any(s in k["function"] for s in kernel)]
            for name, log, kernel in (
                ("K1e n24", "fp_ops_n24.log",
                 ("fp_elementwise", "fp_inv_kernel")),
                ("K2 g1 n24", "insert_n24.log", ("chain_kernel",)),
+               ("K2m g1 n24", "insert_n24.log", ("merge_kernel",)),
+               ("K5 g1 n24", "merge_n24.log", ("merge_kernel",)),
+               ("K2 g1 n24 sos", "insert_sos_n24.log", ("chain_kernel",)),
+               ("K2 g1 n24 sos2", "insert_sos2_n24.log", ("chain_kernel",)),
+               ("K5 g1 n24 sos", "merge_sos_n24.log", ("merge_kernel",)),
+               ("K5 g1 n24 sos2", "merge_sos2_n24.log", ("merge_kernel",)),
                ("K3 g1 n24", "group_ops_n24.log", ("group_op",)),
                ("K3 scan g1 n24", "horner_n24.log", ("horner_kernel",)),
-               ("K1 n24 mul", "fp_ops_n24.log", ("3mulENS_2FeILi24",)))}
+               ("K7b lone n24", "roofline_n24.log", ("lone_chain",)),
+               ("K1 n24 mul", "fp_ops_n24.log", ("3mulENS_2FeILi24",)),
+               ("K1 n24 mul_sos", "merge_sos_n24.log",
+                ("7mul_sosENS_2FeILi24",)),
+               ("K1 n24 mul_sos2", "merge_sos2_n24.log",
+                ("8mul_sos2ENS_2FeILi24",)))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_source, "redesigned_ptxas": redesigned,
           "n24_ptxas": n24, "ptxas": ptxas})

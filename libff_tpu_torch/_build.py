@@ -24,7 +24,7 @@ and so on; the CIOS names carry no suffix.  The field-mul benches count
 as "K7a" (the no-stall op mix), "K7b cios", "K7b sos", "K7b sos2" (chains
 of products), "K7b lone" (one chain a thread: a product's latency; at
 12 limbs "K7b lone n12" and, over the scan's two-accumulator product,
-"K7b lone eo n12"),
+"K7b lone eo n12"; at 24 "K7b lone n24"),
 "K7c" (the issue-rate bodies) and "K7d cios", "K7d sos", "K7d sos2"
 (chains of Fq2 products), and the batched-affine experiment as
 "K7e madd", "K7e affine" and "K7e inv".  The kernels over 12-limb Fp
@@ -36,8 +36,10 @@ g1 n12", "K3 g2 n12", "K3 scan g1 n12", "K3 scan g2 n12", "K5 g1 n12",
 "K2m g2 n12 sos2", "K5 g1 n12 sos" and so on (their sort is the
 width-free "K2 sort g1" or "K2 sort g2").  The kernels over 24-limb Fp
 (BW6-761, whose G1 and G2 both lie over Fq and run the Fp branch) count
-as "K1e n24", "K1e inv n24", "K2 g1 n24", "K3 g1 n24" and "K3 scan g1
-n24", whichever of its groups launches them.  A wrapper adds one where
+as "K1e n24", "K1e inv n24", "K2 g1 n24", "K2m g1 n24", "K3 g1 n24",
+"K3 scan g1 n24", "K5 g1 n24", "K6 g1 n24" and over the SOS products "K2
+g1 n24 sos", "K5 g1 n24 sos2" and so on, whichever of its groups
+launches them.  A wrapper adds one where
 it launches its kernel and nowhere else.
 
 Each width has its own sources: csrc/<stem>.cu builds the 8-limb library
@@ -235,7 +237,7 @@ def tree_kernels(log: Path) -> dict:
     merge_kernel) in a build log, by branch: "g1" (FpField), "g2 pairs"
     (Fp2Pair), "g2" (the one-thread Fp2Field, the 8-limb SOS and SOS2);
     at 12 limbs with the branch's constant, "g1 b3=12", "g2 pairs nr=-5"
-    and so on (a 24-limb build has no tree yet: {})."""
+    and so on (at 24 limbs "g1 b3=-3" and "g1 b3=12")."""
     out = {}
     for k in ptxas_kernels(log):
         f = k.pop("function")

@@ -46,9 +46,9 @@
 // CIOS keeps 10.
 //
 // The PTX chains are written out for N = 8 (254-bit fields: alt_bn128's
-// Fq and Fr) and for N = 12 (377- and 381-bit fields: BLS12-377's and
-// BLS12-381's Fq), all three products at both, and for N = 24 (BW6-761's
-// 761-bit Fq: CIOS only, every chain in blocks, see "N = 24" below).  At
+// Fq and Fr), for N = 12 (377- and 381-bit fields: BLS12-377's and
+// BLS12-381's Fq) and for N = 24 (BW6-761's 761-bit Fq: every chain in
+// blocks, see "N = 24" below), all three products at each.  At
 // N = 12 a CIOS row is
 // still one asm block (27 operands, under the 30 that GCC-style inline
 // asm allows), and so is each row of the SOS products (mad_lo_row and
@@ -759,7 +759,8 @@ __device__ __forceinline__ Fe<N> sqr(const Fe<N>& a, const FieldParams<N>& P) {
 }
 
 // t[0..N-1] += lo(x * y_j) and t[N] += cin, one carry chain; returns the
-// carry out of t[N].  N = 8 or 12 (28 operands at 12, under asm's 30).
+// carry out of t[N].  N = 8 or 12 (28 operands at 12, under asm's 30), or
+// 24 (two 12-limb blocks and the carry word, as a CIOS row's chains).
 template <int N = 8>
 __device__ __forceinline__ uint32_t mad_lo_row(uint32_t* t, uint32_t x,
                                                const uint32_t* y,
@@ -781,8 +782,20 @@ __device__ __forceinline__ uint32_t mad_lo_row(uint32_t* t, uint32_t x,
           "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
         : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
           "r"(y[5]), "r"(y[6]), "r"(y[7]), "r"(cin));
+  } else if constexpr (N == 24) {
+    // two 12-limb blocks (mad_lo12), then word 24 takes cin and their
+    // carry: a 24-limb row's 51 operands exceed asm's 30
+    const uint32_t k = mad_lo12(t + 12, x, y + 12, mad_lo12(t, x, y, 0));
+    asm volatile(
+        "{\n\t.reg .u32 z;\n\t"
+        "add.cc.u32  z, %2, 0xFFFFFFFF;\n\t"
+        "addc.cc.u32 %0, %0, %3;\n\t"
+        "addc.u32    %1, 0, 0;\n\t"
+        "}"
+        : "+r"(t[24]), "=r"(c)
+        : "r"(k), "r"(cin));
   } else {
-    static_assert(N == 12, "the rows are written for 8 and 12 limbs");
+    static_assert(N == 12, "the rows are written for 8, 12 and 24 limbs");
     asm volatile(
         "mad.lo.cc.u32  %0, %14, %15, %0;\n\t"
         "madc.lo.cc.u32 %1, %14, %16, %1;\n\t"
@@ -828,8 +841,11 @@ __device__ __forceinline__ uint32_t mad_hi_row(uint32_t* t, uint32_t x,
           "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
         : "r"(x), "r"(y[0]), "r"(y[1]), "r"(y[2]), "r"(y[3]), "r"(y[4]),
           "r"(y[5]), "r"(y[6]), "r"(y[7]));
+  } else if constexpr (N == 24) {
+    // two 12-limb blocks (mad_hi12) from word 1, the carry handed on
+    c = mad_hi12(t + 13, x, y + 12, mad_hi12(t + 1, x, y, 0));
   } else {
-    static_assert(N == 12, "the rows are written for 8 and 12 limbs");
+    static_assert(N == 12, "the rows are written for 8, 12 and 24 limbs");
     asm volatile(
         "mad.hi.cc.u32  %0, %13, %14, %0;\n\t"
         "madc.hi.cc.u32 %1, %13, %15, %1;\n\t"
@@ -933,6 +949,28 @@ __device__ __forceinline__ Fe<N> mul_sos2(const Fe<N>& a, const Fe<N>& b,
   uint32_t t[2 * N + 1];
   full_product(t, a, b);
   return sos_redc<Mul::Sos2>(t, P);
+}
+
+// At N = 24 each SOS product is one __noinline__ function, as the CIOS
+// mul is, so a kernel holds one copy however many products its formulas
+// make.  Their rows are mad_lo_row/mad_hi_row's 12-limb blocks; p is
+// copied into the function's registers once for the 24 (SOS2: 12 x 2)
+// reduction waves.  1176 mul.lo and 1152 mul.hi multiply-adds (SOS2:
+// 1188 and 1164).
+__device__ __noinline__ Fe<24> mul_sos(const Fe<24> a, const Fe<24> b,
+                                       const FieldParams<24>& P) {
+  uint32_t t[49];
+  full_product(t, a, b);
+  const FieldParams<24> Q = P;
+  return sos_redc<Mul::Sos>(t, Q);
+}
+
+__device__ __noinline__ Fe<24> mul_sos2(const Fe<24> a, const Fe<24> b,
+                                        const FieldParams<24>& P) {
+  uint32_t t[49];
+  full_product(t, a, b);
+  const FieldParams<24> Q = P;
+  return sos_redc<Mul::Sos2>(t, Q);
 }
 
 template <Mul M, int N>

@@ -139,14 +139,17 @@
 // 2.5 times as long (PERF.md).
 //
 // At 24 limbs (BW6-761: its G1 with b3 = -3 and its G2 over Fq with b3 =
-// 12, both FpField<24, b3>; insert_n24.cu, K2 over CIOS only) a chain is
-// one thread: a 72-word bucket and a 48-word point beside the madd's
-// temporaries exceed the 255 registers, so the chain spills (ptxas's
-// figures are in the build log), and fp.cuh's 24-limb product is one
-// __noinline__ call.  A product is 2,328 multiply-adds, four times a
-// 12-limb one.  kEntriesG1N24 = 128 splits the G1 path's T = 1024 steps
-// between S = 8 threads a lane (48 x 8 x 1024 threads, 11.6 waves of 2
-// blocks of 128 an SM) and the G2 path's 256 between 2.
+// 12, both FpField<24, b3>; insert_n24.cu with K2m and K6 over CIOS,
+// insert_sos_n24.cu and insert_sos2_n24.cu K2 and K2m over the SOS
+// products) a chain is one thread: a 72-word bucket and a 48-word point
+// beside the madd's temporaries exceed the 255 registers, so the chain
+// spills (ptxas's figures are in the build log), and each of fp.cuh's
+// 24-limb products is one __noinline__ call.  A product is 2,328
+// multiply-adds, four times a 12-limb one.  kEntriesG1N24 = 128 splits
+// the G1 path's T = 1024 steps between S = 8 threads a lane (48 x 8 x
+// 1024 threads, 11.6 waves of 2 blocks of 128 an SM) and the G2 path's
+// 256 between 2.  K2m's tree reads the lane-major buckets at 24 words a
+// coordinate, already whole sectors.
 //
 // The fused merge K2m (merge=True, pallas_insert3.py:172-201): the lane
 // totals (K, W, B, 1) in merge.cuh's order.  The chain kernel writes the
@@ -173,10 +176,11 @@
 // insert_sos2.cu instantiates this header for one product through
 // LFF_INSERT_ENTRY, so the three compile in parallel; every product gives
 // the same buckets.  insert_n12.cu (with K6), insert_sos_n12.cu and
-// insert_sos2_n12.cu do the same at LFF_N32 = 12, where K2m's tree reads
-// the chain kernel's lane-major stride (ChainShape::kLaneWords: 16 words
-// a coordinate on G1, 24 on the G2 pairs) and the G2 chains run on pairs
-// over every product.
+// insert_sos2_n12.cu do the same at LFF_N32 = 12, and the *_n24.cu
+// sources at 24, where K2m's tree reads the chain kernel's lane-major
+// stride (ChainShape::kLaneWords: 16 words a coordinate on the 12-limb
+// G1, 24 on the 12-limb G2 pairs and at 24 limbs) and the 12-limb G2
+// chains run on pairs over every product.
 #pragma once
 
 #include "merge.cuh"
@@ -713,8 +717,7 @@ int insert_run(const FC& chain, const FT& tree, const void* off,
 // arrays for the raw buckets (Kp = lane_words).  kmul: the product this
 // library was built for ((int)M), checked; n32: its width N, checked;
 // (k, b3, b3_mont): one of merge.cuh's on_branch branches.  m null: the
-// raw buckets into bx, by, bz (K, W, B, L); else (at the widths of
-// merge.cuh's kTreeBuilt, not 24) K2m, the lane totals
+// raw buckets into bx, by, bz (K, W, B, L); else K2m, the lane totals
 // into the three (K, W, B, 1) arrays of m, merge.cuh's tree over `lane`
 // (bx, by, bz unused) with `far`, W * B * merge_far_words(k, L) words of
 // scratch (null when that is 0).
@@ -732,8 +735,7 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
     return (int)cudaErrorInvalidValue;
   if (m == nullptr && (bx == nullptr || by == nullptr || bz == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (m != nullptr && ((L & (L - 1)) != 0 || !kTreeBuilt<N>))
-    return (int)cudaErrorInvalidValue;
+  if (m != nullptr && (L & (L - 1)) != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)W * L == 0) return 0;
@@ -743,13 +745,8 @@ int insert_entry(int kmul, const void* off, const void* ent, int wide,
     constexpr int b = decltype(B3)::value;
     if constexpr (decltype(K)::value == 1) {
       const FpField<N, b, M> f{P};
-      if constexpr (kTreeBuilt<N>) {
-        return insert_run(f, f, off, ent, wide, rec, lane, bx, by, bz, W, T,
-                          L, B, m, far, s);
-      } else {
-        return chain_launch(off, ent, wide, rec, lane, bx, by, bz, W, T, L,
-                            B, f, s);
-      }
+      return insert_run(f, f, off, ent, wide, rec, lane, bx, by, bz, W, T, L,
+                        B, m, far, s);
     } else {
       return insert_run(chain_field2<N, b, M>(P, b3_mont),
                         tree_field2<N, b, M>(P, b3_mont), off, ent, wide, rec,

@@ -70,6 +70,15 @@
 // G2 branches, which exist for parity, run the same tree on fp2.cuh's
 // one-thread Fp2Field: never CIOS under their name.
 //
+// At 24 limbs (BW6-761: its G1, b3 = -3, and its G2 over Fq, b3 = 12,
+// both FpField<24, b3> on one thread an element) merge_n24.cu,
+// merge_sos_n24.cu and merge_sos2_n24.cu build the tree, and K2m's tail
+// in insert*_n24.cu.  A partial is 72 words a thread (288 bytes) and a
+// product 2,328 multiply-adds (SOS2: 2,352), fp.cuh's one __noinline__
+// copy: the 24-limb blocks an SM are their own macro
+// (LFF_K5_MIN_BLOCKS_G1_N24), three slots fit at 8 blocks, and at L =
+// 1024 a thread's fourth slot waits in the scratch.
+//
 // At 12 limbs (BLS12-381 and BLS12-377: G1 with b3 = 12 and 3, G2 over
 // Fq2 with nr = -1 and -5) merge_n12.cu, merge_sos_n12.cu and
 // merge_sos2_n12.cu build the same tree at LFF_N32 = 12, and K2m's tail
@@ -92,7 +101,8 @@
 
 // The width of the C entries a library exports (merge_lanes,
 // merge_far_words and insert.cuh's insert and insert_v1): merge.cu and
-// its product variants at 8 limbs, the *_n12.cu sources at 12.
+// its product variants at 8 limbs, the *_n12.cu and *_n24.cu sources at
+// 12 and 24.
 #ifndef LFF_N32
 #define LFF_N32 8
 #endif
@@ -121,12 +131,21 @@ namespace lff {
 #ifndef LFF_K5_MIN_BLOCKS_G2_N12
 #define LFF_K5_MIN_BLOCKS_G2_N12 12
 #endif
+// The same at 24 limbs (BW6-761: G1 and G2 both one thread an element on
+// the Fp branch, every product): a partial is 72 words a thread, and with
+// the two operands and the formula's values a thread takes every register
+// it may, so 8 one-warp blocks an SM (255 registers each) is the most
+// that does not cut the registers a thread gets.
+#ifndef LFF_K5_MIN_BLOCKS_G1_N24
+#define LFF_K5_MIN_BLOCKS_G1_N24 8
+#endif
 
 // Slots a thread may keep in shared memory (MergeShape::kNear takes as
 // many as its blocks an SM fit, up to this); deeper ones wait in a
 // scratch array of the caller's.  A partial is 96 bytes a thread at 8
 // limbs (four slots: 12 KB a one-warp block, 16 blocks an SM), 144 at 12
-// (G1's 16 blocks fit two slots, G2's 12 four).
+// (G1's 16 blocks fit two slots, G2's 12 four), 288 at 24 (8 blocks fit
+// three: a slot is 9 KB a one-warp block).
 constexpr int kNearSlots = 4;
 // An H100 SM's shared memory and what each block reserves of it
 constexpr int kSmemPerSm = 233472;
@@ -241,13 +260,17 @@ struct MergeShape {
   using E = typename F::E;
   static constexpr int kRow = 32 / F::kThreads;       // elements a warp
   static constexpr int kWords = 3 * (int)(sizeof(E) / sizeof(uint32_t));
+  // 24 limbs: a thread's part of an element is 24 words on the Fp branch
+  // (the 12-limb G2 on pairs also holds 24, but on two threads)
+  static constexpr bool kN24 = F::kG1 && kWords / 3 == 24;
   // 12 limbs: a thread's part of an element is 12 or 24 words
-  static constexpr bool kN12 = kWords / 3 % 12 == 0;
+  static constexpr bool kN12 = !kN24 && kWords / 3 % 12 == 0;
   static constexpr int kMinBlocks =
-      kN12 ? (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2_N12
-                               : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1_N12 : 1))
-           : (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2
-                               : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1 : 1));
+      kN24   ? LFF_K5_MIN_BLOCKS_G1_N24
+      : kN12 ? (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2_N12
+                                 : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1_N12 : 1))
+             : (F::kThreads == 2 ? LFF_K5_MIN_BLOCKS_G2
+                                 : (F::kG1 ? LFF_K5_MIN_BLOCKS_G1 : 1));
   // the slots kMinBlocks one-warp blocks an SM fit, at most kNearSlots
   static constexpr int kFit =
       (kSmemPerSm / kMinBlocks - kSmemPerBlockReserved) / (kWords * 4 * 32);
@@ -391,12 +414,6 @@ inline TreeField2<N, NR, M> tree_field2(const FieldParams<N>& P,
   }
 }
 
-// The widths the lane tree (K5, K2m) is built at: 8 and 12 limbs; at 24
-// (BW6-761) it waits for ROADMAP Queue 1 item 9e, and insert.cuh builds
-// K2's chains only.
-template <int N>
-constexpr bool kTreeBuilt = N == 8 || N == 12;
-
 // The branches a library of width N takes, as its C entries name them:
 // k = 1 (G1) with b3 the curve's 3b, a compile-time addition chain (9:
 // alt_bn128 at 8 limbs; 12: BLS12-381, 3: BLS12-377 at 12; -3: BW6-761's
@@ -450,16 +467,15 @@ int merge_rows(int k, int b3, const LaneRows& in, const Rows& out,
 // The words of scratch a row of L lanes needs on branch k over the
 // product M at N limbs (merge_rows' `far`, n rows of them): 0 unless m =
 // L / r > 32 (at 8 limbs L > 1024 on G1, 512 on G2 over pairs) less the
-// near slots.  The shape depends on neither b3 nor nr.  -1 where the
-// tree is not built (kTreeBuilt).
+// near slots (at 24 limbs L > 512).  The shape depends on neither b3 nor
+// nr.  -1 for k = 2 at 24 limbs, which has no G2 branch.
 template <Mul M, int N>
 int merge_far_words(int k, int L) {
-  if constexpr (!kTreeBuilt<N>) {
-    return -1;
+  if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
+  if (k == 1) return MergeShape<FpField<N, N == 8 ? 9 : 12, M>>::far_words(L);
+  if constexpr (N == 24) {
+    return -1;  // no G2 branch over Fq2 at 24 limbs
   } else {
-    if (L < 1 || (L & (L - 1)) != 0 || (k != 1 && k != 2)) return -1;
-    if (k == 1)
-      return MergeShape<FpField<N, N == 8 ? 9 : 12, M>>::far_words(L);
     return MergeShape<TreeField2<N, -1, M>>::far_words(L);
   }
 }

@@ -99,21 +99,6 @@ def kernel_branch(G, what: str):
         f"{G.name}")
 
 
-# the kernels that wait at 24 limbs, and the ROADMAP item that builds
-# them: K2 runs there over CIOS only, with no fused merge
-N24_LATER = ("the lane merge K5, the fused merge K2m, the v1 insert K6 "
-             "and the SOS/SOS2 products at 24 limbs wait for ROADMAP "
-             "Queue 1 item 9e")
-
-
-def check_built(G, what: str, later: bool) -> None:
-    """Raise for a kernel setting `what` that is not built at G's width:
-    at 24 limbs where `later` (K5, K2m, K6 and K2 over the SOS products;
-    :data:`N24_LATER`)."""
-    if later and G.F.prime_field.n32 == 24:
-        raise NotImplementedError(f"{what} on {G.name}: {N24_LATER}")
-
-
 def k3_stem(n32: int, k: int, b3: int) -> str:
     """The library of K3 for :func:`kernel_branch`'s (k, b3) at n32
     limbs: the width's (``csrc/group_ops.cu``, ``group_ops_n12.cu``), and

@@ -20,9 +20,10 @@ and K6 build from ``csrc/insert_n12.cu`` and K2 and K2m over the SOS
 products from ``csrc/insert_sos_n12.cu`` and ``csrc/insert_sos2_n12.cu``,
 every setting of the 8-limb path, counted with the width before the
 product: "K2 g1 n12", "K2m g2 n12 sos", "K6 g1 n12" and so on.  Over
-24-limb Fp (BW6-761's G1 and G2, both over Fq) K2 builds from
-``csrc/insert_n24.cu`` over CIOS, counted as "K2 g1 n24"; there K2m, K6
-and the SOS products raise on the card (``group_ops.check_built``).
+24-limb Fp (BW6-761's G1 and G2, both over Fq and both on the Fp branch,
+so both take K6) the same from ``csrc/insert_n24.cu``,
+``insert_sos_n24.cu`` and ``insert_sos2_n24.cu``, counted as "K2 g1 n24",
+"K2m g1 n24 sos", "K6 g1 n24" and so on.
 
 On the card K2 is the sort :func:`bucket_lists`, which lists each
 (window, lane)'s steps by bucket in t order, then the chain kernel, which
@@ -48,7 +49,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import PairField2, check_built, kernel_branch
+from ..curves.group_ops import PairField2, kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 from ..fields.tower import kernel_nr
 from .merge import far_scratch, merge_lanes_plain
@@ -232,8 +233,6 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
         return merge_lanes_plain(G, raw, kmul) if merge else raw
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
-    check_built(G, f"K2 with merge={merge}, kmul={kmul!r}",
-                merge or kmul != "cios")
     k, b3, b3_mont = kernel_branch(G, "K2")
     off, ent, rec, lane, out = _kernel_tensors(
         G, d, pts, B, k, (W, B, 1) if merge else (W, B, L))
@@ -258,10 +257,12 @@ def insert(G, d: torch.Tensor, pts, B: int, merge: bool = False,
 
 
 def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
-    """Kernel K6, the v1 insert (insert_pallas): G1 only, raw buckets
-    (n, W, B, L).  The same function as :func:`insert`'s G1 branch, whose
-    sort and chain kernel it launches under its own entry point and launch
-    count; the v1/v3 difference on the TPU is a VMEM tile shape."""
+    """Kernel K6, the v1 insert (insert_pallas): a group over a prime
+    field only (pallas_insert.py:212: G1, and BW6-761's G2 over Fq), raw
+    buckets (n, W, B, L).  The same function as :func:`insert`'s Fp
+    branch, whose sort and chain kernel it launches under its own entry
+    point and launch count; the v1/v3 difference on the TPU is a VMEM tile
+    shape."""
     _check(G, d, pts, B)
     if G.F.el_ndim != 1:
         raise ValueError("the v1 insert supports prime-field G1 only "
@@ -270,8 +271,7 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
         return insert_plain(G, d, pts, B)
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
-    check_built(G, "K6", True)
-    kernel_branch(G, "K6")
+    _, b3, _ = kernel_branch(G, "K6")
     W, T, L = d.shape
     off, ent, rec, lane, raw = _kernel_tensors(G, d, pts, B, 1, (W, B, L))
     Fp = G.F.prime_field
@@ -281,8 +281,8 @@ def insert_v1(G, d: torch.Tensor, pts, B: int) -> ProjectivePoint:
     _build.launch(fn, f"{name} insert_v1", d.device, _build.ptr(off),
                   _build.ptr(ent), int(ent.dtype == torch.int32),
                   _build.ptr(rec), _ptr_array(lane),
-                  *(_build.ptr(t) for t in raw), W, T, L, B, Fp.n32,
-                  G._b3_host, Fp.p_c, Fp.one_c, Fp.inv32, d.get_device(),
+                  *(_build.ptr(t) for t in raw), W, T, L, B, Fp.n32, b3,
+                  Fp.p_c, Fp.one_c, Fp.inv32, d.get_device(),
                   _build.stream_ptr(d))
     _build.LAUNCHES[name] += 1
     return ProjectivePoint(*raw)

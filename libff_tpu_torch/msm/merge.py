@@ -18,21 +18,24 @@ Montgomery product (``MsmConfig.kmul``, pallas_insert3.py:251-256): "cios"
 builds from ``csrc/merge.cu``, "sos" and "sos2" from ``csrc/merge_sos.cu``
 and ``csrc/merge_sos2.cu``; over 12-limb Fp (BLS12-381 and BLS12-377, G1
 and G2) from ``csrc/merge_n12.cu``, ``merge_sos_n12.cu`` and
-``merge_sos2_n12.cu``, counted as "K5 g1 n12", "K5 g2 n12 sos" and so on.
-At 24 limbs (BW6-761) K5 is not built yet and raises on the card
-(ROADMAP Queue 1 item 9e).  A CUDA tensor launches the kernel; a CPU
-tensor runs
-:func:`merge_lanes_plain` over the same product.
+``merge_sos2_n12.cu``, counted as "K5 g1 n12", "K5 g2 n12 sos" and so on;
+over 24-limb Fp (BW6-761's G1 and its G2 over Fq, both the Fp branch)
+from ``csrc/merge_n24.cu``, ``merge_sos_n24.cu`` and ``merge_sos2_n24.cu``,
+counted as "K5 g1 n24", "K5 g1 n24 sos" and so on.  A CUDA tensor
+launches the kernel; a CPU tensor runs :func:`merge_lanes_plain` over the
+same product.
 
 On the card (``csrc/merge.cuh``) one warp takes a row: each of its
 elements (a thread on G1, a pair of threads on G2 over CIOS, and at 12
 limbs over every product) walks the levels h >= 32 (16 on G2 pairs) over
 its own lanes depth first, the waiting partials in shared memory, and a
 butterfly of warp shuffles runs the last levels.  Partials past a
-thread's near slots (four at 8 limbs; at 12 as many as its blocks an SM
-fit in shared memory: two on G1, four on G2) wait in a scratch array
+thread's near slots (four at 8 limbs; at 12 and 24 as many as its blocks
+an SM fit in shared memory: two on the 12-limb G1, four on its G2, three
+at 24) wait in a scratch array
 (:func:`far_scratch`), which the library sizes (at 8 limbs only rows of
-more than 32 lanes a thread need it: L > 1024 on G1, 512 on G2 pairs).
+more than 32 lanes a thread need it: L > 1024 on G1, 512 on G2 pairs; at
+24 limbs L > 512).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import torch
 from .. import _build
 from ..curves import formulas as fml
 from ..curves.group import ProjectivePoint
-from ..curves.group_ops import check_built, kernel_branch
+from ..curves.group_ops import kernel_branch
 from ..fields.fp import KMULS, check_kmul, to16, to32
 
 _ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
@@ -52,6 +55,8 @@ _ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
     ctypes.c_int, _build.U32P, _build.U32P, _build.U32P, ctypes.c_uint32,
     ctypes.c_int, _build.VP]
 _ARGS_FAR = [ctypes.c_int] * 3
+# windows merge_lanes_plain merges at once
+PLAIN_WINDOWS = 8
 
 
 def _check(G, buckets: ProjectivePoint, kmul: str):
@@ -83,7 +88,6 @@ def merge_lanes(G, buckets: ProjectivePoint,
         return merge_lanes_plain(G, buckets, kmul)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    check_built(G, "K5", True)
     k, b3, b3_mont = kernel_branch(G, "K5")
     W, B, L = buckets.z.shape[-3:]
     ins = [c.contiguous() for c in buckets]
@@ -126,11 +130,19 @@ def merge_lanes_plain(G, buckets: ProjectivePoint,
     """The plain version of K5 on any device: the levels h = L/2 .. 1 of
     the module docstring, each one batched complete add (K3's ``padd``,
     formulas.rcb_add_a0) over every (window, bucket) row, on the plain
-    field with `kmul`'s product."""
+    field with `kmul`'s product.  It merges PLAIN_WINDOWS windows at a
+    time (a row's total depends on its own row only), which bounds its
+    memory at the MSM paths' shape on the card."""
     _check(G, buckets, kmul)
+    W, B, L = buckets.z.shape[-3:]
+    if W > PLAIN_WINDOWS:
+        parts = [merge_lanes_plain(G, ProjectivePoint(
+            *(c[..., w:w + PLAIN_WINDOWS, :, :] for c in buckets)), kmul)
+            for w in range(0, W, PLAIN_WINDOWS)]
+        return ProjectivePoint(*(torch.cat([q[i] for q in parts], dim=-3)
+                                 for i in range(3)))
     F = G.F.plain.with_kmul(kmul)
     ax = G.F.el_ndim - 1                                # the limb axis
-    W, B, L = buckets.z.shape[-3:]
     P = [to16(c, ax) for c in buckets]
     while L > 1:
         h = L // 2

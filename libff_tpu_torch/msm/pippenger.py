@@ -29,12 +29,10 @@ path's bucket update and the formula VM, which ROADMAP Queue 1 item 18
 ports.  ``tb`` (the TPU kernel's time rows per grid step) is accepted
 and has no effect on the card.
 
-The paths run on alt_bn128's G1 and G2 (8 limbs) and on the G1 and G2
-of BLS12-381 and BLS12-377 (12 limbs), every setting on each, and on
-BW6-761's G1 and G2, both over its 24-limb Fq, under the settings whose
-kernels are built there (engine "auto" or "pallas3", merge False, kmul
-"cios"; the others raise on the card, naming ROADMAP Queue 1 item 9e),
-each width from its own kernel libraries (``_build.width_stem``).
+The paths run on alt_bn128's G1 and G2 (8 limbs), on the G1 and G2 of
+BLS12-381 and BLS12-377 (12 limbs) and on BW6-761's G1 and G2, both over
+its 24-limb Fq, every setting on each but engine "xla", each width from
+its own kernel libraries (``_build.width_stem``).
 """
 
 from __future__ import annotations
@@ -46,7 +44,7 @@ import torch
 
 from ..curves.group import (AffinePoint, Group, JacobianPoint,
                             ProjectivePoint)
-from ..curves.group_ops import check_built, horner_scan
+from ..curves.group_ops import horner_scan
 from ..fields.fp import KMULS
 from . import digits as dig
 from .insert import insert, insert_v1
@@ -273,11 +271,6 @@ def msm_pippenger(G: Group, scalar_limbs: torch.Tensor, points: AffinePoint,
     N = scalar_limbs.shape[-1]
     cfg = config or default_config(N, G, scalar_limbs.device)
     _check_config(G, cfg)
-    if scalar_limbs.device.type == "cuda":
-        check_built(G, f"MsmConfig(engine={cfg.engine!r}, merge="
-                    f"{cfg.merge!r}, kmul={cfg.kmul!r})",
-                    cfg.engine == "pallas" or cfg.merge is not False
-                    or cfg.kmul != "cios")
     c = cfg.c
     W = dig.num_signed_digits(G.order, num_bits, c)
     B = 1 << (c - 1)

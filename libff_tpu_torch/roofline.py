@@ -64,7 +64,8 @@ CHAIN_N, CHAIN_REPS = 1 << 23, 4       # K7b: T = 8192, Ls = 8; 4 x 8 = 32
 FQ2_N, FQ2_REPS = 1 << 21, 2           # K7d: T = 4096, Ls = 4; 2 x 4 = 8
 CHAINS = {1: 8, 2: 4}                  # chains an element, by el_ndim
 LONE_REPS = 2048                       # K7b lone: products of the long run
-LONE_PRODUCTS = {8: ("cios",), 12: ("cios", "eo")}   # K7b lone's, by n32
+LONE_PRODUCTS = {8: ("cios",), 12: ("cios", "eo"),   # K7b lone's, by n32
+                 24: ("cios",)}
 MADDS_MULS = 11                        # products in K2's G1 mixed add
 TARGET = 1.3
 
@@ -183,7 +184,7 @@ def mul_chain_plain(F, a: torch.Tensor, b: torch.Tensor, kmul: str,
 
 def lone_name(n32: int, product: str = "cios") -> str:
     """K7b lone's launch count for `product` at n32 limbs: "K7b lone",
-    "K7b lone n12", "K7b lone eo n12"."""
+    "K7b lone n12", "K7b lone eo n12", "K7b lone n24"."""
     return _build.width_name(_build.kmul_name("K7b lone", product), n32)
 
 
@@ -191,9 +192,10 @@ def lone_chain(F, a: torch.Tensor, b: torch.Tensor, reps: int,
                product: str = "cios") -> torch.Tensor:
     """Kernel K7b lone (F a prime field): per element one serial chain x
     <- mul(x, b) of `reps` products from x = a; a, b canonical (n32, N)
-    arrays.  `product`: "cios" (fp.cuh's, 8 and 12 limbs) or "eo"
-    (chain_mul.cuh's two-accumulator product, 12 limbs: the Horner scan's
-    at 12 limbs); both give the canonical residue."""
+    arrays.  `product`: "cios" (fp.cuh's, 8, 12 and 24 limbs, each width
+    its own source: roofline.cu, roofline_n12.cu, roofline_n24.cu) or
+    "eo" (chain_mul.cuh's two-accumulator product, 12 limbs: the Horner
+    scan's at 12 limbs); both give the canonical residue."""
     _check_pair(a, b, F.el_shape)
     if product not in LONE_PRODUCTS.get(F.n32, ()):
         raise ValueError(f"K7b lone has no {product!r} product at {F.n32} "
@@ -208,9 +210,9 @@ def lone_chain(F, a: torch.Tensor, b: torch.Tensor, reps: int,
     if F.n32 == 8:
         fn = _build.function("roofline", "mul_lone_chain", _LONE_ARGS)
     else:
-        fn = _build.function("roofline_n12", "mul_lone_chain_n12",
-                             _CHAIN_ARGS)
-        args = (LONE_PRODUCTS[12].index(product),) + args
+        fn = _build.function(_build.width_stem("roofline", F.n32),
+                             f"mul_lone_chain_n{F.n32}", _CHAIN_ARGS)
+        args = (LONE_PRODUCTS[F.n32].index(product),) + args
     _build.launch(fn, name, a.device, *args)
     _build.LAUNCHES[name] += 1
     return out

@@ -7,7 +7,7 @@ For each window width c, lane count and lane merge (``MsmConfig.merge``:
 False, the default, leaves the lane tree to the reduce; "kernel" runs
 K5; True K2m; default False alone) it runs the MSM of the given curve
 (alt_bn128 by default; bls12_381 or bls12_377, the 12-limb paths;
-bw6_761, the 24-limb ones, merge False only: K5 and K2m wait there) and
+bw6_761, the 24-limb ones) and
 group (default G2 at 2^18 points, the G2 path of chip_smoke.py) on the
 workload of ``workload.py``: one run to warm up, then ``RUNS`` timed
 runs, each held against the structured oracle.  It prints one JSON line

@@ -23,9 +23,10 @@ here.
   tests/test_more_curves.py:107-138 runs it: its affine point equal to the
   JAX package's and to the host oracle ``E.msm`` (the G2 MSM runs on the
   card only: its plain Horner scan alone takes about 20 s here);
-- the kernels' branches, the 24-limb libraries and launch names, the
-  settings that wait for ROADMAP Queue 1 item 9e, and the 377-bit
-  scalars' signed digits.
+- the kernels' branches, the 24-limb libraries and launch names (K5,
+  K2m, K6 and the SOS products among them; their plain versions are
+  held in tests/test_torch_bw6_merge.py), and the 377-bit scalars'
+  signed digits.
 
 All comparisons are exact.
 """
@@ -41,9 +42,8 @@ import torch
 from libff_tpu_torch import _build
 from libff_tpu_torch.curves.device import device_curve
 from libff_tpu_torch.curves.group import AffinePoint
-from libff_tpu_torch.curves.group_ops import (check_built, group_op,
-                                              horner_scan, k3_stem,
-                                              kernel_branch)
+from libff_tpu_torch.curves.group_ops import (group_op, horner_scan,
+                                              k3_stem, kernel_branch)
 from libff_tpu_torch.host import field as hf
 from libff_tpu_torch.issue_rates import imad_per_product
 from libff_tpu_torch.msm import digits as dig
@@ -227,21 +227,27 @@ def test_msm_matches_jax_and_the_host_oracle(golden):
 def test_libraries_names_and_later_settings():
     """The 24-limb libraries are sources of csrc/, their launch counts
     carry the width, a product is 1176 mul.lo and 1152 mul.hi; both groups
-    lie over Fq (no Fq2 is built), and K5, K2m, K6 and the SOS products
-    raise naming item 9e at 24 limbs only."""
+    lie over Fq (no Fq2 is built), and every setting that once waited at
+    24 limbs has its library: K5, K2m and K6, and K2, K2m and K5 over the
+    SOS products, named with the width before the product."""
     dc = device_curve(CURVE)
     assert dc.fq2 is None and dc.g1.F is dc.fq and dc.g2.F is dc.fq
-    for stem in ("fp_ops", "insert", "horner"):
+    for stem in ("fp_ops", "insert", "horner", "merge", "roofline"):
         assert (_build.CSRC / f"{_build.width_stem(stem, 24)}.cu").exists()
+    for kind in ("insert", "merge"):
+        for kmul in ("sos", "sos2"):
+            stem = _build.width_stem(_build.kmul_stem(kind, kmul), 24)
+            assert stem == f"{kind}_{kmul}_n24"
+            assert (_build.CSRC / f"{stem}.cu").exists()
+    assert "LFF_INSERT_V1_ENTRY" in (_build.CSRC / "insert_n24.cu").read_text()
     assert k3_stem(24, 1, -3) == k3_stem(24, 1, 12) == "group_ops_n24"
     assert _build.width_name("K3 scan g1", 24) == "K3 scan g1 n24"
+    assert [_build.kmul_name(_build.width_name(f"{k} g1", 24), m)
+            for k, m in (("K5", "cios"), ("K2m", "sos"), ("K6", "cios"),
+                         ("K2", "sos2"))] == [
+        "K5 g1 n24", "K2m g1 n24 sos", "K6 g1 n24", "K2 g1 n24 sos2"]
     assert imad_per_product("cios", 24) == {"lo": 1176, "hi": 1152}
     assert lane_words(dc.g1) == 24
-    for G in (dc.g1, dc.g2):
-        with pytest.raises(NotImplementedError, match="item 9e"):
-            check_built(G, "K5", True)
-        check_built(G, "K2", False)
-    check_built(device_curve("bls12_381").g1, "K5", True)
 
 
 def test_signed_digits_of_377_bit_scalars():

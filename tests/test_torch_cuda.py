@@ -508,10 +508,11 @@ def test_k7b_k7d_match_plain(dev, dc, field, kmul):
 @pytest.mark.parametrize("curve,product", [("alt_bn128", "cios"),
                                            ("bls12_381", "cios"),
                                            ("bls12_381", "eo"),
-                                           ("bls12_377", "eo")])
+                                           ("bls12_377", "eo"),
+                                           ("bw6_761", "cios")])
 def test_k7b_lone_matches_plain(dev, curve, product):
-    """K7b lone at 8 and 12 limbs, over CIOS and the scan's two-accumulator
-    product, the edge values first."""
+    """K7b lone at 8, 12 and 24 limbs, over CIOS and (at 12) the scan's
+    two-accumulator product, the edge values first."""
     F = device_curve(curve).fq
     rng = np.random.default_rng(13)
     a, b = (chip_smoke.rand_elements(F, 300, rng, dev) for _ in range(2))
@@ -1125,7 +1126,7 @@ def test_msm_n12_configs_match_oracle(dev, dc12, curve, group, key, fields,
                                  MsmConfig(c=8, lanes=128, **fields))
     assert got == want, key
     n = _build.LAUNCHES
-    assert n[chip_smoke.n12_name(kernel)] == 1, (key, dict(n))
+    assert n[chip_smoke.wide_name(kernel, 12)] == 1, (key, dict(n))
     assert not [k for k in n if " n12" not in k and not k.startswith(
         "K2 sort")], dict(n)
 
@@ -1269,17 +1270,100 @@ def test_msm_n24_matches_oracle(dev, dc24, group):
     assert not [k for k in n if not k.endswith("n24") and k != "K2 sort g1"]
 
 
-@pytest.mark.parametrize("fields", [{"merge": "kernel"}, {"merge": True},
-                                    {"engine": "pallas"}, {"kmul": "sos"},
-                                    {"kmul": "sos2"}])
-def test_msm_n24_later_settings_raise_9e(dev, dc24, fields):
-    """Every MsmConfig setting whose 24-limb kernel is not built (K5, K2m,
-    K6, the SOS products) raises naming ROADMAP item 9e on the card,
-    before any K2 chain runs: no plain fallback."""
-    G = dc24.g1
-    s, A, _ = workload.msm_case(dc24, "g1", 10, dev, 96)
-    cfg = MsmConfig(c=8, lanes=128, **fields)
+# steps of the 24-limb K2m checks: above insert.cuh's 24-limb kEntries
+# (128), so the chain kernel runs 2 threads a lane
+K2M_N24_STEPS = 130
+
+
+@pytest.fixture(scope="module")
+def n24_case(dev, dc24):
+    """Per group: distinct points (some at infinity) through the path's
+    digits at c = 8, 128 lanes and K2M_N24_STEPS steps, cut to 1 window
+    (the 24-limb plain insert takes its steps one after another), with
+    the plain raw buckets and their plain lane totals."""
+    out = {}
+    for group in GROUPS24:
+        G = getattr(dc24, group)
+        d, pts, B = chip_smoke.k2_inputs(dc24, group, K2M_N24_STEPS * 128,
+                                         MsmConfig(c=8, lanes=128),
+                                         np.random.default_rng(97), dev)
+        d = d[:1].contiguous()
+        raw = insert_plain(G, d, pts, B)
+        out[group] = (G, d, pts, B, raw, merge_lanes_plain(G, raw))
+    return out
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+@pytest.mark.parametrize("kmul", KMULS)
+def test_k2_k2m_k5_n24_match_plain(dev, n24_case, group, kmul):
+    """At 24 limbs under each kmul, on both groups (the Fp branch at b3 =
+    -3 and 12): K2 (raw buckets) against insert_plain, K5 on them and K2m
+    (two chain threads a lane) against merge_lanes_plain, each one launch
+    under its own name ("K2 g1 n24 sos", ...), K2m never counted as K5."""
+    G, d, pts, B, raw, merged = n24_case[group]
+    for name, fn, want in (
+            ("K2", lambda: insert(G, d, pts, B, kmul=kmul), raw),
+            ("K5", lambda: merge_lanes(G, raw, kmul), merged),
+            ("K2m", lambda: insert(G, d, pts, B, merge=True, kmul=kmul),
+             merged)):
+        key = _build.kmul_name(f"{name} g1 n24", kmul)
+        before = dict(_build.LAUNCHES)
+        got = fn()
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+        assert {k for k, v in _build.LAUNCHES.items()
+                if v != before.get(k, 0)} <= {key, "K2 sort g1"}
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (name, kmul)
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+@pytest.mark.parametrize("L", [1, 2, 32, 64, 512, 1024, 2048])
+def test_k5_n24_matches_plain_at_every_lane_count(dev, dc24, group, L):
+    """K5 at 24 limbs under each kmul against merge_lanes_plain at lane
+    counts from 1 to 2048 (the in-thread walk alone, the butterfly alone,
+    both, and the far slots past the near ones from L = 1024), on 3
+    windows of 7 buckets with identity buckets and lanes at infinity."""
+    G = getattr(dc24, group)
+    raw = workload.merge_inputs(G, 3, 7, L, np.random.default_rng(L + 98),
+                                dev)
+    want = merge_lanes_plain(G, raw)
+    for kmul in KMULS:
+        name = _build.kmul_name("K5 g1 n24", kmul)
+        before = _build.LAUNCHES[name]
+        got = merge_lanes(G, raw, kmul)
+        assert _build.LAUNCHES[name] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kmul
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+def test_k6_n24_matches_plain(dev, n24_case, group):
+    """K6, the v1 insert, over 24-limb Fp on both groups (both over Fq):
+    insert_plain's raw buckets, one launch counted as "K6 g1 n24"."""
+    G, d, pts, B, raw, _ = n24_case[group]
+    before = _build.LAUNCHES["K6 g1 n24"]
+    got = insert_v1(G, d, pts, B)
+    assert _build.LAUNCHES["K6 g1 n24"] == before + 1
+    for g, w in zip(got, raw):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("group", GROUPS24)
+@pytest.mark.parametrize("key,fields,kernel", chip_smoke.MSM_VARIANTS["g1"])
+def test_msm_n24_configs_match_oracle(dev, dc24, group, key, fields,
+                                      kernel):
+    """Every MsmConfig setting beside the default on BW6-761's G1 and G2
+    MSMs (c = 8, 128 lanes; both on the kernels' Fp branch, so both take
+    every G1 setting, K6 among them): the oracle's point, the setting's
+    kernel launched under its 24-limb name and no 8- or 12-limb kernel
+    but K2's sort: nothing raises, nothing falls back to a plain
+    version."""
+    s, A, want = workload.msm_case(dc24, group, 10, dev, 96)
     _build.LAUNCHES.clear()
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        workload.run_msm(G, s, A, cfg)
-    assert not [k for k in _build.LAUNCHES if k.startswith("K2 g")]
+    got, _, _ = workload.run_msm(getattr(dc24, group), s, A,
+                                 MsmConfig(c=8, lanes=128, **fields))
+    assert got == want, key
+    n = _build.LAUNCHES
+    assert n[chip_smoke.wide_name(kernel, 24)] == 1, (key, dict(n))
+    assert not [k for k in n if not k.endswith(" n24") and " n24 " not in k
+                and k != "K2 sort g1"], dict(n)

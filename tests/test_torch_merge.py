@@ -26,7 +26,8 @@ from libff_tpu_torch.curves.group import AffinePoint, Group, ProjectivePoint
 from libff_tpu_torch.fields.fp import PrimeField
 from libff_tpu_torch.fields.tower import ExtField
 from libff_tpu_torch.msm.insert import insert, insert_v1
-from libff_tpu_torch.msm.merge import merge_lanes, merge_lanes_plain
+from libff_tpu_torch.msm.merge import (PLAIN_WINDOWS, merge_lanes,
+                                       merge_lanes_plain)
 from libff_tpu_torch.msm.pippenger import (MsmConfig, _halve_lanes,
                                            _reduce_buckets, msm_pippenger,
                                            window_totals_v1)
@@ -158,6 +159,15 @@ def test_merge_equals_reduce_halving_loop(group, L):
     want = _halve_lanes(G, P)
     assert want.z.shape[-1] == 1
     _equal(merge_lanes_plain(G, P), want)
+
+
+def test_merge_plain_takes_windows_in_chunks():
+    """Past PLAIN_WINDOWS windows the plain merge runs them in chunks and
+    still gives the halving loop's buckets, window for window."""
+    G = device_curve("alt_bn128").g1
+    shape = (PLAIN_WINDOWS + 1, 2, 4)
+    P = _random_buckets(G, np.random.default_rng(83), shape)
+    _equal(merge_lanes_plain(G, P), _halve_lanes(G, P))
 
 
 # -- the MSM under every engine and merge setting -------------------------
